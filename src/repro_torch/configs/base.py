@@ -1,0 +1,112 @@
+"""Architecture configuration schema + shape grid.
+
+Every assigned architecture is one frozen :class:`ArchConfig`; smoke tests use
+``reduced()`` variants of the same family.  Shapes come from the assignment's
+per-arch grid (train_4k / prefill_32k / decode_32k / long_500k).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+__all__ = ["ArchConfig", "ShapeSpec", "SHAPES"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    act: str = "swiglu"              # swiglu | gelu | relu2
+    norm: str = "rmsnorm"            # rmsnorm | layernorm
+    qkv_bias: bool = False
+    rope: str = "standard"           # standard | mrope | none
+    head_dim: Optional[int] = None   # default d_model // n_heads
+    rope_theta: float = 10_000.0
+    # MoE
+    moe_experts: int = 0
+    moe_topk: int = 0
+    moe_capacity: float = 1.25
+    # SSM (rwkv6 / mamba2)
+    ssm_kind: str = ""               # "" | rwkv6 | mamba2
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    hybrid_period: int = 0           # zamba2: shared attn block every k layers
+    # encoder-decoder (whisper)
+    enc_layers: int = 0
+    enc_seq: int = 0                 # precomputed frame embeddings length
+    # misc
+    tie_embeddings: bool = False
+    vocab_pad_to: int = 256
+    dtype: str = "float32"
+    source: str = ""                 # provenance tag from the assignment
+    # dry-run probes replace lax.scan with an unrolled loop so XLA cost
+    # analysis (which counts while-bodies ONCE) can be composed exactly
+    unroll_scan: bool = False
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim if self.head_dim else self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        p = self.vocab_pad_to
+        return (self.vocab_size + p - 1) // p * p
+
+    @property
+    def is_subquadratic(self) -> bool:
+        """Supports the long_500k decode cell (SSM / linear-attn / hybrid)."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def has_decoder(self) -> bool:
+        return True  # all assigned archs decode (whisper via its decoder)
+
+    def reduced(self) -> "ArchConfig":
+        """Smoke-test variant: same family/wiring, tiny dims."""
+        heads = min(self.n_heads, 4)
+        kv = min(self.n_kv_heads, max(1, heads // 2))
+        layers = 4 if self.hybrid_period else 2
+        return dataclasses.replace(
+            self,
+            name=self.name + "-smoke",
+            n_layers=layers,
+            d_model=64,
+            n_heads=heads,
+            n_kv_heads=kv,
+            head_dim=16,
+            d_ff=96 if not self.moe_experts else 32,
+            vocab_size=509,          # deliberately non-multiple: tests padding
+            vocab_pad_to=64,
+            moe_experts=min(self.moe_experts, 4) if self.moe_experts else 0,
+            moe_topk=min(self.moe_topk, 2) if self.moe_topk else 0,
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_headdim=16 if self.ssm_kind else 64,
+            hybrid_period=2 if self.hybrid_period else 0,
+            enc_layers=2 if self.enc_layers else 0,
+            enc_seq=16 if self.enc_seq else 0,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}

@@ -1,0 +1,12 @@
+"""Granite-3.0 1B-a400m: MoE 32 experts top-8
+[hf:ibm-granite/granite-3.0-1b-a400m-base; hf]."""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="granite-moe-1b-a400m", family="moe", n_layers=24, d_model=1024,
+    n_heads=16, n_kv_heads=8, d_ff=512, vocab_size=49_155,
+    act="swiglu", qkv_bias=False, rope="standard",
+    moe_experts=32, moe_topk=8,
+    source="hf:ibm-granite/granite-3.0-1b-a400m-base; hf",
+)
+SMOKE = CONFIG.reduced()
