@@ -12,17 +12,19 @@ toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
   2. Builds every kernel of ``src/repro_torch/csrc`` into
      ``build/repro_torch`` (one nvcc per source, in parallel) and times it.
   3. Holds each kernel against its plain PyTorch version on the card:
-     ``fused_qlhs_matmul`` at every (K, N) of granite-3-2b's serving path
-     for M in {1, 8, 128} plus ragged shapes, within
-     max|kernel - plain| <= 1e-6 * max|plain| (float32 round-off; the
-     kernel rounds each operation explicitly, so 0 is expected), and
-     ``kv_dequant_rows`` bit for bit (``torch.equal``).
+     ``fused_qlhs_matmul`` (forward) at every (K, N) of granite-3-2b's
+     serving path for M in {1, 8, 128} plus ragged shapes; its dX/SR mode,
+     ``q8_matmul`` and ``fused_qboth_tn_matmul`` at every GEMM of the
+     statquant-tx training step (512 tokens), at granite-3-2b's (K, N)
+     with 2048 tokens, and ragged; all within max|kernel - plain| <= 1e-6
+     * max|plain| (float32 round-off; the kernels round each operation
+     explicitly, so 0 is expected), and ``kv_dequant_rows`` bit for bit.
   4. Serves granite-3-2b at full width (40 layers, random weights from the
      seed) through ``ServeEngine(slots=8, max_seq=256, kv_quant=True)`` on
      the ``kernel`` backend: 16 requests, prompts of 16-128 tokens,
      ``max_new=32``, greedy plus a few temperature/top-k requests.  Launch
-     counters are zeroed just before and read just after; each must be
-     positive and equal the count the path implies.  Two requests served
+     counters are zeroed just before and read just after; each must
+     equal the count the path implies.  Two requests served
      through the kernels and again through their plain versions (on the
      card) must give the same tokens and prefill logits.  Against the
      ``simulate`` backend (TF32 off), held to the repo's cross-backend
@@ -34,15 +36,32 @@ toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
      that tolerance: per-tensor ``Q_f`` turns the two backends' float32
      round-off into whole-code flips, and the JAX package's own backends
      differ as much at this width (tests/test_torch_fullwidth.py).
-  5. A short statquant-tx full-width run (layernorm, gelu, qkv bias),
-     with the same checks.
-  6. Times each kernel at the decode and prefill shapes with CUDA events
-     after warm-up, an L2 flush before every launch and every launch
-     queued behind a spin kernel (device time, not host dispatch), beside
-     its plain version, the bare int8 GEMM ``torch._int_mm`` as the
-     library yardstick, and its bound (bytes over 3.35 TB/s or int8
-     operations over 1,979 TOP/s, the H100 SXM data-sheet peaks).  Then
-     profiles one granite decode step: wall time, device busy time and
+  5. A short statquant-tx full-width serving run (layernorm, gelu, qkv
+     bias), with the same checks.
+  6. Trains statquant-tx at full width and depth (6 layers, d=512,
+     d_ff=1024, padded vocab 10,240; random weights from the seed) for 5
+     steps of 8 x 64 tokens through the engine ``launch/train.py`` builds
+     (AdamW, cosine schedule), on the ``kernel`` backend, under
+     ``fqt(psq, 8)`` and under ``fqt(bhq, 5)`` (bhq_block 256, the
+     launcher's default).  Checked: each policy's kernels launch exactly
+     37 times a step (36 layer GEMMs and lm_head), the rest not at all;
+     the same steps with the kernels swapped for their plain versions
+     give the same loss and gradient norm; every backward GEMM of one
+     step, re-run on ``simulate`` from its (x, w, key, dY), gives dX and
+     dW within rtol 1e-3 / atol 5e-3 and, since the gradients are far
+     smaller than that atol, within rtol 1e-3 plus an atol of 5e-3 times
+     that GEMM's max|dX| or max|dW|.  The loss trajectory against
+     ``simulate`` is printed, not held (per-tensor code flips, as in 4).
+  7. Times each kernel at its path shapes (the serving kernels at the
+     decode and prefill shapes, the training kernels at the statquant-tx
+     step's) with CUDA events after warm-up, an L2 flush before every
+     launch and every launch queued behind a spin kernel (device time,
+     not host dispatch), beside its plain version, ``torch._int_mm`` on
+     the same int8 shapes as the library yardstick (the bare int8
+     product, without the quantize and epilogue), and its bound (bytes
+     over 3.35 TB/s or int8 operations over 1,979 TOP/s, the H100 SXM
+     data-sheet peaks).  Then profiles one granite decode step and one
+     training step under each policy: wall time, device busy time and
      idle share, device time by op and by kernel.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
@@ -63,13 +82,15 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12
 FP32_OPS_PER_S = 67e12
-# device spin per timed call (about 2 ms at the H100's clocks), so the host
-# queues every timed call before the card reaches the first
+# least device spin per timed call (about 2 ms at the H100's clocks), so
+# the host queues every timed call before the card reaches the first
 SPIN_CYCLES_PER_CALL = 4_000_000
 KERNEL_TOL = 1e-6                  # max|kernel - plain| <= TOL * max|plain|
 # the repo's cross-backend tolerance (tests/test_backend.py,
 # tests/test_fqt.py)
 RTOL, ATOL = 1e-3, 5e-3
+# the backward GEMMs' atol as a fraction of the reference's largest entry
+GRAD_ATOL_FRAC = 5e-3
 
 # (K, N) of every fused_qlhs_matmul on granite-3-2b's serving path
 GRANITE_KN = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048),
@@ -127,24 +148,34 @@ def main(argv=None) -> int:
                 log(f"[build] {name}: {line.strip()}")
 
     errs = kernel_vs_plain(torch, report)
+    errs.update(train_kernel_vs_plain(torch, report))
     serve, granite_engine = serve_granite(torch, args.seed, report)
     serve_statquant(torch, args.seed, report)
+    train = train_statquant(torch, args.seed, report)
     timings = time_kernels(torch, report)
     serve["profile_decode_step"] = _profile_decode(torch, granite_engine)
 
+    def entry(name, key, source, replaces, launches):
+        return dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=launches,
+                    max_abs_err=errs[key], **timings[key])
+    csrc = "src/repro_torch/csrc/"
     kernels = [
-        dict(name="fused_qlhs_matmul", route="cuda",
-             source="src/repro_torch/csrc/fused_qlhs.cu",
-             replaces="src/repro/kernels/fused_fqt.py:93",
-             launches=serve["launches"]["fused_qlhs_matmul"],
-             max_abs_err=errs["fused_qlhs_matmul"],
-             **timings["fused_qlhs_matmul"]),
-        dict(name="kv_dequant_rows", route="cuda",
-             source="src/repro_torch/csrc/kv_dequant.cu",
-             replaces="src/repro/kernels/kv_dequant.py:31",
-             launches=serve["launches"]["kv_dequant_rows"],
-             max_abs_err=errs["kv_dequant_rows"],
-             **timings["kv_dequant_rows"]),
+        entry("fused_qlhs_matmul", "fused_qlhs_matmul",
+              csrc + "fused_qlhs.cu", "src/repro/kernels/fused_fqt.py:93",
+              serve["launches"]["fused_qlhs_matmul"]),
+        entry("kv_dequant_rows", "kv_dequant_rows", csrc + "kv_dequant.cu",
+              "src/repro/kernels/kv_dequant.py:31",
+              serve["launches"]["kv_dequant_rows"]),
+        entry("fused_qlhs_matmul (dX, SR)", "fused_qlhs_matmul_dx",
+              csrc + "fused_qlhs.cu", "src/repro/kernels/fused_fqt.py:93",
+              train["launches"]["fused_qlhs_matmul_dx"]),
+        entry("q8_matmul", "q8_matmul", csrc + "q8_matmul.cu",
+              "src/repro/kernels/q8_matmul.py:38",
+              train["launches"]["q8_matmul"]),
+        entry("fused_qboth_tn_matmul", "fused_qboth_tn_matmul",
+              csrc + "fused_qboth_tn.cu", "src/repro/kernels/fused_fqt.py:215",
+              train["launches"]["fused_qboth_tn_matmul"]),
     ]
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
@@ -249,20 +280,154 @@ def kernel_vs_plain(torch, report) -> dict:
     return worst
 
 
+def dx_operands(torch, gen, M, K, N, bits):
+    """fused_qlhs_matmul's dX-mode arguments as core/backend.fused_fqt_dx
+    builds them under PSQ: g (M, K) = dY, the (N, K) = (d_in, d_out)
+    weight codes read transposed, SR bits from prng.bits."""
+    from repro_torch import prng
+    from repro_torch.core import QuantizerSpec, quantize_ptq_det
+    import repro_torch.core.backend as backend
+    dev = gen.device
+    g = torch.randn(M, K, generator=gen, device=dev) * 1e-3
+    wq = quantize_ptq_det(torch.randn(N, K, generator=gen, device=dev)
+                          / K ** 0.5)
+    rbits = prng.bits(prng.PRNGKey(M + K + N), (M, K), dev)
+    captured = []
+    saved = backend.fused_qlhs_matmul
+    backend.fused_qlhs_matmul = lambda *a, **kw: captured.append((a, kw))
+    try:
+        backend.fused_fqt_dx(g, None, QuantizerSpec("psq", bits), wq,
+                             backend="kernel", rbits=rbits)
+    finally:
+        backend.fused_qlhs_matmul = saved
+    return captured[0][0]
+
+
+def dw_operands(torch, gen, K, M, N, bits_b):
+    """fused_qboth_tn_matmul's arguments as core/backend.fused_fqt_dw
+    builds them: X (K tokens, M = d_in) with its forward (scale, zero),
+    dY (K, N = d_out), SR bits, a_vec."""
+    from repro_torch import prng
+    from repro_torch.core.backend import _ptq_range, dw_operands as ops
+    dev = gen.device
+    x = torch.randn(K, M, generator=gen, device=dev)
+    g = torch.randn(K, N, generator=gen, device=dev) * 1e-3
+    zx, sx = _ptq_range(x, 8)
+    rbits = prng.bits(prng.PRNGKey(K + M + N), (K, N), dev)
+    return ops(x, sx, zx, 8, g, rbits, bits_b)
+
+
+def q8_operands(torch, gen, M, K, N):
+    """q8_matmul's arguments as core/backend.qt_gemm_nt builds them under
+    BHQ: 5-bit Householder-domain codes (M, K) against the transposed
+    (N, K) weight codes, with the epilogue vectors of q8_gemm."""
+    from repro_torch.core import epilogue_coeffs, quantize_ptq_det
+    from repro_torch.core import affine_factors
+    dev = gen.device
+    a8 = torch.randint(-16, 16, (M, K), generator=gen, device=dev,
+                       dtype=torch.int8)
+    wq = quantize_ptq_det(torch.randn(N, K, generator=gen, device=dev)
+                          / K ** 0.5)
+    bt8 = wq.int8_codes.T
+    ab, bb = affine_factors(wq.scale, wq.zero, 8)
+    beta_a = 16.0 + torch.randn(M, generator=gen, device=dev)
+    coeffs = epilogue_coeffs(a8, 1.0, beta_a, bt8, ab, bb)
+    return (a8, bt8) + tuple(c.contiguous() for c in coeffs)
+
+
+def train_shapes():
+    """(M, K, N) of each training kernel at every GEMM of the statquant-tx
+    step (512 tokens; d_in -> d_out of q/k/v/o, fc1, fc2, lm_head), at
+    granite-3-2b's (K, N) with 2048 tokens, and ragged.  dX GEMMs are
+    (tokens, d_out, d_in); dW GEMMs (tokens, d_in, d_out)."""
+    st = [(512, 512), (512, 1024), (1024, 512), (512, 10240)]
+    gr = GRANITE_KN
+    rag = [(33, 67, 130), (1, 64, 49), (37, 130, 67)]
+    dx = [(512, n, k) for k, n in st] + [(2048, n, k) for k, n in gr] + rag
+    dw = [(512, k, n) for k, n in st] + [(2048, k, n) for k, n in gr] + rag
+    return dx, dw
+
+
+def train_kernel_vs_plain(torch, report) -> dict:
+    """The three training kernels against their plain versions on the card
+    at every shape of ``train_shapes``, within KERNEL_TOL (0 expected)."""
+    from repro_torch.kernels import (fused_qboth_tn_matmul,
+                                     fused_qboth_tn_matmul_plain,
+                                     fused_qlhs_matmul,
+                                     fused_qlhs_matmul_plain, q8_matmul,
+                                     q8_matmul_plain)
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    dx, dw = train_shapes()
+    rows = []
+    worst = {"fused_qlhs_matmul_dx": 0.0, "q8_matmul": 0.0,
+             "fused_qboth_tn_matmul": 0.0}
+
+    def hold(name, shape, got, ref):
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        rows.append(dict(kernel=name, shape=list(shape), max_abs_err=err,
+                         max_abs_ref=scale))
+        log(f"[kernel] {name} {tuple(shape)} max|d|={err:.3g} "
+            f"max|ref|={scale:.4g}")
+        check(bool(torch.isfinite(got).all()), f"{name} {shape}: non-finite")
+        check(err <= KERNEL_TOL * scale,
+              f"{name} {shape}: max|d| {err} > {KERNEL_TOL} * {scale}")
+        worst[name] = max(worst[name], err)
+
+    for i, (M, K, N) in enumerate(dx):
+        bits = 8 if i % 3 else 4
+        ops = dx_operands(torch, gen, M, K, N, bits)
+        hold("fused_qlhs_matmul_dx", (M, K, N),
+             fused_qlhs_matmul(*ops, bits=bits, trans_b=True),
+             fused_qlhs_matmul_plain(*ops, bits=bits, trans_b=True))
+        ops = q8_operands(torch, gen, M, K, N)
+        hold("q8_matmul", (M, K, N), q8_matmul(*ops), q8_matmul_plain(*ops))
+    for i, (K, M, N) in enumerate(dw):
+        bits_b = 8 if i % 3 else 5
+        ops = dw_operands(torch, gen, K, M, N, bits_b)
+        hold("fused_qboth_tn_matmul", (K, M, N),
+             fused_qboth_tn_matmul(*ops, bits_a=8, bits_b=bits_b),
+             fused_qboth_tn_matmul_plain(*ops, bits_a=8, bits_b=bits_b))
+    report["train_kernel_vs_plain"] = rows
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # the main path: serving
 # ---------------------------------------------------------------------------
 
+def _kernel_wrappers():
+    from repro_torch import kernels
+    return (kernels.fused_qlhs_matmul, kernels.kv_dequant_rows,
+            kernels.q8_matmul, kernels.fused_qboth_tn_matmul)
+
+
 def _reset_counts():
-    from repro_torch.kernels import fused_qlhs_matmul, kv_dequant_rows
-    fused_qlhs_matmul.launches = 0
-    kv_dequant_rows.launches = 0
+    """Every kernel's launch count to 0."""
+    for fn in _kernel_wrappers():
+        fn.launches = 0
+    _kernel_wrappers()[0].launches_dx = 0
 
 
 def _read_counts():
-    from repro_torch.kernels import fused_qlhs_matmul, kv_dequant_rows
-    return {"fused_qlhs_matmul": fused_qlhs_matmul.launches,
-            "kv_dequant_rows": kv_dequant_rows.launches}
+    """Launches by kernel (and mode) since the last reset."""
+    qlhs, kv, q8, qboth = _kernel_wrappers()
+    return {"fused_qlhs_matmul": qlhs.launches - qlhs.launches_dx,
+            "fused_qlhs_matmul_dx": qlhs.launches_dx,
+            "kv_dequant_rows": kv.launches, "q8_matmul": q8.launches,
+            "fused_qboth_tn_matmul": qboth.launches}
+
+
+def _check_counts(counts, want, tag):
+    """The path's kernels launched exactly as often as it implies; the
+    others not at all."""
+    for name, n in counts.items():
+        w = want.get(name, 0)
+        if w:
+            check(n > 0, f"{tag}: {name} never launched on the main path")
+        check(n == w, f"{tag}: {name} launched {n} times, the path implies "
+                      f"{w}")
 
 
 def _prefill_logits(torch, model, params, prompt, backend):
@@ -425,20 +590,24 @@ def _vs_plain(torch, cfg, params, prompts, tag):
 
 
 def _profile_decode(torch, eng):
-    """One full-batch decode step: its wall time (median of 5 runs without
-    the profiler), and from one profiled run (torch.profiler) the device's
-    busy time (the sum over kernels and copies on the card), the idle
-    share, and the device time by kernel and by the PyTorch op that
-    launched it."""
-    import numpy as np
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """One full-batch granite decode step, profiled by ``_profile``."""
     B = eng.slots
     cache = eng.model.init_cache_quant(eng.cfg, B, eng.max_seq, device="cuda")
     tok = torch.ones((B, 1), dtype=torch.int64, device="cuda")
     pos = torch.full((B,), eng.max_seq // 2, dtype=torch.int64, device="cuda")
     step = lambda: eng.model.decode(eng.params, cache, {"tokens": tok},  # noqa: E731
                                     eng.policy, positions=pos, kv_quant=True)
+    return _profile(torch, step, f"one decode step ({B} slots)")
+
+
+def _profile(torch, step, label):
+    """``step``'s wall time (median of 5 runs without the profiler), and
+    from one profiled run (torch.profiler) the device's busy time (the sum
+    over kernels and copies on the card), the idle share, and the device
+    time by kernel and by the PyTorch op that launched it."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     step()
     torch.cuda.synchronize()
     walls = []
@@ -462,14 +631,15 @@ def _profile_decode(torch, eng):
     kernels.sort(reverse=True)
     ops.sort(reverse=True)
     busy = sum(r[0] for r in kernels)
-    log(f"[profile] one decode step ({B} slots): wall {wall:.2f} ms (median "
-        f"of 5, no profiler), device busy {busy:.2f} ms, idle share "
-        f"{1 - busy / wall:.3f}")
+    log(f"[profile] {label}: wall {wall:.2f} ms (median of 5, no profiler), "
+        f"device busy {busy:.2f} ms, idle share {1 - busy / wall:.3f}, "
+        f"{sum(r[1] for r in kernels)} device kernels")
     for ms, n, name in ops[:12]:
         log(f"[profile]   op     {ms:9.3f} ms {n:6d}x {name[:80]}")
-    for ms, n, name in kernels[:8]:
+    for ms, n, name in kernels[:10]:
         log(f"[profile]   kernel {ms:9.3f} ms {n:6d}x {name[:80]}")
     return dict(wall_ms=wall, walls_ms=walls, device_busy_ms=busy,
+                device_kernels=sum(r[1] for r in kernels),
                 ops=[dict(ms=ms, count=n, name=name) for ms, n, name
                      in ops[:25]],
                 kernels=[dict(ms=ms, count=n, name=name) for ms, n, name
@@ -531,15 +701,12 @@ def serve_granite(torch, seed, report):
         f"p50 {res['p50_step_ms']:.2f} ms p95 {res['p95_step_ms']:.2f} ms, "
         f"peak {res['peak_mem_gb']:.1f} GB")
     log(f"[granite] launches {counts} expected {want}")
+    _check_counts(counts, want, "granite")
     check(len(done) == 16, f"granite: {len(done)} of 16 requests completed")
     check(all(len(c.tokens) == 32 for c in done.values()),
           "granite: a request ended before max_new")
     check(all(0 <= t < cfg.vocab_size for c in done.values()
               for t in c.tokens), "granite: token outside the vocabulary")
-    for name, n in counts.items():
-        check(n > 0, f"granite: {name} never launched on the main path")
-        check(n == want[name], f"granite: {name} launched {n} times, the "
-                               f"path implies {want[name]}")
     res["max_abs_diff_vs_plain_path"] = _vs_plain(
         torch, cfg, params, prompts[:2], "granite")
     res["vs_simulate"] = _full_width_vs_simulate(
@@ -577,10 +744,7 @@ def serve_statquant(torch, seed, report) -> None:
     want = {"fused_qlhs_matmul": _gemms_per_forward(cfg) * (len(prompts)
                                                            + steps),
             "kv_dequant_rows": 2 * cfg.n_layers * steps}
-    for name, n in counts.items():
-        check(n > 0, f"statquant-tx: {name} never launched on the main path")
-        check(n == want[name], f"statquant-tx: {name} launched {n} times, "
-                               f"the path implies {want[name]}")
+    _check_counts(counts, want, "statquant-tx")
     report["statquant"] = dict(
         requests=len(done), launches=counts,
         max_abs_diff_vs_plain_path=_vs_plain(torch, cfg, params, prompts[:2],
@@ -589,6 +753,201 @@ def serve_statquant(torch, seed, report) -> None:
                                             "statquant"),
         reduced_max_abs_diff_vs_simulate=_reduced_vs_simulate(
             torch, cfg.name, seed))
+
+
+# ---------------------------------------------------------------------------
+# the main path: training
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 5
+
+
+def _train_policy(quant, bits, backend):
+    """The launcher's FQT policy (``launch/train.py``: bhq_block=256)."""
+    from repro_torch.core import QuantPolicy
+    return QuantPolicy.fqt(quant, bits, bhq_block=256, backend=backend)
+
+
+def _train_engine(cfg, quant, bits, backend, seed):
+    """The engine ``python -m repro_torch.launch.train --full --quant
+    QUANT --grad-bits BITS --backend BACKEND`` builds (batch 8, seq 64)."""
+    from repro_torch.engine import Engine
+    return Engine(cfg, _train_policy(quant, bits, backend),
+                  steps=TRAIN_STEPS, batch_size=8, seq_len=64, seed=seed,
+                  device="cuda", log_every=1, log_fn=log)
+
+
+def _replay(torch, eng, steps=TRAIN_STEPS):
+    """``steps`` steps of the engine's own step from its initial state:
+    [(loss, grad_norm)] per step."""
+    state, out = eng.init_state(), []
+    for s in range(steps):
+        state, m = eng.step_fn(state, eng.loader.get(s))
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    return out
+
+
+def _replay_plain(torch, eng):
+    """``_replay`` with every training kernel's wrapper swapped for its
+    plain version (on the card): same device, same ops around them."""
+    import repro_torch.core.backend as backend
+    from repro_torch.kernels import (fused_qboth_tn_matmul_plain,
+                                     fused_qlhs_matmul_plain,
+                                     q8_matmul_plain)
+    saved = (backend.fused_qlhs_matmul, backend.fused_qboth_tn_matmul,
+             backend.q8_matmul)
+    backend.fused_qlhs_matmul = fused_qlhs_matmul_plain
+    backend.fused_qboth_tn_matmul = fused_qboth_tn_matmul_plain
+    backend.q8_matmul = q8_matmul_plain
+    try:
+        return _replay(torch, eng)
+    finally:
+        (backend.fused_qlhs_matmul, backend.fused_qboth_tn_matmul,
+         backend.q8_matmul) = saved
+
+
+def _step_gemms(torch, eng):
+    """Every quantized GEMM of one training step, as (path, x, w, key, g):
+    its inputs and the gradient that reached its output."""
+    import repro_torch.layers.common as common
+    import repro_torch.layers.embeddings as embeddings
+    from repro_torch.core import fqt_matmul
+    calls = []
+
+    def spy(x, w, key, policy, path=""):
+        y = fqt_matmul(x, w, key, policy, path=path)
+        rec = [path, x.detach().clone(), w.detach().clone(), key, None]
+        calls.append(rec)
+        y.register_hook(lambda g: rec.__setitem__(4, g.detach().clone()))
+        return y
+
+    saved = common.fqt_matmul, embeddings.fqt_matmul
+    common.fqt_matmul = embeddings.fqt_matmul = spy
+    try:
+        eng.step_fn(eng.init_state(), eng.loader.get(0))
+    finally:
+        common.fqt_matmul, embeddings.fqt_matmul = saved
+    return calls
+
+
+def _backward_vs_simulate(torch, eng, quant, bits, tag) -> dict:
+    """Each backward GEMM of one step re-run from its (x, w, key, g) on the
+    kernel backend and on ``simulate``: dX and dW within rtol 1e-3 / atol
+    5e-3 (the repo's cross-backend tolerance), and within rtol 1e-3 plus
+    an atol of ``GRAD_ATOL_FRAC`` times the reference's max|.| — the
+    gradients lie far below 5e-3, so only this second check can catch a
+    wrong backward GEMM.  ``margin`` is the largest share of that scaled
+    tolerance any entry used (at most 1)."""
+    from repro_torch.core import fqt_matmul
+    calls = _step_gemms(torch, eng)
+    n = _gemms_per_forward(eng.cfg)
+    check(len(calls) == n, f"{tag}: {len(calls)} quantized GEMMs in one "
+                           f"step, the path implies {n}")
+    worst = {k: 0.0 for k in ("dx", "dw", "dx_ref", "dw_ref", "dx_margin",
+                              "dw_margin")}
+    for path, x, w, key, g in calls:
+        check(g is not None, f"{tag}: no gradient reached {path}")
+        grads = []
+        for backend in ("kernel", "simulate"):
+            xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+            y = fqt_matmul(xr, wr, key, _train_policy(quant, bits, backend),
+                           path=path)
+            grads.append(torch.autograd.grad(y, (xr, wr), g))
+        for name, got, ref in zip(("dx", "dw"), grads[0], grads[1]):
+            d = (got - ref).abs()
+            peak = float(ref.abs().max())
+            tol = RTOL * ref.abs() + GRAD_ATOL_FRAC * peak
+            margin = (float((d / tol).max()) if peak > 0 else
+                      0.0 if float(d.max()) == 0 else float("inf"))
+            worst[name] = max(worst[name], float(d.max()))
+            worst[name + "_ref"] = max(worst[name + "_ref"], peak)
+            worst[name + "_margin"] = max(worst[name + "_margin"], margin)
+            check(within_tol(got, ref),
+                  f"{tag}: {path} x {tuple(x.shape)}: kernel vs simulate "
+                  f"{name} differ by {float(d.max())} beyond rtol "
+                  f"{RTOL}/atol {ATOL}")
+            check(margin <= 1.0,
+                  f"{tag}: {path} x {tuple(x.shape)}: kernel vs simulate "
+                  f"{name} differ by {float(d.max())} beyond rtol {RTOL} "
+                  f"+ {GRAD_ATOL_FRAC} * max|{name}| ({peak:.3g}); share "
+                  f"of that tolerance used {margin:.3g}")
+    log(f"[{tag}] every backward GEMM of one step ({n}) re-run from its "
+        f"(x, w, key, g): kernel vs simulate max|d| dX {worst['dx']:.3g} "
+        f"(max|dX| {worst['dx_ref']:.3g}), dW {worst['dw']:.3g} (max|dW| "
+        f"{worst['dw_ref']:.3g}) (checked, rtol {RTOL}, atol {ATOL}); "
+        f"share of rtol {RTOL} + {GRAD_ATOL_FRAC}*max|ref| used, worst "
+        f"GEMM: dX {worst['dx_margin']:.3g}, dW {worst['dw_margin']:.3g} "
+        f"(checked, <= 1)")
+    return worst
+
+
+def train_statquant(torch, seed, report) -> dict:
+    """statquant-tx at full width and depth trains TRAIN_STEPS steps under
+    fqt(psq, 8) and fqt(bhq, 5) on the kernel backend through the engine,
+    with the checks of the module docstring."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    cfg = get_config("statquant-tx")
+    n = _gemms_per_forward(cfg)
+    total = {}
+    res = {}
+    for quant, bits in (("psq", 8), ("bhq", 5)):
+        tag = f"train {quant}{bits}"
+        eng = _train_engine(cfg, quant, bits, "kernel", seed)
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        history = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        want = {"fused_qlhs_matmul": n * TRAIN_STEPS,
+                "fused_qboth_tn_matmul": n * TRAIN_STEPS,
+                ("fused_qlhs_matmul_dx" if quant == "psq" else "q8_matmul"):
+                    n * TRAIN_STEPS}
+        log(f"[{tag}] {cfg.name} full width: {cfg.n_layers} layers, "
+            f"{TRAIN_STEPS} steps of 8 x 64 tokens in {wall:.2f}s, "
+            f"launches {counts} expected {want}")
+        _check_counts(counts, want, tag)
+        for name, c in counts.items():
+            total[name] = total.get(name, 0) + c
+        losses = [loss for _, loss in history]
+        check(len(losses) == TRAIN_STEPS and all(
+            np.isfinite(v) for v in losses), f"{tag}: losses {losses}")
+        kern = _replay(torch, eng)
+        check([k[0] for k in kern] == losses,
+              f"{tag}: the engine's run and its replay differ: {losses} vs "
+              f"{[k[0] for k in kern]}")
+        plain = _replay_plain(torch, eng)
+        err = max(max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(k, p))
+                  for k, p in zip(kern, plain))
+        log(f"[{tag}] kernels vs plain versions, {TRAIN_STEPS} steps: "
+            f"(loss, grad norm) {kern} vs {plain}, max rel |d| {err:.3g}")
+        check(err <= KERNEL_TOL, f"{tag}: the steps through the kernels "
+                                 f"differ from the plain versions by {err}")
+        gemms = _backward_vs_simulate(torch, eng, quant, bits, tag)
+        sim = _replay(torch, _train_engine(cfg, quant, bits, "simulate",
+                                           seed))
+        log(f"[{tag}] loss trajectory kernel {[k[0] for k in kern]} vs "
+            f"simulate {[v[0] for v in sim]} (measured, not held)")
+        res[quant] = dict(
+            wall_s=wall, step_s=wall / TRAIN_STEPS, launches=counts,
+            expected_launches=want, kernel=kern, plain=plain,
+            max_rel_diff_vs_plain=err, simulate=sim,
+            backward_gemms_vs_simulate=gemms,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        res[quant]["profile_step"] = _profile(
+            torch, _one_step(eng), f"one training step, {quant}{bits}")
+    res["launches"] = total
+    report["train"] = res
+    return res
+
+
+def _one_step(eng):
+    """A closure running one step of ``eng`` from a fresh state."""
+    batch = eng.loader.get(0)
+    state0 = eng.init_state()
+    return lambda: eng.step_fn(state0, batch)
 
 
 def _leaves(tree):
@@ -608,14 +967,24 @@ def _time_ms(torch, fn, flush, iters: int) -> float:
     ``iters`` calls, each after an L2 flush (the serving path meets every
     weight cold: 280 other projections stream through between two uses).
     All calls are queued behind a spin kernel, so the events time the
-    device's work and not the host's dispatch of the call; the check below
-    holds the host to having queued them all before the spin ended."""
+    device's work and not the host's dispatch of the call; the spin is
+    sized from the host's time to queue a call (measured after warm-up),
+    and the check below holds the host to having queued them all before
+    the spin ended."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 3
+    torch.cuda.synchronize()
+    # at least 1e6 spin cycles per ms of host time (the H100's SM clock is
+    # above 1 GHz), twice over
+    cycles = max(SPIN_CYCLES_PER_CALL, int(2e6 * host_ms)) * iters
     ev = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
           for _ in range(iters + 1)]
     ev[0][0].record()
-    torch.cuda._sleep(SPIN_CYCLES_PER_CALL * iters)
+    torch.cuda._sleep(cycles)
     ev[0][1].record()
     t0 = time.perf_counter()
     for a, b in ev[1:]:
@@ -674,6 +1043,7 @@ def time_kernels(torch, report) -> dict:
                          bound_by=by))
         log(f"[time] kv_dequant_rows {(M, N)}: kernel {ms:.4f} ms, plain "
             f"{plain:.4f} ms, bound {bound:.5f} ms ({by})")
+    rows += time_train_kernels(torch, gen, flush)
     report["timings"] = rows
 
     def pick(kernel, shape):
@@ -681,10 +1051,74 @@ def time_kernels(torch, report) -> dict:
                  if r["kernel"] == kernel and r["shape"] == shape)
         return {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms")}
-    # the line's numbers: the decode-step shapes (MLP up-projection, and
-    # one layer's K or V read at 8 slots x 256 positions)
+    # the line's numbers: the decode-step shapes for the serving kernels
+    # (MLP up-projection, and one layer's K or V read at 8 slots x 256
+    # positions), the lm_head GEMMs (the largest) for the training kernels
     return {"fused_qlhs_matmul": pick("fused_qlhs_matmul", [8, 2048, 8192]),
-            "kv_dequant_rows": pick("kv_dequant_rows", [2048, 512])}
+            "kv_dequant_rows": pick("kv_dequant_rows", [2048, 512]),
+            "fused_qlhs_matmul_dx": pick("fused_qlhs_matmul_dx",
+                                         [512, 10240, 512]),
+            "q8_matmul": pick("q8_matmul", [512, 10240, 512]),
+            "fused_qboth_tn_matmul": pick("fused_qboth_tn_matmul",
+                                          [512, 512, 10240])}
+
+
+def time_train_kernels(torch, gen, flush) -> list:
+    """Each training kernel at its statquant-tx path shapes (512 tokens),
+    beside its plain version, its bound, and ``torch._int_mm`` as the
+    yardstick: the bare int8 product of codes of the same shapes, laid
+    out as the path stores them (the dX GEMMs' B is the transpose of the
+    (d_in, d_out) weight codes, the dW GEMM's A the transpose of the
+    (tokens, d_in) activations), without the kernels' quantize, SR bits
+    and epilogue."""
+    from repro_torch.kernels import (fused_qboth_tn_matmul,
+                                     fused_qboth_tn_matmul_plain,
+                                     fused_qlhs_matmul,
+                                     fused_qlhs_matmul_plain, q8_matmul,
+                                     q8_matmul_plain)
+    dx, dw = train_shapes()
+    rows = []
+
+    def codes(*shape):
+        return torch.zeros(shape, dtype=torch.int8, device="cuda")
+
+    def one(name, shape, fn, plain, lib_args, mnk, nbytes):
+        M, N, K = mnk
+        ms = _time_ms(torch, fn, flush, 20)
+        plain_ms = _time_ms(torch, plain, flush, 5)
+        lib = _time_ms(torch, lambda: torch._int_mm(*lib_args), flush, 20)
+        bound, by = _bound(nbytes, 2.0 * M * N * K, INT8_OPS_PER_S)
+        rows.append(dict(kernel=name, shape=list(shape), ms=ms,
+                         plain_ms=plain_ms, library_ms=lib, bound_ms=bound,
+                         bound_by=by))
+        log(f"[time] {name} {tuple(shape)}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, _int_mm {lib:.4f} ms, bound {bound:.4f} ms "
+            f"({by})")
+
+    for (M, K, N) in dx[:4]:
+        lib_args = (codes(M, K), codes(N, K).T)
+        ops = dx_operands(torch, gen, M, K, N, 8)
+        # f32 dY and int64 SR bits in (the kernel reads the 8-byte entries
+        # as they are), (N, K) codes, (M,1) scale/zero, (N,) u, f32 dX out
+        one("fused_qlhs_matmul_dx", (M, K, N),
+            lambda: fused_qlhs_matmul(*ops, bits=8, trans_b=True),
+            lambda: fused_qlhs_matmul_plain(*ops, bits=8, trans_b=True),
+            lib_args, (M, N, K),
+            12 * M * K + K * N + 8 * M + 4 * N + 4 * M * N + 8)
+        ops = q8_operands(torch, gen, M, K, N)
+        one("q8_matmul", (M, K, N), lambda: q8_matmul(*ops),
+            lambda: q8_matmul_plain(*ops), lib_args, (M, N, K),
+            M * K + K * N + 12 * (M + N) + 4 * M * N)
+    for (K, M, N) in dw[:4]:
+        ops = dw_operands(torch, gen, K, M, N, 8)
+        # f32 X and dY, int64 SR bits (read as they are), 4 scalars, (M,)
+        # a_vec in; f32 dW out
+        one("fused_qboth_tn_matmul", (K, M, N),
+            lambda: fused_qboth_tn_matmul(*ops, bits_a=8, bits_b=8),
+            lambda: fused_qboth_tn_matmul_plain(*ops, bits_a=8, bits_b=8),
+            (codes(K, M).T, codes(K, N)), (M, N, K),
+            4 * K * M + 12 * K * N + 16 + 4 * M + 4 * M * N)
+    return rows
 
 
 if __name__ == "__main__":

@@ -12,7 +12,7 @@ per GEMM.  ``backend`` picks how every quantized GEMM executes:
 
   ``simulate``  fp32 quantize-dequantize matmul (the paper's GPU simulation)
   ``kernel``    the hand-written CUDA kernels (their plain versions on CPU)
-  ``native``    the unfused int8 GEMM path; it comes with the training slice
+  ``native``    the JAX package's XLA int8 path: not ported, raises
 """
 
 from __future__ import annotations

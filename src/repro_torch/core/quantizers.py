@@ -1,9 +1,14 @@
-"""Deterministic forward quantizer of the StatQuant paper (NeurIPS 2020).
+"""Quantizers of the StatQuant paper (NeurIPS 2020).
 
-Port of ``repro.core.quantizers`` for the serving slice: the per-tensor
-deterministic quantizer ``Q_f``/``Q_theta`` (paper Sec. 2.1) and the
-:class:`QTensor` container its codes travel in.  The stochastic backward
-quantizers (PTQ, PSQ, BHQ) come with the training slice.
+Port of ``repro.core.quantizers``: the per-tensor deterministic quantizer
+``Q_f``/``Q_theta`` (paper Sec. 2.1), the stochastic per-tensor PTQ
+(Sec. 3.3) and per-sample PSQ (Sec. 4.1) backward quantizers, and the
+:class:`QTensor` container their codes travel in.  BHQ (Sec. 4.2) is in
+:mod:`repro_torch.core.bhq`.
+
+Stochastic rounding draws its uniforms as ``prng.bits(key, shape) *
+2^-32``, the JAX package's one SR convention, so for the same key the port
+and the reference emit bit-identical codes.
 
 Codes are unsigned in ``[0, 2^b - 1]`` (uint8); the GEMM kernels consume
 them shifted to signed int8, ``c8 = code - 2^(b-1)``, and
@@ -16,7 +21,11 @@ import dataclasses
 
 import torch
 
-__all__ = ["QTensor", "num_bins", "tensor_min_max", "quantize_ptq_det"]
+from .. import prng
+
+__all__ = ["QTensor", "num_bins", "tensor_min_max", "row_dynamic_range",
+           "sr_uniform", "stochastic_round", "quantize_ptq_det",
+           "quantize_ptq_stoch", "quantize_psq_stoch"]
 
 # Tiny epsilon guarding against zero dynamic range (constant tensors
 # quantize to a single code; scale must stay finite).
@@ -82,5 +91,50 @@ def quantize_ptq_det(x: torch.Tensor, bits: int = 8) -> QTensor:
     zero, hi = tensor_min_max(x)
     scale = B / torch.clamp_min(hi - zero, _EPS)
     codes = torch.clamp(torch.round(scale * (x - zero)), 0, B).to(torch.uint8)
+    return QTensor(codes=codes, scale=scale, zero=zero, bits=bits,
+                   shape=tuple(x.shape))
+
+
+def row_dynamic_range(x2d: torch.Tensor) -> torch.Tensor:
+    """Per-row dynamic range R(x_i) for an (N, D) matrix (paper Sec. 4.1)."""
+    return torch.amax(x2d, dim=-1) - torch.amin(x2d, dim=-1)
+
+
+def sr_uniform(key: torch.Tensor, shape, device=None) -> torch.Tensor:
+    """U[0,1) uniforms for SR, float32, derived as ``bits * 2^-32``
+    (the integer-to-float conversion rounds to nearest, as XLA's)."""
+    return prng.bits(key, shape, device).to(torch.float32) * \
+        (1.0 / 4294967296.0)
+
+
+def stochastic_round(x: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """SR(x) = floor(x + u), u ~ U[0,1): unbiased (paper Sec. 3.3)."""
+    return torch.floor(x + sr_uniform(key, x.shape, x.device))
+
+
+def quantize_ptq_stoch(x: torch.Tensor, key: torch.Tensor,
+                       bits: int = 8) -> QTensor:
+    """PTQ: stochastic per-tensor quantizer (paper Sec. 3.3),
+    ``Q_b(x) = SR(S (x - Z)) / S + Z`` with Z = min x, S = B / R(x)."""
+    B = num_bins(bits)
+    zero, hi = tensor_min_max(x)
+    scale = B / torch.clamp_min(hi - zero, _EPS)
+    codes = stochastic_round(scale * (x - zero), key)
+    codes = torch.clamp(codes, 0, B).to(torch.uint8)
+    return QTensor(codes=codes, scale=scale, zero=zero, bits=bits,
+                   shape=tuple(x.shape))
+
+
+def quantize_psq_stoch(x: torch.Tensor, key: torch.Tensor,
+                       bits: int = 8) -> QTensor:
+    """PSQ: stochastic per-sample quantizer (paper Sec. 4.1), one scale
+    ``s_i = B / R(x_i)`` and zero ``z_i = min x_i`` per row, (N, 1)."""
+    B = num_bins(bits)
+    rows = x.reshape(-1, x.shape[-1])
+    zero = torch.amin(rows, dim=-1, keepdim=True)
+    rng = torch.clamp_min(row_dynamic_range(rows)[:, None], _EPS)
+    scale = B / rng
+    codes = stochastic_round(scale * (rows - zero), key)
+    codes = torch.clamp(codes, 0, B).to(torch.uint8)
     return QTensor(codes=codes, scale=scale, zero=zero, bits=bits,
                    shape=tuple(x.shape))

@@ -8,11 +8,12 @@ each tensor role of the linear-layer training step (Sec. 2, Eq. 3/6):
   ``wgrad``       Q_b1     output-grad operand of the dW GEMM (stochastic)
   ``agrad``       Q_b2     output-grad operand of the dX GEMM (stochastic)
 
-plus the serving-time ``kv_cache`` role.  This slice ports the forward
-quantizer (``ptq_det``) and the int8 KV codec (``kv_int8``).  ``ptq``,
-``psq`` and ``bhq`` are registered so that policies naming them resolve
-(``QuantPolicy`` checks its ``grad_quantizer`` against the registry), but
-their ``quantize`` raises until the training slice ports them.
+plus the serving-time ``kv_cache`` role: the forward quantizer
+(``ptq_det``), the stochastic backward quantizers (``ptq``, ``psq``,
+``bhq``) and the int8 KV codec (``kv_int8``).  On the ``kernel`` backend
+the FQT step fuses PTQ/PSQ into the GEMM kernels; PTQ/PSQ in an unfused
+role there run through the ``quantize_sr_*`` kernels, which are not ported
+yet, and raise.
 """
 
 from __future__ import annotations
@@ -22,7 +23,9 @@ from typing import Optional
 
 import torch
 
-from .quantizers import QTensor, quantize_ptq_det
+from .bhq import quantize_bhq_stoch
+from .quantizers import (QTensor, quantize_ptq_det, quantize_psq_stoch,
+                         quantize_ptq_stoch)
 
 __all__ = [
     "BACKENDS", "ROLES", "KV_CACHE_ROLE", "QuantizerSpec", "GemmQuantConfig",
@@ -40,8 +43,11 @@ KV_CACHE_ROLE = "kv_cache"
 
 EXACT_NAME = "exact"
 
-TRAINING_SLICE = ("the training slice of the port (stochastic quantizers, "
-                  "q8_matmul and the backward kernels)")
+QUANTIZE_SR_SLICE = ("the next slice of the port (the quantize_sr_rows/"
+                     "quantize_sr_tensor kernels of the unfused training "
+                     "path, fused=False)")
+NATIVE_SLICE = ("a later slice of the port (the 'native' backend; use "
+                "'kernel', the hand-written CUDA kernels)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,28 +226,49 @@ class DeterministicPTQ(Quantizer):
         return quantize_ptq_det(x2d, spec.bits or 8)
 
 
-class _TrainingSliceQuantizer(Quantizer):
-    """A backward-role quantizer whose port waits for the training slice."""
-
-    def quantize(self, x2d, key, spec, *, backend):
+def _unfused_sr(name: str, backend: str) -> None:
+    if backend == "kernel":
         raise NotImplementedError(
-            f"quantizer {self.name!r} is not ported yet; it comes with "
-            f"{TRAINING_SLICE}")
+            f"quantizer {name!r} in an unfused role on the 'kernel' backend "
+            f"runs through the quantize_sr kernels, which come with "
+            f"{QUANTIZE_SR_SLICE}; the fused FQT step (fused=None/True) "
+            f"does not need them")
 
 
-class StochasticPTQ(_TrainingSliceQuantizer):
+class StochasticPTQ(Quantizer):
     """Q_b1 / PTQ Q_b2: stochastic per-tensor PTQ (paper Sec. 3.3)."""
+
     name = "ptq"
 
+    def quantize(self, x2d, key, spec, *, backend):
+        _unfused_sr(self.name, backend)
+        return quantize_ptq_stoch(x2d, key, spec.bits or 8)
 
-class StochasticPSQ(_TrainingSliceQuantizer):
+
+class StochasticPSQ(Quantizer):
     """PSQ Q_b2: stochastic per-sample quantizer (paper Sec. 4.1)."""
+
     name = "psq"
 
+    def quantize(self, x2d, key, spec, *, backend):
+        _unfused_sr(self.name, backend)
+        return quantize_psq_stoch(x2d, key, spec.bits or 8)
 
-class BlockHouseholder(_TrainingSliceQuantizer):
-    """BHQ Q_b2: block Householder quantizer (paper Sec. 4.2)."""
+
+class BlockHouseholder(Quantizer):
+    """BHQ Q_b2 (paper Sec. 4.2).  Params: ``block_rows`` (row-block size),
+    ``g_search`` ("refined" | "paper").  The grouping and Householder
+    transform are plain PyTorch on every backend, as the reference keeps
+    them in XLA; the GEMM it feeds, with the ``S^{-1}`` output epilogue,
+    runs on the selected backend (core/backend.py ``qt_gemm_nt``)."""
+
     name = "bhq"
+
+    def quantize(self, x2d, key, spec, *, backend):
+        return quantize_bhq_stoch(
+            x2d, key, spec.bits or 8,
+            block_rows=spec.param("block_rows", 1024),
+            g_search=spec.param("g_search", "refined"))
 
 
 class KVCacheInt8(Quantizer):

@@ -1,7 +1,8 @@
 """Unified model API: ``build_model(cfg)`` -> :class:`Model`.
 
-Port of ``repro.models.api`` for the dense family: init / prefill / decode
-plus the cache constructors.  Other families raise until their slice.
+Port of ``repro.models.api`` for the dense family: init / loss / prefill /
+decode plus the cache constructors.  Other families raise until their
+slice.
 """
 
 from __future__ import annotations
@@ -15,12 +16,24 @@ from ..configs.base import ArchConfig
 from ..device import resolve_device
 from . import lm
 
-__all__ = ["Model", "build_model"]
+__all__ = ["Model", "build_model", "model_quant_paths"]
+
+_ATTN = ("wq", "wk", "wv", "wo")
+
+
+def model_quant_paths(cfg: ArchConfig) -> tuple:
+    """The logical paths of every quantized GEMM of a dense model, the
+    strings ``QuantPolicy.resolve`` and its overrides match against."""
+    mlp_names = (("gate", "up", "down") if cfg.act == "swiglu"
+                 else ("fc1", "fc2"))
+    return tuple([f"layers.attn.{w}" for w in _ATTN]
+                 + [f"layers.mlp.{n}" for n in mlp_names] + ["lm_head"])
 
 
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ArchConfig
+    loss: Callable             # (params, batch, key, policy) -> (loss, metrics)
     prefill: Callable          # (params, batch, policy, max_seq) -> (logits, cache)
     decode: Callable           # (params, cache, batch, policy, [positions]) -> (logits, cache)
     init_cache: Callable       # (cfg, batch, max_seq, device) -> cache
@@ -38,6 +51,8 @@ def build_model(cfg: ArchConfig) -> Model:
     lm.check_dense(cfg)
     return Model(
         cfg=cfg,
+        loss=lambda params, batch, key, policy, **kw:
+            lm.lm_loss(params, batch, key, policy, cfg, **kw),
         prefill=lambda params, batch, policy, max_seq=None, **kw:
             lm.lm_prefill(params, batch, policy, cfg, max_seq, **kw),
         decode=lambda params, cache, batch, policy, **kw:

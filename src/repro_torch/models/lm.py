@@ -1,11 +1,15 @@
-"""Decoder-only LM, dense family: init, prefill and one-token decode.
+"""Decoder-only LM, dense family: init, training loss, prefill and
+one-token decode.
 
 Port of the dense branch of ``repro.models.lm``.  Per-layer parameters stay
 stacked ``(L, ...)`` with the JAX package's leaf names, and the stack runs
 as a Python loop over layer views (the counterpart of ``lax.scan``).  The
-forward quantizers are deterministic, so prefill and decode draw no
-randomness: their PRNG key is ``None``.  MoE, RWKV6, hybrid and VLM
-families come in later slices and raise here.
+training loss threads a PRNG key through the stack as the reference does
+(layer ``i`` takes ``split(key, n_layers)[i]``; the head takes ``key``, or
+``fold_in(key, chunk)`` per loss chunk): the backward's stochastic
+quantizers draw from it.  The forward quantizers are deterministic, so
+prefill and decode draw no randomness: their key is ``None``.  MoE, RWKV6,
+hybrid and VLM families come in later slices and raise here.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from .. import prng
 from ..configs.base import ArchConfig
 from ..core import QuantPolicy
 from ..layers import (apply_norm, attention, decode_attention, embed,
@@ -21,8 +26,9 @@ from ..layers import (apply_norm, attention, decode_attention, embed,
                       init_kv_cache_quant, init_lm_head, init_mlp, init_norm,
                       lm_head, mlp)
 
-__all__ = ["init_lm_params", "lm_prefill", "lm_decode", "init_lm_cache",
-           "init_lm_cache_quant", "layer_view", "check_dense"]
+__all__ = ["init_lm_params", "lm_loss", "lm_prefill", "lm_decode",
+           "init_lm_cache", "init_lm_cache_quant", "cross_entropy",
+           "chunked_head_loss", "layer_view", "check_dense"]
 
 
 def check_dense(cfg: ArchConfig) -> None:
@@ -80,19 +86,83 @@ def _tx_layer(p, h, key, policy, cfg, positions, want_kv: bool,
 def _forward_seq(params, h, key, policy: QuantPolicy, cfg: ArchConfig,
                  positions, want_cache: bool):
     """Run the layer stack over a full sequence.  Returns (h, cache) with
-    cache ``{"k", "v"}`` stacked (L, B, T, flat) or ``None``."""
+    cache ``{"k", "v"}`` stacked (L, B, T, flat) or ``None``.  ``key``:
+    ``None`` (forward only) or the key layer ``i`` splits off as
+    ``split(key, n_layers)[i]``."""
     check_dense(cfg)
-    if key is not None:
-        raise NotImplementedError("keyed forward (the training step) comes "
-                                  "with the training slice of the port")
+    keys = (None if key is None else prng.split(key, cfg.n_layers))
     kvs = []
     for i in range(cfg.n_layers):
-        h, kv = _tx_layer(layer_view(params["layers"], i), h, None, policy,
-                          cfg, positions, want_cache)
+        h, kv = _tx_layer(layer_view(params["layers"], i), h,
+                          None if keys is None else keys[i], policy, cfg,
+                          positions, want_cache)
         kvs.append(kv)
     if not want_cache:
         return h, None
     return h, {s: torch.stack([kv[s] for kv in kvs]) for s in ("k", "v")}
+
+
+def _mask_padded_vocab(logits: torch.Tensor, vocab_size: int):
+    """Logits of the padded vocabulary entries set to -1e30 (no gradient
+    flows to them)."""
+    vp = logits.shape[-1]
+    if vp <= vocab_size:
+        return logits
+    pad = torch.arange(vp, device=logits.device) >= vocab_size
+    return logits.masked_fill(pad, -1e30)
+
+
+def _token_ll(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int):
+    """Per-token log-likelihood of ``labels`` under the masked logits, in
+    float32."""
+    logp = torch.log_softmax(
+        _mask_padded_vocab(logits, vocab_size).to(torch.float32), dim=-1)
+    return torch.gather(logp, -1, labels[..., None].to(torch.int64))[..., 0]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab_size: int) -> torch.Tensor:
+    """Mean next-token CE with padded-vocab masking."""
+    return -torch.mean(_token_ll(logits, labels, vocab_size))
+
+
+def chunked_head_loss(params, h, labels, key, policy, cfg,
+                      n_chunks: int) -> torch.Tensor:
+    """lm_head projection + CE, over ``n_chunks`` token chunks when they
+    divide the tokens (each chunk's head GEMM keyed ``fold_in(key, c)``, so
+    its SR draws are independent), else in one piece keyed ``key``."""
+    d = h.shape[-1]
+    h2 = h.reshape(-1, d)
+    y2 = labels.reshape(-1)
+    R = h2.shape[0]
+    if n_chunks <= 1 or R % n_chunks != 0:
+        logits = lm_head(params["lm_head"], h, key, policy)
+        return cross_entropy(logits, labels, cfg.vocab_size)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c, (h_c, y_c) in enumerate(zip(h2.chunk(n_chunks), y2.chunk(n_chunks))):
+        logits = lm_head(params["lm_head"], h_c,
+                         None if key is None else prng.fold_in(key, c),
+                         policy)
+        total = total + torch.sum(_token_ll(logits, y_c, cfg.vocab_size))
+    return -total / R
+
+
+def lm_loss(params, batch, key, policy: QuantPolicy, cfg: ArchConfig,
+            remat: bool = False, dtype=None, loss_chunks: int = 1):
+    """Full-sequence training loss (teacher forcing).  Returns
+    ``(loss, {"ce": loss, "aux": 0.0})``.  ``remat`` is accepted and
+    ignored: the port keeps every activation the backward needs."""
+    del remat
+    h = embed(params["embed"], batch["tokens"])
+    if dtype is not None:
+        h = h.to(dtype)
+    B, T = h.shape[0], h.shape[1]
+    pos = torch.arange(T, device=h.device).expand(B, T)
+    h, _ = _forward_seq(params, h, key, policy, cfg, pos, want_cache=False)
+    h = apply_norm(params["final_norm"], h, cfg.norm)
+    loss = chunked_head_loss(params, h, batch["labels"], key, policy, cfg,
+                             loss_chunks)
+    return loss, {"ce": loss, "aux": 0.0}
 
 
 def init_lm_cache(cfg: ArchConfig, batch: int, max_seq: int,

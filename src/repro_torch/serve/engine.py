@@ -150,7 +150,7 @@ class ServeEngine:
                         **kw) -> "ServeEngine":
         raise NotImplementedError(
             "checkpoint startup (the reference checkpoint reader) comes with "
-            "the training slice of the port")
+            "the checkpoint slice of the port")
 
     def _init_cache(self):
         if self.kv_spec is not None:

@@ -182,18 +182,63 @@ def test_fqt_matmul_forward_matches_jax(backend):
                                atol=2e-5 * np.abs(want).max())
 
 
+def test_unfused_kernel_backend_runs_q8_matmul_on_cpu():
+    """``qat(backend="kernel", fused=False)``: the forward's unfused int8
+    GEMM runs q8_matmul's plain version and matches JAX ``native``."""
+    from repro.core import QuantPolicy as JaxPolicy
+    from repro.core import fqt_matmul as jax_fqt
+    from repro_torch.kernels import q8_matmul
+    rng = np.random.RandomState(2)
+    x = rng.randn(2, 7, 40).astype(np.float32)
+    w = (rng.randn(40, 33) * 0.2).astype(np.float32)
+    want = np.asarray(jax_fqt(jnp.asarray(x), jnp.asarray(w),
+                              jax.random.PRNGKey(0),
+                              JaxPolicy.qat(backend="native")))
+    before = q8_matmul.launches
+    got = fqt_matmul(_t(x), _t(w), None,
+                     QuantPolicy.qat(backend="kernel", fused=False))
+    assert q8_matmul.launches == before
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-6,
+                               atol=2e-5 * np.abs(want).max())
+
+
+def test_gradients_and_backward_quantizers_now_work():
+    from repro_torch import prng
+    from repro_torch.core import get_quantizer, QuantizerSpec
+    x = torch.randn(4, 8, requires_grad=True)
+    w = torch.randn(8, 3, requires_grad=True)
+    for pol in (QuantPolicy.qat(), QuantPolicy.fqt("bhq", 5),
+                QuantPolicy.fqt("psq", 8, backend="kernel")):
+        y = fqt_matmul(x, w, prng.PRNGKey(0), pol)
+        dx, dw = torch.autograd.grad(y.sum(), (x, w))
+        assert dx.shape == x.shape and dw.shape == w.shape
+        assert bool(torch.isfinite(dx).all() and torch.isfinite(dw).all())
+    for name in ("ptq", "psq", "bhq"):
+        q = get_quantizer(name).quantize(w.detach(), prng.PRNGKey(1),
+                                         QuantizerSpec(name, 8),
+                                         backend="simulate")
+        assert q.dequant().shape == w.shape
+
+
 def test_unported_paths_raise():
+    from repro_torch import prng
+    from repro_torch.core import get_quantizer, QuantizerSpec
+    from repro_torch.launch.train import main
     x = torch.randn(4, 8)
     w = torch.randn(8, 3)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="'native' backend"):
         fqt_matmul(x, w, None, QuantPolicy.qat(backend="native"))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fqt_matmul(x, w, None, QuantPolicy.qat(backend="kernel", fused=False))
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        fqt_matmul(x.requires_grad_(), w, None, QuantPolicy.qat())
-    from repro_torch.core import get_quantizer, QuantizerSpec
-    for name in ("ptq", "psq", "bhq"):
-        with pytest.raises(NotImplementedError, match="training slice"):
-            get_quantizer(name).quantize(w, None, QuantizerSpec(name, 8),
+    for name in ("ptq", "psq"):
+        with pytest.raises(NotImplementedError, match="quantize_sr"):
+            get_quantizer(name).quantize(w, prng.PRNGKey(0),
+                                         QuantizerSpec(name, 8),
                                          backend="kernel")
+        y = fqt_matmul(x.clone().requires_grad_(), w, prng.PRNGKey(0),
+                       QuantPolicy.fqt(name, 8, backend="kernel",
+                                       fused=False))
+        with pytest.raises(NotImplementedError, match="next slice"):
+            y.sum().backward()
+    for flag, value in (("--mesh", "2x2"), ("--ckpt-dir", "/nonexistent")):
+        with pytest.raises(NotImplementedError, match="slice of the port"):
+            main(["--device", "cpu", "--steps", "1", flag, value])
     assert QuantPolicy.fqt("bhq", 5).resolve("x").agrad.name == "bhq"

@@ -97,7 +97,7 @@ def test_unported_engine_options_raise():
         ServeEngine(cfg, params, paged=True, device="cpu")
     with pytest.raises(NotImplementedError, match="sub-byte"):
         ServeEngine(cfg, params, weight_bits=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="checkpoint slice"):
         ServeEngine.from_checkpoint(cfg, "/nonexistent")
     with pytest.raises(NotImplementedError, match="not ported"):
         build_model(get_config("granite-moe-1b-a400m", smoke=True))
