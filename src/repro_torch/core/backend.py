@@ -22,7 +22,9 @@ GEMMs (Eq. 6).  Backends:
   ``kernel``    the hand-written CUDA kernels (their plain versions on the
                 CPU): the fused quantize->GEMM->epilogue kernels of
                 ``kernels/fused_fqt.py`` for the fused roles, ``q8_matmul``
-                for the unfused GEMMs (the BHQ activation grad)
+                for the unfused GEMMs (the BHQ activation grad, and every
+                GEMM of an unfused role), whose PTQ/PSQ operands the
+                ``quantize_sr`` kernels quantize
   ``native``    the JAX package's XLA int8 dot: not ported, raises
 
 SR bits are ``prng.bits(key, shape)`` drawn on the operand's device, the
@@ -39,16 +41,15 @@ import torch
 from .. import prng
 from ..kernels.fused_fqt import fused_qboth_tn_matmul, fused_qlhs_matmul
 from ..kernels.q8_matmul import q8_matmul
+from ..kernels.quantize_sr import quantize_sr_rows, quantize_sr_tensor
 from .bhq import BHQTensor
-from .quantizers import QTensor, tensor_min_max
-from .registry import BACKENDS, NATIVE_SLICE, QUANTIZE_SR_SLICE
+from .quantizers import QTensor, range_scale, tensor_min_max
+from .registry import BACKENDS, NATIVE_SLICE
 
 __all__ = ["BACKENDS", "affine_factors", "epilogue_coeffs", "apply_epilogue",
            "q8_gemm", "qt_gemm", "qt_gemm_tn", "qt_gemm_nt",
            "quantize_sr_rows_qt", "quantize_sr_tensor_qt", "requantize_det",
            "fused_fqt_fwd", "fused_fqt_dx", "fused_fqt_dw", "dw_operands"]
-
-_EPS = 1e-12        # matches core/quantizers._EPS — one zero-range guard
 
 
 def _check_backend(backend: str, what: str) -> None:
@@ -189,19 +190,25 @@ def qt_gemm_nt(aq: Union[QTensor, BHQTensor], bq: QTensor, *,
 
 
 # ---------------------------------------------------------------------------
-# Unfused backward quantizers through the quantize_sr kernels: not ported
+# Unfused backward quantizers (the quantize_sr kernels -> canonical QTensor)
 # ---------------------------------------------------------------------------
 
 def quantize_sr_rows_qt(x2d: torch.Tensor, key, bits: int) -> QTensor:
-    """PSQ through the ``quantize_sr_rows`` kernel (not ported: raises)."""
-    raise NotImplementedError(f"quantize_sr_rows comes with "
-                              f"{QUANTIZE_SR_SLICE}")
+    """PSQ stochastic quantize through the ``quantize_sr_rows`` kernel.
+
+    Bit-identical to ``quantize_psq_stoch(x2d, key, bits)``: both draw the
+    SR uniforms as ``prng.bits(key, shape) * 2^-32``."""
+    rbits = prng.bits(key, x2d.shape, x2d.device)
+    c8, scale, zero = quantize_sr_rows(x2d.contiguous(), rbits, bits)
+    return QTensor.from_int8(c8, scale, zero, bits, x2d.shape)
 
 
 def quantize_sr_tensor_qt(x2d: torch.Tensor, key, bits: int) -> QTensor:
-    """PTQ through the ``quantize_sr_tensor`` kernel (not ported: raises)."""
-    raise NotImplementedError(f"quantize_sr_tensor comes with "
-                              f"{QUANTIZE_SR_SLICE}")
+    """PTQ stochastic quantize through the ``quantize_sr_tensor`` kernel;
+    bit-identical to ``quantize_ptq_stoch(x2d, key, bits)``."""
+    rbits = prng.bits(key, x2d.shape, x2d.device)
+    c8, scale, zero = quantize_sr_tensor(x2d.contiguous(), rbits, bits)
+    return QTensor.from_int8(c8, scale, zero, bits, x2d.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -216,7 +223,7 @@ def _ptq_range(x2: torch.Tensor, bits: int):
     """Per-tensor (zero, scale) exactly as ``quantize_ptq_det``/``_stoch``."""
     B = float((1 << bits) - 1)
     zero, hi = tensor_min_max(x2)
-    scale = B / torch.clamp_min(hi - zero, _EPS)
+    scale = range_scale(B, hi - zero)
     return zero, scale
 
 
@@ -266,8 +273,7 @@ def fused_fqt_dx(g2: torch.Tensor, key, spec, wq: QTensor, *, backend: str,
         rbits = prng.bits(key, g2.shape, g2.device)
     if spec.name == "psq":
         zg = torch.amin(g2, dim=-1, keepdim=True)
-        sg = B / torch.clamp_min(torch.amax(g2, dim=-1, keepdim=True) - zg,
-                                 _EPS)
+        sg = range_scale(B, torch.amax(g2, dim=-1, keepdim=True) - zg)
     else:                                   # per-tensor PTQ
         zg0, sg0 = _ptq_range(g2, bits)
         zg = zg0.reshape(1, 1).expand(M, 1).contiguous()
@@ -293,7 +299,7 @@ def dw_operands(x2: torch.Tensor, scale_x, zero_x, bits_act: int,
     off_b = 1 << (bits_wgrad - 1)
     Ba = float((1 << bits_act) - 1)
     zg, hg = tensor_min_max(g2)
-    sg = Bb / torch.clamp_min(hg - zg, _EPS)
+    sg = range_scale(Bb, hg - zg)
     ca = torch.clamp(torch.round(scale_x * (x2 - zero_x)), 0.0, Ba) - off_a
     alpha_a = 1.0 / scale_x
     alpha_b = 1.0 / sg

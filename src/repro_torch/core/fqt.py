@@ -21,8 +21,10 @@ On the ``kernel`` backend the fused roles run the fused CUDA kernels: the
 forward quantize inside ``fused_qlhs_matmul``, the PTQ wgrad inside
 ``fused_qboth_tn_matmul``, the PTQ/PSQ agrad inside
 ``fused_qlhs_matmul(trans_b=True)``; BHQ's agrad quantizes in PyTorch and
-runs ``q8_matmul``.  ``simulate`` quantize-dequantizes and runs fp32
-matmuls.  dW comes back in fp32, dX in the stream dtype.
+runs ``q8_matmul``.  A role that does not fuse (``fused=False``, or a
+forward other than ``ptq_det``) quantizes on its own — PTQ/PSQ through the
+``quantize_sr`` kernels — and runs its GEMM through ``q8_matmul``.
+``simulate`` quantize-dequantizes and runs fp32 matmuls.  dW comes back in fp32, dX in the stream dtype.
 """
 
 from __future__ import annotations

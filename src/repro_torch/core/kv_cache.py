@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels.kv_dequant import kv_dequant_rows, kv_dequant_rows_plain
-from .quantizers import num_bins
+from .quantizers import num_bins, range_scale
 
 __all__ = ["quantize_kv_rows", "dequant_kv_rows", "kv_fresh_code"]
 
@@ -35,7 +35,7 @@ def quantize_kv_rows(x: torch.Tensor, bits: int = 8):
     B = num_bins(bits)
     x = x.to(torch.float32)
     lo, hi = torch.aminmax(x, dim=-1)
-    scale = B / torch.clamp_min(hi - lo, _EPS)
+    scale = range_scale(B, hi - lo)
     t = scale[..., None] * (x - lo[..., None])
     codes = torch.clamp(torch.round(t), 0.0, B) - (1 << (bits - 1))
     return codes.to(torch.int8), scale, lo

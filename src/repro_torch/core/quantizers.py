@@ -23,7 +23,8 @@ import torch
 
 from .. import prng
 
-__all__ = ["QTensor", "num_bins", "tensor_min_max", "row_dynamic_range",
+__all__ = ["QTensor", "num_bins", "range_scale", "tensor_min_max",
+           "row_dynamic_range",
            "sr_uniform", "stochastic_round", "quantize_ptq_det",
            "quantize_ptq_stoch", "quantize_psq_stoch"]
 
@@ -35,6 +36,15 @@ _EPS = 1e-12
 def num_bins(bits: int) -> int:
     """B = 2^b - 1 quantization bins (paper Sec. 3.3)."""
     return (1 << bits) - 1
+
+
+def range_scale(nbins, rng: torch.Tensor) -> torch.Tensor:
+    """``nbins / max(rng, 1e-12)`` with IEEE division, as the reference
+    divides.  (A Python number over a tensor is reciprocal-then-multiply
+    in PyTorch, which rounds the last bit differently for about a quarter
+    of ranges.)"""
+    rng = torch.clamp_min(rng, _EPS)
+    return torch.full_like(rng, float(nbins)) / rng
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,7 +99,7 @@ def quantize_ptq_det(x: torch.Tensor, bits: int = 8) -> QTensor:
     """
     B = num_bins(bits)
     zero, hi = tensor_min_max(x)
-    scale = B / torch.clamp_min(hi - zero, _EPS)
+    scale = range_scale(B, hi - zero)
     codes = torch.clamp(torch.round(scale * (x - zero)), 0, B).to(torch.uint8)
     return QTensor(codes=codes, scale=scale, zero=zero, bits=bits,
                    shape=tuple(x.shape))
@@ -118,7 +128,7 @@ def quantize_ptq_stoch(x: torch.Tensor, key: torch.Tensor,
     ``Q_b(x) = SR(S (x - Z)) / S + Z`` with Z = min x, S = B / R(x)."""
     B = num_bins(bits)
     zero, hi = tensor_min_max(x)
-    scale = B / torch.clamp_min(hi - zero, _EPS)
+    scale = range_scale(B, hi - zero)
     codes = stochastic_round(scale * (x - zero), key)
     codes = torch.clamp(codes, 0, B).to(torch.uint8)
     return QTensor(codes=codes, scale=scale, zero=zero, bits=bits,
@@ -132,8 +142,7 @@ def quantize_psq_stoch(x: torch.Tensor, key: torch.Tensor,
     B = num_bins(bits)
     rows = x.reshape(-1, x.shape[-1])
     zero = torch.amin(rows, dim=-1, keepdim=True)
-    rng = torch.clamp_min(row_dynamic_range(rows)[:, None], _EPS)
-    scale = B / rng
+    scale = range_scale(B, row_dynamic_range(rows)[:, None])
     codes = stochastic_round(scale * (rows - zero), key)
     codes = torch.clamp(codes, 0, B).to(torch.uint8)
     return QTensor(codes=codes, scale=scale, zero=zero, bits=bits,

@@ -12,8 +12,7 @@ plus the serving-time ``kv_cache`` role: the forward quantizer
 (``ptq_det``), the stochastic backward quantizers (``ptq``, ``psq``,
 ``bhq``) and the int8 KV codec (``kv_int8``).  On the ``kernel`` backend
 the FQT step fuses PTQ/PSQ into the GEMM kernels; PTQ/PSQ in an unfused
-role there run through the ``quantize_sr_*`` kernels, which are not ported
-yet, and raise.
+role there run through the ``quantize_sr_*`` kernels.
 """
 
 from __future__ import annotations
@@ -43,9 +42,6 @@ KV_CACHE_ROLE = "kv_cache"
 
 EXACT_NAME = "exact"
 
-QUANTIZE_SR_SLICE = ("the next slice of the port (the quantize_sr_rows/"
-                     "quantize_sr_tensor kernels of the unfused training "
-                     "path, fused=False)")
 NATIVE_SLICE = ("a later slice of the port (the 'native' backend; use "
                 "'kernel', the hand-written CUDA kernels)")
 
@@ -226,23 +222,17 @@ class DeterministicPTQ(Quantizer):
         return quantize_ptq_det(x2d, spec.bits or 8)
 
 
-def _unfused_sr(name: str, backend: str) -> None:
-    if backend == "kernel":
-        raise NotImplementedError(
-            f"quantizer {name!r} in an unfused role on the 'kernel' backend "
-            f"runs through the quantize_sr kernels, which come with "
-            f"{QUANTIZE_SR_SLICE}; the fused FQT step (fused=None/True) "
-            f"does not need them")
-
-
 class StochasticPTQ(Quantizer):
     """Q_b1 / PTQ Q_b2: stochastic per-tensor PTQ (paper Sec. 3.3)."""
 
     name = "ptq"
 
     def quantize(self, x2d, key, spec, *, backend):
-        _unfused_sr(self.name, backend)
-        return quantize_ptq_stoch(x2d, key, spec.bits or 8)
+        bits = spec.bits or 8
+        if backend == "kernel":
+            from .backend import quantize_sr_tensor_qt
+            return quantize_sr_tensor_qt(x2d, key, bits)
+        return quantize_ptq_stoch(x2d, key, bits)
 
 
 class StochasticPSQ(Quantizer):
@@ -251,8 +241,11 @@ class StochasticPSQ(Quantizer):
     name = "psq"
 
     def quantize(self, x2d, key, spec, *, backend):
-        _unfused_sr(self.name, backend)
-        return quantize_psq_stoch(x2d, key, spec.bits or 8)
+        bits = spec.bits or 8
+        if backend == "kernel":
+            from .backend import quantize_sr_rows_qt
+            return quantize_sr_rows_qt(x2d, key, bits)
+        return quantize_psq_stoch(x2d, key, bits)
 
 
 class BlockHouseholder(Quantizer):

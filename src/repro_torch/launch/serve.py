@@ -6,9 +6,13 @@ backend by default, with the int8 KV cache; the engine owns scheduling.
 The CLI builds random parameters from ``--seed``, submits a mixed-length
 synthetic workload, and reports throughput and per-step latency
 percentiles.  It runs on the card unless ``--device cpu`` is given.
+``--paged`` serves from the paged int8 page pool (prefix reuse, chunked
+prefill, preemption, ``--spec-decode``) instead of one lane per slot.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
         --full --slots 8 --max-seq 256 --requests 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
+        --full --paged --page-size 16 --spec-decode
 """
 
 from __future__ import annotations
@@ -55,6 +59,22 @@ def main(argv=None):
     ap.add_argument("--top-k", type=int, default=0, help="<= 0 => disabled")
     ap.add_argument("--top-p", type=float, default=0.0,
                     help="nucleus sampling mass; outside (0,1) => disabled")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged int8 KV engine (serve/paged.py): shared "
+                         "page pool + block tables + prefix reuse instead "
+                         "of one max-seq lane per slot")
+    ap.add_argument("--page-size", type=int, default=8,
+                    help="rows per KV page (paged mode)")
+    ap.add_argument("--pages", type=int, default=None,
+                    help="page-pool size; default sizes for slots lanes")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="chunked-prefill width (paged mode); default = "
+                         "whole-prompt prefill")
+    ap.add_argument("--spec-decode", action="store_true",
+                    help="self-speculative decoding (paged mode): draft = "
+                         "same params under a 4-bit forward policy")
+    ap.add_argument("--spec-k", type=int, default=3,
+                    help="draft tokens proposed per verify step")
     ap.add_argument("--eos", type=int, default=None,
                     help="EOS token id (evicts the slot on emission)")
     ap.add_argument("--kv-cache", choices=["int8", "fp32"], default="int8",
@@ -71,11 +91,23 @@ def main(argv=None):
 
     cfg = get_config(args.arch, smoke=args.smoke)
     policy = QuantPolicy.qat(backend=args.backend)  # fwd-only quantization
+    kv_quant = args.kv_cache == "int8"
+    if args.paged and not kv_quant:
+        ap.error("--paged requires --kv-cache int8 (pages store the codec)")
+    for flag, name in ((args.spec_decode, "--spec-decode"),
+                       (args.prefill_chunk, "--prefill-chunk"),
+                       (args.pages, "--pages")):
+        if flag and not args.paged:
+            ap.error(f"{name} needs --paged")
+    kw = dict(policy=policy, slots=args.slots, max_seq=args.max_seq,
+              kv_quant=kv_quant, eos_id=args.eos, seed=args.seed,
+              device=args.device)
+    if args.paged:
+        kw.update(paged=True, page_size=args.page_size, pages=args.pages,
+                  prefill_chunk=args.prefill_chunk,
+                  spec_decode=args.spec_decode, spec_k=args.spec_k)
     params = build_model(cfg).init(args.seed, device=args.device)
-    eng = ServeEngine(cfg, params, policy=policy, slots=args.slots,
-                      max_seq=args.max_seq,
-                      kv_quant=args.kv_cache == "int8", eos_id=args.eos,
-                      seed=args.seed, device=args.device)
+    eng = ServeEngine(cfg, params, **kw)
 
     # warmup: every prefill bucket the workload can hit, off the clock
     hi = min(args.max_prompt, args.max_seq - 1)
@@ -111,6 +143,16 @@ def main(argv=None):
     for c in completions.values():
         by_reason[c.reason] = by_reason.get(c.reason, 0) + 1
     print(f"[serve] finish reasons: {by_reason}")
+    if args.paged:
+        st = eng.pool_stats()
+        print(f"[serve] paged: {st['pages_in_use']}/{st['n_pages']} pages "
+              f"resident (peak {st['peak_pages_in_use']}), "
+              f"prefix hits {st['prefix_hits']}, cow {st['cow_copies']}, "
+              f"preemptions {st['preemptions']}")
+        if args.spec_decode:
+            sp = eng.spec_stats
+            print(f"[serve] spec: {sp.spec_steps} rounds, acceptance "
+                  f"{sp.acceptance_rate:.2f}, {sp.emitted} tokens emitted")
     if completions:
         rid0 = min(completions)
         print("[serve] sample:", completions[rid0].tokens[:16])

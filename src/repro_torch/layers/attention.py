@@ -1,11 +1,13 @@
-"""GQA attention with FQT projections and the dense-lane decode KV cache.
+"""GQA attention with FQT projections, the dense-lane decode KV cache and
+the paged int8 KV pool.
 
 Port of the dense path of ``repro.layers.attention``.  The four
 projections are FQT linear layers; the attention math (scores, softmax,
 value mix) stays full precision, as in the paper's transformer setting.
-KV caches are stored flattened as ``(B, S, n_kv*head_dim)``.  The decode
-step writes its new row into the cache in place, where the JAX package
-builds an updated copy.
+KV caches are stored flattened as ``(B, S, n_kv*head_dim)``, paged pools
+as ``(n_pages, page_size, n_kv*head_dim)``.  The decode steps write their
+new rows into the cache or pool in place, where the JAX package builds an
+updated copy.
 """
 
 from __future__ import annotations
@@ -15,11 +17,13 @@ import torch
 from ..configs.base import ArchConfig
 from ..core import (QuantPolicy, get_quantizer, kv_fresh_code,
                     resolve_kv_cache_spec)
+from ..kernels.kv_gather import kv_gather_pages, kv_gather_pages_plain
 from .common import dense, init_dense
 from .embeddings import apply_rope
 
 __all__ = ["init_attention", "attention", "decode_attention",
-           "init_kv_cache", "init_kv_cache_quant"]
+           "init_kv_cache", "init_kv_cache_quant", "init_paged_kv_pool",
+           "paged_write_index", "paged_decode_attention"]
 
 _NEG = -1e30
 
@@ -113,6 +117,17 @@ def init_kv_cache_quant(cfg: ArchConfig, batch: int, max_seq: int,
     return {"k": one(), "v": one()}
 
 
+def init_paged_kv_pool(cfg: ArchConfig, n_pages: int, page_size: int,
+                       bits: int = 8, lead=(), device=None) -> dict:
+    """The shared page pool of the paged serving engine: the int8 codec of
+    :func:`init_kv_cache_quant` laid out as ``n_pages`` pages of
+    ``page_size`` rows, ``(*lead, n_pages, page_size, flat)`` per side.
+    Fresh pages dequantize to exact zeros, so the garbage page every idle
+    lane and unallocated block reads stays finite."""
+    return init_kv_cache_quant(cfg, n_pages, page_size, bits, lead=lead,
+                               device=device)
+
+
 def _is_quant_kv(cache: dict) -> bool:
     return isinstance(cache["k"], dict)
 
@@ -170,3 +185,96 @@ def decode_attention(p: dict, x: torch.Tensor, cache: dict,
     y = dense(p["wo"], out.reshape(B, 1, H * hd), key, policy, 4,
               f"{path}.wo")
     return y, cache
+
+
+def paged_write_index(table: torch.Tensor, start: torch.Tensor, C: int,
+                      n_pages: int, P: int):
+    """Where a ``C``-token paged step writes into a pool of ``n_pages``
+    pages of ``P`` rows: ``(offs, pids, rows, src)``.
+
+    ``offs`` (B, C): the positions ``start + c``; ``pids``/``rows`` (B, C):
+    the page and row of each, positions clamped to ``nb * P - 1``.  Rows of
+    one step can share a target — padding rows of a chunk that fall in
+    unallocated blocks all land on the garbage page — and a CUDA scatter
+    lets any of them win, so ``src`` (B*C,) names, for every write, the
+    last write (in ``(b, c)`` order) to its target: all writes to a row
+    then carry that value, and the pool is the same from run to run, as
+    after the reference's in-order scatter.  ``None`` for ``C = 1``, where
+    only idle lanes share a target (page 0, row 0) and write equal rows.
+    """
+    B, nb = table.shape
+    dev = table.device
+    start = torch.as_tensor(start, device=dev).to(torch.int64).reshape(B)
+    offs = start[:, None] + torch.arange(C, device=dev)[None, :]
+    offs_w = torch.clamp_max(offs, nb * P - 1)
+    pids = torch.gather(table.to(torch.int64), 1, offs_w // P)
+    rows = offs_w % P
+    src = None
+    if C > 1:
+        flat = (pids * P + rows).reshape(-1)
+        order = torch.arange(flat.numel(), device=dev)
+        last = torch.full((n_pages * P,), -1, dtype=torch.int64, device=dev)
+        src = last.scatter_reduce_(0, flat, order, reduce="amax")[flat]
+    return offs, pids, rows, src
+
+
+def paged_decode_attention(p: dict, x: torch.Tensor, pool: dict,
+                           table: torch.Tensor, start: torch.Tensor, key,
+                           policy: QuantPolicy, cfg: ArchConfig,
+                           path: str = "attn", kv_quant=None, write=None):
+    """Multi-token attention step over a paged int8 KV pool.  x: (B, C, d).
+
+    ``C = 1`` is continuous-batching decode, ``C = chunk`` one chunked-
+    prefill slab, ``C = k + 1`` the speculative verify.  ``pool``: one
+    layer of :func:`init_paged_kv_pool`; ``table``: (B, nb) int32 page ids
+    in logical block order (unallocated blocks point at the garbage page);
+    ``start``: (B,) position of each row's first token; ``write``: the
+    step's :func:`paged_write_index`, computed here when not given.  Row
+    ``c`` is quantized and written at position ``start + c`` of its page
+    (in place; where rows share a target the last one's value wins), then
+    the whole table is gathered and dequantized — through the
+    ``kv_gather_pages`` CUDA kernel on the ``kernel`` backend, its plain
+    version otherwise — and position ``start + c`` attends over every
+    position ``<= start + c``.  A ``C = 1`` step is arithmetically the
+    dense-lane :func:`decode_attention` step.  Positions clamp to the
+    table's span ``nb * P - 1``: padding rows write the last row, which
+    stays masked until a real token is written there.
+
+    Returns (y (B, C, d), pool) — the same pool object, updated.
+    """
+    B, C, _ = x.shape
+    hd, H, KV = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    G = H // KV
+    n_pages, P = pool["k"]["codes"].shape[:2]
+    S = table.shape[1] * P
+    dev = x.device
+    offs, pids, rows, src = (write if write is not None else
+                             paged_write_index(table, start, C, n_pages, P))
+    q, k_new, v_new = _qkv(p, x, key, policy, cfg, offs, path)
+
+    spec = resolve_kv_cache_spec(True if kv_quant is None else kv_quant)
+    qz = get_quantizer(spec.name)
+    bits = spec.bits or 8
+    flat = KV * hd
+    for side, new in (("k", k_new), ("v", v_new)):
+        codes, scale, zero = qz.quantize_rows(new.reshape(B * C, flat), bits)
+        if src is not None:
+            codes, scale, zero = codes[src], scale[src], zero[src]
+        pool[side]["codes"][pids, rows] = codes.reshape(B, C, flat)
+        pool[side]["scale"][pids, rows] = scale.reshape(B, C)
+        pool[side]["zero"][pids, rows] = zero.reshape(B, C)
+
+    gather = (kv_gather_pages if policy.backend == "kernel"
+              else kv_gather_pages_plain)
+
+    def get(side):
+        rows_f = gather(side["codes"], side["scale"], side["zero"], table,
+                        bits)
+        return rows_f.reshape(B, S, KV, hd).to(x.dtype)
+    k, v = get(pool["k"]), get(pool["v"])
+    mask = (torch.arange(S, device=dev)[None, None, :]
+            <= offs[:, :, None])                                   # (B, C, S)
+    out = _sdpa(q.reshape(B, C, KV, G, hd), k, v, mask[:, None, None])
+    y = dense(p["wo"], out.reshape(B, C, H * hd), key, policy, 4,
+              f"{path}.wo")
+    return y, pool

@@ -1,8 +1,8 @@
 """Unified model API: ``build_model(cfg)`` -> :class:`Model`.
 
 Port of ``repro.models.api`` for the dense family: init / loss / prefill /
-decode plus the cache constructors.  Other families raise until their
-slice.
+decode / paged decode plus the cache and page-pool constructors.  Other
+families raise until their slice.
 """
 
 from __future__ import annotations
@@ -38,6 +38,9 @@ class Model:
     decode: Callable           # (params, cache, batch, policy, [positions]) -> (logits, cache)
     init_cache: Callable       # (cfg, batch, max_seq, device) -> cache
     init_cache_quant: Callable  # (cfg, batch, max_seq, device) -> int8 cache
+    # paged serving (serve/paged.py)
+    paged_decode: Callable      # (params, pool, batch, policy, table, start) -> (logits, pool)
+    init_paged_pool: Callable   # (cfg, n_pages, page_size, device) -> pool
 
     def init(self, seed: int, device=None) -> dict:
         """Random parameters from ``seed`` on ``device`` (CUDA unless the
@@ -59,4 +62,8 @@ def build_model(cfg: ArchConfig) -> Model:
             lm.lm_decode(params, cache, batch, policy, cfg, **kw),
         init_cache=lm.init_lm_cache,
         init_cache_quant=lm.init_lm_cache_quant,
+        paged_decode=lambda params, pool, batch, policy, table, start, **kw:
+            lm.lm_paged_decode(params, pool, batch, policy, cfg, table,
+                               start, **kw),
+        init_paged_pool=lm.init_lm_paged_pool,
     )

@@ -1,5 +1,5 @@
-"""Decoder-only LM, dense family: init, training loss, prefill and
-one-token decode.
+"""Decoder-only LM, dense family: init, training loss, prefill, one-token
+decode and the paged multi-token decode.
 
 Port of the dense branch of ``repro.models.lm``.  Per-layer parameters stay
 stacked ``(L, ...)`` with the JAX package's leaf names, and the stack runs
@@ -24,11 +24,13 @@ from ..core import QuantPolicy
 from ..layers import (apply_norm, attention, decode_attention, embed,
                       init_attention, init_embedding, init_kv_cache,
                       init_kv_cache_quant, init_lm_head, init_mlp, init_norm,
-                      lm_head, mlp)
+                      init_paged_kv_pool, lm_head, mlp,
+                      paged_decode_attention, paged_write_index)
 
 __all__ = ["init_lm_params", "lm_loss", "lm_prefill", "lm_decode",
-           "init_lm_cache", "init_lm_cache_quant", "cross_entropy",
-           "chunked_head_loss", "layer_view", "check_dense"]
+           "init_lm_cache", "init_lm_cache_quant", "init_lm_paged_pool",
+           "lm_paged_decode", "cross_entropy", "chunked_head_loss",
+           "layer_view", "check_dense"]
 
 
 def check_dense(cfg: ArchConfig) -> None:
@@ -234,3 +236,45 @@ def lm_decode(params, cache, batch, policy: QuantPolicy, cfg: ArchConfig,
     h = apply_norm(params["final_norm"], h, cfg.norm)
     logits = lm_head(params["lm_head"], h, None, policy)
     return logits, {"kv": cache["kv"], "index": index + 1}
+
+
+def init_lm_paged_pool(cfg: ArchConfig, n_pages: int, page_size: int,
+                       device=None) -> dict:
+    """Stacked ``(L, n_pages, page_size, ...)`` int8 KV page pool for the
+    paged serving engine: page id ``i`` names row ``i`` of every layer's
+    pool, so one block table serves all layers."""
+    check_dense(cfg)
+    return init_paged_kv_pool(cfg, n_pages, page_size, lead=(cfg.n_layers,),
+                              device=device)
+
+
+def lm_paged_decode(params, pool, batch, policy: QuantPolicy,
+                    cfg: ArchConfig, table, start, kv_quant=None):
+    """Paged multi-token forward, the paged engine's one compute primitive.
+
+    batch: ``tokens (B, C)``; ``table``: (B, nb) block tables; ``start``:
+    (B,) position of each row's first token.  ``C = 1`` is decode,
+    ``C = chunk`` chunked prefill, ``C = k + 1`` the speculative verify
+    (:func:`~repro_torch.layers.paged_decode_attention`).  The pool is
+    updated in place.  Returns (logits (B, C, Vp), pool).
+    """
+    check_dense(cfg)
+    h = embed(params["embed"], batch["tokens"]).to(torch.float32)
+    table = torch.as_tensor(table, device=h.device).to(
+        torch.int32).contiguous()
+    n_pages, P = pool["k"]["codes"].shape[1:3]
+    write = paged_write_index(table, start, h.shape[1], n_pages, P)
+    for i in range(cfg.n_layers):
+        lp = layer_view(params["layers"], i)
+        x = apply_norm(lp["ln1"], h, cfg.norm)
+        att, _ = paged_decode_attention(lp["attn"], x, layer_view(pool, i),
+                                        table, None, None, policy, cfg,
+                                        path="layers.attn", kv_quant=kv_quant,
+                                        write=write)
+        h = h + att.to(h.dtype)
+        x = apply_norm(lp["ln2"], h, cfg.norm)
+        h = h + mlp(lp["mlp"], x, None, policy, cfg.act,
+                    path="layers.mlp").to(h.dtype)
+    h = apply_norm(params["final_norm"], h, cfg.norm)
+    logits = lm_head(params["lm_head"], h, None, policy)
+    return logits, pool

@@ -23,8 +23,11 @@ logits couple co-resident slots (``Q_f`` takes its range over the whole
 decode batch), so two engines agree token for token only at equal pool
 size and submission order.
 
-Paged serving, sub-byte packed weights and checkpoint startup come with
-later slices of the port and raise ``NotImplementedError`` here.
+``paged=True`` builds the paged-pool engine (serve/paged.py) instead: the
+same scheduler surface over a shared int8 page pool with block tables,
+prefix reuse, chunked prefill, preemption and optional speculative decode.
+Sub-byte packed weights and checkpoint startup come with later slices of
+the port and raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -99,18 +102,24 @@ class ServeEngine:
 
     ``params`` must live on ``device`` (CUDA unless the caller asks for
     another; with no card visible and no ``device=`` the constructor
-    raises).
+    raises).  ``paged=True`` returns a
+    :class:`~repro_torch.serve.paged.PagedServeEngine`, which also takes
+    the paged-only knobs (``page_size``, ``pages``, ``prefill_chunk``,
+    ``spec_decode``, ``spec_k``, ``draft_policy``).
     """
+
+    def __new__(cls, *args, paged: bool = False, **kw):
+        if paged and cls is ServeEngine:
+            from .paged import PagedServeEngine  # late: paged imports us
+            return super().__new__(PagedServeEngine)
+        return super().__new__(cls)
 
     def __init__(self, cfg, params, *, policy: Optional[QuantPolicy] = None,
                  slots: int = 4, max_seq: int = 64, kv_quant=False,
                  eos_id: Optional[int] = None, seed: int = 0,
                  weight_bits: Optional[int] = None, paged: bool = False,
                  device=None):
-        if paged:
-            raise NotImplementedError(
-                "paged serving (page pool, block tables, kv_gather_pages) "
-                "comes with the paged-serving slice of the port")
+        del paged                       # consumed by __new__
         if weight_bits is not None:
             raise NotImplementedError(
                 "weight_bits (bit-packed sub-byte weights, packed_matmul) "
@@ -206,10 +215,12 @@ class ServeEngine:
                 dst[:, slot:slot + 1, :lb] = rows.to(dst.dtype)
         self._cache["index"][slot] = lp
 
-    def _sample1(self, logits_row, rid: int, req: Request) -> int:
+    def _sample1(self, logits_row, rid: int, req: Request,
+                 count: int = 0) -> int:
+        """Token ``count`` of request ``rid`` from one row of logits."""
         key = slot_keys(self._base_key,
                         torch.tensor([rid], device=self.device),
-                        torch.tensor([0], device=self.device))
+                        torch.tensor([count], device=self.device))
         f32 = torch.float32
         tok = sample_tokens(
             logits_row[None], key,

@@ -2,9 +2,12 @@
 version on the same inputs: the forward mode of ``fused_qlhs_matmul`` to
 float32 round-off (max|d| <= 1e-6 * max|plain|; the kernel rounds every
 operation explicitly, so it is expected to be exact), its dX/SR mode,
-``fused_qboth_tn_matmul``, ``q8_matmul`` and ``kv_dequant_rows`` bit for
-bit, a short serving run that must go through the serving kernels, and a
-short training run that must go through the training kernels.
+``fused_qboth_tn_matmul``, ``q8_matmul``, ``kv_dequant_rows``,
+``kv_gather_pages`` and ``quantize_sr_rows``/``_tensor`` bit for bit
+(page-0 tables, zero scales, SR bits across all 32 bits), short serving
+runs (dense and paged) that must go through the serving kernels, and short
+training runs (fused and unfused) that must go through the training
+kernels.
 
 Run on a machine with an H100 and the CUDA toolkit:
 
@@ -270,3 +273,154 @@ def test_training_step_runs_through_training_kernels(cuda, quant, bits):
     assert abs(lk - lc) <= 5e-3 + 1e-3 * abs(lc)
     if quant == "psq":
         assert abs(gk - gc) <= 5e-3 + 1e-3 * abs(gc)
+
+
+def _pool_operands(gen, n_pages, P, D, B, nb):
+    """A random int8 page pool with a zero-scale garbage page and a
+    zero-scale row, and block tables that repeat pages and point at page 0
+    (idle lanes, unallocated blocks)."""
+    dev = gen.device
+    codes = torch.randint(-128, 128, (n_pages, P, D), generator=gen,
+                          device=dev, dtype=torch.int8)
+    scale = torch.rand(n_pages, P, generator=gen, device=dev) * 200 + 1
+    zero = torch.randn(n_pages, P, generator=gen, device=dev)
+    scale[0] = 0.0
+    scale[n_pages // 2, P // 2] = 0.0
+    table = torch.randint(0, n_pages, (B, nb), generator=gen, device=dev,
+                          dtype=torch.int32)
+    table[0] = 0                               # an idle lane
+    table[1, nb // 2:] = 0                     # unallocated blocks
+    table[-1, 0] = table[-1, -1]               # a repeated page
+    return codes, scale, zero, table
+
+
+@pytest.mark.parametrize("shape", [(129, 16, 512, 8, 16), (129, 8, 512, 8, 32),
+                                   (11, 3, 40, 3, 5), (7, 5, 17, 2, 3)])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_kv_gather_pages_bit_identical(cuda, shape, bits):
+    """Granite's paged shapes (P = 16 and 8, D = 512) and ragged ones (a
+    page size of 3, widths off the 16-byte grid), with page-0 tables and
+    zero scales: bit for bit, and finite."""
+    from repro_torch.kernels import kv_gather_pages, kv_gather_pages_plain
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape) + bits)
+    ops = _pool_operands(gen, *shape)
+    before = kv_gather_pages.launches
+    got = kv_gather_pages(*ops, bits=bits)
+    assert kv_gather_pages.launches == before + 1
+    want = kv_gather_pages_plain(*ops, bits=bits)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="int32"):
+        kv_gather_pages(*ops[:3], ops[3].long(), bits=bits)
+
+
+def _sr_operands(gen, M, N):
+    """A gradient-like (M, N) with a wider and a constant row, and SR bits
+    spanning all 32 bits, edge values first."""
+    dev = gen.device
+    x = torch.randn(M, N, generator=gen, device=dev) * 1e-3
+    x[0, 0] = 5e-3
+    if M > 2:
+        x[2] = 0.25
+    rbits = torch.randint(0, 2 ** 32, (M, N), generator=gen, device=dev,
+                          dtype=torch.int64)
+    edge = torch.tensor([0, 1, 2 ** 31 - 1, 2 ** 31, 2 ** 31 + 1,
+                         2 ** 32 - 129, 2 ** 32 - 128, 2 ** 32 - 1],
+                        dtype=torch.int64, device=dev)
+    flat = rbits.view(-1)
+    flat[:min(8, flat.numel())] = edge[:flat.numel()]
+    return x, rbits
+
+
+@pytest.mark.parametrize("mn", [(512, 10240), (2048, 512), (33, 130),
+                                (1, 64), (16, 1), (3, 5)])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_sr_kernels_bit_identical(cuda, mn, bits):
+    """quantize_sr_rows and quantize_sr_tensor: codes, scale and zero equal
+    their plain versions bit for bit, and a row view off the 16-byte grid
+    takes the element-by-element path."""
+    from repro_torch.kernels import (quantize_sr_rows, quantize_sr_rows_plain,
+                                     quantize_sr_tensor,
+                                     quantize_sr_tensor_plain)
+    gen = torch.Generator(device=cuda).manual_seed(sum(mn) + bits)
+    x, rb = _sr_operands(gen, *mn)
+    r0, t0 = quantize_sr_rows.launches, quantize_sr_tensor.launches
+    for kern, plain in ((quantize_sr_rows, quantize_sr_rows_plain),
+                        (quantize_sr_tensor, quantize_sr_tensor_plain)):
+        got, want = kern(x, rb, bits), plain(x, rb, bits)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and torch.equal(g, w)
+        if mn[0] > 1:
+            xs, rs = x[1:], rb[1:]
+            for g, w in zip(kern(xs, rs, bits), plain(xs, rs, bits)):
+                assert torch.equal(g, w)
+    assert quantize_sr_rows.launches > r0 and quantize_sr_tensor.launches > t0
+    with pytest.raises(ValueError, match="int64"):
+        quantize_sr_rows(x, rb.to(torch.int32), bits)
+
+
+def test_unfused_training_step_runs_through_quantize_sr(cuda):
+    """One FQT step of reduced statquant-tx with every role unfused
+    (``fused=False``): per quantized GEMM one quantize_sr_rows (PSQ dX
+    operand), one quantize_sr_tensor (PTQ dW operand) and three q8_matmul
+    (forward, dW, dX); loss and gradient norm equal to the CPU's to the
+    repo's tolerance."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import QuantPolicy
+    from repro_torch.data import make_batch_for
+    from repro_torch.engine import init_train_state, make_step_fn
+    from repro_torch.kernels import (fused_qboth_tn_matmul,
+                                     fused_qlhs_matmul, q8_matmul,
+                                     quantize_sr_rows, quantize_sr_tensor)
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, cosine_schedule
+    cfg = get_config("statquant-tx", smoke=True)
+    model = build_model(cfg)
+    policy = QuantPolicy.fqt("psq", 8, backend="kernel", fused=False)
+    step = make_step_fn(model, policy, adamw(), cosine_schedule(3e-3, 4, 1))
+    batch = make_batch_for(cfg, 4, 16, step=0)
+    metrics = {}
+    for dev in ("cpu", "cuda"):
+        state = init_train_state(model, adamw(), 0, device="cpu")
+        state.params = _tree_to(state.params, dev)
+        state.opt_state = {k: (v if k == "t" else _tree_to(v, dev))
+                           for k, v in state.opt_state.items()}
+        for fn in (fused_qlhs_matmul, fused_qboth_tn_matmul, q8_matmul,
+                   quantize_sr_rows, quantize_sr_tensor):
+            fn.launches = 0
+        _, m = step(state, _tree_to(batch, dev))
+        metrics[dev] = (float(m["loss"]), float(m["grad_norm"]))
+    n = 13
+    assert quantize_sr_rows.launches == n
+    assert quantize_sr_tensor.launches == n
+    assert q8_matmul.launches == 3 * n
+    assert fused_qlhs_matmul.launches == fused_qboth_tn_matmul.launches == 0
+    (lc, gc), (lk, gk) = metrics["cpu"], metrics["cuda"]
+    assert abs(lk - lc) <= 5e-3 + 1e-3 * abs(lc)
+    assert abs(gk - gc) <= 5e-3 + 1e-3 * abs(gc)
+
+
+def test_paged_serving_runs_through_kv_gather(cuda):
+    """The paged engine on the card launches kv_gather_pages twice per
+    layer per paged forward, never kv_dequant_rows, and emits the tokens
+    of the same run on the CPU (plain versions)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import kv_dequant_rows, kv_gather_pages
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine
+    cfg = get_config("granite-3-2b", smoke=True)
+    params = build_model(cfg).init(0, device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(cfg, _tree_to(params, dev), slots=2, max_seq=32,
+                          kv_quant=True, paged=True, page_size=8,
+                          device=dev)
+        kv_gather_pages.launches = kv_dequant_rows.launches = 0
+        eng.submit([1, 2, 3], max_new=4)
+        eng.submit(list(range(5, 20)), max_new=4)
+        out[dev] = {r: c.tokens for r, c in eng.run().items()}
+    assert kv_gather_pages.launches == 2 * cfg.n_layers * eng.paged_forwards
+    assert eng.paged_forwards > 0 and kv_dequant_rows.launches == 0
+    assert out["cuda"] == out["cpu"]

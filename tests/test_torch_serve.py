@@ -93,8 +93,11 @@ def test_unported_engine_options_raise():
     cfg = get_config("granite-3-2b", smoke=True)
     from repro_torch.models import build_model
     params = build_model(cfg).init(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="paged"):
-        ServeEngine(cfg, params, paged=True, device="cpu")
+    # paged serving is ported (tests/test_torch_paged.py)
+    from repro_torch.serve import PagedServeEngine
+    assert isinstance(ServeEngine(cfg, params, paged=True, kv_quant=True,
+                                  max_seq=16, device="cpu"),
+                      PagedServeEngine)
     with pytest.raises(NotImplementedError, match="sub-byte"):
         ServeEngine(cfg, params, weight_bits=4, device="cpu")
     with pytest.raises(NotImplementedError, match="checkpoint slice"):
