@@ -62,9 +62,27 @@ toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
      backend="kernel")``: paged tokens equal the dense engine's with
      whole-prompt and chunked prefill, prefix reuse, preemption and spec
      decode.
-  6. A short statquant-tx full-width serving run (layernorm, gelu, qkv
+  6. Serving from bit-packed weights, granite-3-2b at full width and depth
+     (``ServeEngine(weight_bits=...)``: every dense kernel quantized once
+     at load and packed): at 8 bits, the dense phase's 8 slots, warm-up
+     and 16 requests; tokens must equal the dense engine's and each
+     prompt's prefill logits must be bit-identical to it (the same codes,
+     column sums and epilogue), ``fused_qlhs_packed_matmul`` launches
+     exactly 281 times per forward and ``fused_qlhs_matmul`` never;
+     resident GEMM-weight bytes are printed beside fp32's.  At 4 bits, the
+     same workload (fused), and a 4-request workload under
+     ``fused=False`` through ``packed_matmul``; each against its replay
+     with that kernel's plain version swapped in (same tokens, the logits
+     of every decode sample bit-identical), exact launch counts, and every
+     GEMM of one prefill within rtol 1e-3 / atol 5e-3 of ``simulate`` on
+     the same packed weights.  Before that, both packed kernels against
+     their plain versions bit for bit at every (K, N) of granite's path
+     for M in {8, 128}, at 1, 2, 4 and 8 bits, and ragged, and at 8 bits
+     ``fused_qlhs_packed_matmul`` against ``fused_qlhs_matmul`` on the
+     same codes.
+  7. A short statquant-tx full-width serving run (layernorm, gelu, qkv
      bias), with the checks of 4.
-  7. Trains statquant-tx at full width and depth (6 layers, d=512,
+  8. Trains statquant-tx at full width and depth (6 layers, d=512,
      d_ff=1024, padded vocab 10,240; random weights from the seed) for 5
      steps of 8 x 64 tokens through the engine ``launch/train.py`` builds
      (AdamW, cosine schedule), on the ``kernel`` backend, under
@@ -84,8 +102,13 @@ toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
      PTQ 74 ``quantize_sr_tensor``; the fused kernels never), the same
      checks against the plain versions and ``simulate``, and every
      backward GEMM also against the fused kernels from the same (x, w,
-     key, dY).
-  8. Times each kernel at its path shapes (the serving kernels at the
+     key, dY).  Then 3 steps under ``fqt(psq, 8)`` with the forward
+     weight quantizer overridden to ``int4w:4`` (``launch/train.py
+     --override '.*=fwd_weight:int4w:4'``), fused (per step 37
+     ``fused_qlhs_packed_matmul``, 37 dX, 37 dW) and unfused (37
+     ``packed_matmul``, 74 ``q8_matmul``, 37 of each ``quantize_sr``):
+     finite loss and gradient norm, identical through the plain versions.
+  9. Times each kernel at its path shapes (the serving kernels at the
      decode and prefill shapes, the training kernels at the statquant-tx
      step's) with CUDA events after warm-up, an L2 flush before every
      launch and every launch queued behind a spin kernel (device time,
@@ -93,8 +116,10 @@ toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
      the same int8 shapes as the library yardstick (the bare int8
      product, without the quantize and epilogue), and its bound (bytes
      over 3.35 TB/s or int8 operations over 1,979 TOP/s, the H100 SXM
-     data-sheet peaks).  Then profiles one granite decode step (dense and
-     paged) and one training step under each policy (fused and unfused):
+     data-sheet peaks); the packed kernels at the decode up-projection at
+     8, 4, 2 and 1 bits and lm_head at 4 bits, with ``torch._int_mm`` on
+     the unpacked codes.  Then profiles one granite decode step (dense,
+     paged, and from 8- and 4-bit packed weights) and one training step under each policy (fused and unfused):
      wall time, device busy time and idle share, device time by op and by
      kernel.
 
@@ -106,6 +131,7 @@ Prints a ``{"kernels": [...]}`` line, then as its last line
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -186,14 +212,21 @@ def main(argv=None) -> int:
     serve, granite_engine, workload = serve_granite(torch, args.seed, report)
     paged, paged_engine = serve_granite_paged(torch, args.seed, report,
                                               granite_engine, workload)
+    errs.update(packed_kernel_vs_plain(torch, report))
+    packed, packed_engines = serve_granite_packed(torch, args.seed, report,
+                                                  granite_engine, workload)
     paged_features(torch, args.seed, report, granite_engine.params)
     paged_reduced_exact(torch, args.seed, report)
     serve_statquant(torch, args.seed, report)
     train = train_statquant(torch, args.seed, report)
     unfused = train_unfused(torch, args.seed, report)
+    packed_train = train_packed(torch, args.seed, report)
     timings = time_kernels(torch, report)
     serve["profile_decode_step"] = _profile_decode(torch, granite_engine)
     paged["profile_decode_step"] = _profile_paged_decode(torch, paged_engine)
+    for bits, eng in packed_engines.items():
+        packed[f"w{bits}"]["profile_decode_step"] = _profile_decode(
+            torch, eng, f"w{bits} packed")
 
     def entry(name, key, source, replaces, launches):
         return dict(name=name, route="cuda", source=source,
@@ -226,6 +259,14 @@ def main(argv=None) -> int:
         entry("quantize_sr_tensor", "quantize_sr_tensor",
               csrc + "quantize_sr.cu", "src/repro/kernels/quantize_sr.py:98",
               unfused["launches"]["quantize_sr_tensor"]),
+        entry("fused_qlhs_packed_matmul", "fused_qlhs_packed_matmul",
+              csrc + "fused_qlhs.cu", "src/repro/kernels/fused_fqt.py:328",
+              packed["launches"]["fused_qlhs_packed_matmul"]
+              + packed_train["launches"]["fused_qlhs_packed_matmul"]),
+        entry("packed_matmul", "packed_matmul", csrc + "packed_matmul.cu",
+              "src/repro/kernels/q4_matmul.py:71",
+              packed["launches"]["packed_matmul"]
+              + packed_train["launches"]["packed_matmul"]),
     ]
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
@@ -567,6 +608,93 @@ def sr_operands(torch, gen, M, N):
     return x, rb
 
 
+def packed_operands(torch, gen, M, K, N, wbits):
+    """Both packed kernels' arguments as core/backend builds them on the
+    serving path, from random activations and a weight quantized and
+    packed at ``wbits`` (``ptq_det``, or the ``binary`` sign plane at 1
+    bit): ``fused_qlhs_packed_matmul``'s (as ``fused_fqt_fwd``), then
+    ``packed_matmul``'s (as ``_packed_gemm``), then the PackedTensor."""
+    from repro_torch.core import (QuantizerSpec, affine_factors,
+                                  epilogue_coeffs, get_quantizer,
+                                  quantize_ptq_det)
+    from repro_torch.core.backend import _ptq_range
+    from repro_torch.kernels import pack_qtensor
+    dev = gen.device
+    x = torch.randn(M, K, generator=gen, device=dev)
+    w = torch.randn(K, N, generator=gen, device=dev) / K ** 0.5
+    if wbits == 1:
+        pt = get_quantizer("binary").quantize(
+            w, None, QuantizerSpec.of("binary"), backend="kernel")
+    else:
+        pt = pack_qtensor(quantize_ptq_det(w, wbits))
+    ab, bb = affine_factors(pt.scale, pt.zero, wbits)
+    u = ab * pt.colsum.to(torch.float32) + float(K) * bb
+    zero, scale = _ptq_range(x, 8)
+    sa = scale.reshape(1, 1).expand(M, 1).contiguous()
+    za = zero.reshape(1, 1).expand(M, 1).contiguous()
+    aq = quantize_ptq_det(x, 8)
+    a8 = aq.int8_codes
+    aa, ba = affine_factors(aq.scale, aq.zero, 8)
+    coeffs = epilogue_coeffs(a8, aa, ba, None, ab, bb, colsum=pt.colsum)
+    return ((x, sa, za, pt.packed, ab, bb, u),
+            (a8, pt.packed) + tuple(c.contiguous() for c in coeffs), pt)
+
+
+def packed_kernel_vs_plain(torch, report) -> dict:
+    """Both packed kernels against their plain versions on the card, bit
+    for bit, at every (K, N) of granite's serving path for M in {8, 128}
+    and ragged, at 1, 2, 4 and 8 bits; at 8 bits the packed forward also
+    against ``fused_qlhs_matmul`` on the same codes."""
+    from repro_torch.kernels import (fused_qlhs_matmul,
+                                     fused_qlhs_packed_matmul,
+                                     fused_qlhs_packed_matmul_plain,
+                                     packed_matmul, packed_matmul_plain)
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    rows = []
+    worst = {"fused_qlhs_packed_matmul": 0.0, "packed_matmul": 0.0}
+    shapes = [(m, k, n) for (k, n) in GRANITE_KN for m in (8, 128)]
+    shapes += [(33, 67, 130), (1, 130, 49)]
+    for wbits in (1, 2, 4, 8):
+        for (M, K, N) in shapes:
+            fused, unfused, pt = packed_operands(torch, gen, M, K, N, wbits)
+            outs = {}
+            for name, kern, plain, args, kw in (
+                    ("fused_qlhs_packed_matmul", fused_qlhs_packed_matmul,
+                     fused_qlhs_packed_matmul_plain, fused,
+                     dict(bits=8, wbits=wbits)),
+                    ("packed_matmul", packed_matmul, packed_matmul_plain,
+                     unfused, dict(wbits=wbits, kdim=K))):
+                got, ref = kern(*args, **kw), plain(*args, **kw)
+                torch.cuda.synchronize()
+                same = torch.equal(got, ref)
+                err = float((got - ref).abs().max())
+                check(bool(torch.isfinite(got).all()),
+                      f"{name} {(M, K, N)} w{wbits}: non-finite output")
+                check(same, f"{name} {(M, K, N)} w{wbits}: differs from "
+                            f"plain by {err}")
+                rows.append(dict(kernel=name, shape=[M, K, N], wbits=wbits,
+                                 max_abs_err=err, bit_identical=same))
+                worst[name] = max(worst[name], err)
+                outs[name] = got
+            line = (f"[kernel] packed w{wbits} {(M, K, N)}: "
+                    f"fused_qlhs_packed_matmul and packed_matmul "
+                    f"bit-identical to plain")
+            if wbits == 8:
+                x, sa, za, _, ab, bb, u = fused
+                q = fused_qlhs_matmul(x, sa, za, None, pt.int8_codes, ab, bb,
+                                      u, bits=8)
+                torch.cuda.synchronize()
+                same8 = torch.equal(outs["fused_qlhs_packed_matmul"], q)
+                check(same8, f"fused_qlhs_packed_matmul {(M, K, N)} w8 "
+                             f"differs from fused_qlhs_matmul on the same "
+                             f"codes")
+                rows[-2]["equals_fused_qlhs_matmul"] = same8
+                line += "; w8 fused == fused_qlhs_matmul"
+            log(line)
+    report["packed_kernel_vs_plain"] = rows
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # the main path: serving
 # ---------------------------------------------------------------------------
@@ -576,7 +704,8 @@ def _kernel_wrappers():
     return (kernels.fused_qlhs_matmul, kernels.kv_dequant_rows,
             kernels.q8_matmul, kernels.fused_qboth_tn_matmul,
             kernels.kv_gather_pages, kernels.quantize_sr_rows,
-            kernels.quantize_sr_tensor)
+            kernels.quantize_sr_tensor, kernels.fused_qlhs_packed_matmul,
+            kernels.packed_matmul)
 
 
 def _reset_counts():
@@ -588,14 +717,17 @@ def _reset_counts():
 
 def _read_counts():
     """Launches by kernel (and mode) since the last reset."""
-    qlhs, kv, q8, qboth, gather, sr_rows, sr_tensor = _kernel_wrappers()
+    (qlhs, kv, q8, qboth, gather, sr_rows, sr_tensor, qlhs_packed,
+     packed) = _kernel_wrappers()
     return {"fused_qlhs_matmul": qlhs.launches - qlhs.launches_dx,
             "fused_qlhs_matmul_dx": qlhs.launches_dx,
             "kv_dequant_rows": kv.launches, "q8_matmul": q8.launches,
             "fused_qboth_tn_matmul": qboth.launches,
             "kv_gather_pages": gather.launches,
             "quantize_sr_rows": sr_rows.launches,
-            "quantize_sr_tensor": sr_tensor.launches}
+            "quantize_sr_tensor": sr_tensor.launches,
+            "fused_qlhs_packed_matmul": qlhs_packed.launches,
+            "packed_matmul": packed.launches}
 
 
 def _check_counts(counts, want, tag):
@@ -609,13 +741,15 @@ def _check_counts(counts, want, tag):
                       f"{w}")
 
 
-def _prefill_logits(torch, model, params, prompt, backend):
+def _prefill_logits(torch, model, params, prompt, backend, policy=None):
     """Prefill logits of one prompt, padded as the engine pads it (token 0
-    up to the power-of-two bucket), under ``QuantPolicy.qat`` on
-    ``backend``, or unquantized for ``backend="exact"``."""
+    up to the power-of-two bucket), under ``policy`` or else
+    ``QuantPolicy.qat`` on ``backend``, or unquantized for
+    ``backend="exact"``."""
     from repro_torch.core import QuantPolicy
-    policy = (QuantPolicy.exact() if backend == "exact"
-              else QuantPolicy.qat(backend=backend))
+    if policy is None:
+        policy = (QuantPolicy.exact() if backend == "exact"
+                  else QuantPolicy.qat(backend=backend))
     lb = 1 << (len(prompt) - 1).bit_length()
     toks = torch.zeros((1, lb), dtype=torch.int64, device="cuda")
     toks[0, :len(prompt)] = torch.as_tensor(prompt, device="cuda")
@@ -631,9 +765,10 @@ def _gemms_per_forward(cfg) -> int:
     return cfg.n_layers * (4 + (3 if cfg.act == "swiglu" else 2)) + 1
 
 
-def _prefill_gemms(torch, model, params, prompt):
-    """Every quantized GEMM of one prefill through the kernels, as
-    (path, x, w, y) in call order."""
+def _prefill_gemms(torch, model, params, prompt, policy=None):
+    """Every quantized GEMM of one prefill through the kernels (under
+    ``policy``, default ``QuantPolicy.qat(backend="kernel")``), as (path,
+    x, w, y) in call order."""
     import repro_torch.layers.common as common
     import repro_torch.layers.embeddings as embeddings
     from repro_torch.core import fqt_matmul
@@ -647,7 +782,8 @@ def _prefill_gemms(torch, model, params, prompt):
     saved = common.fqt_matmul, embeddings.fqt_matmul
     common.fqt_matmul = embeddings.fqt_matmul = spy
     try:
-        logits = _prefill_logits(torch, model, params, prompt, "kernel")
+        logits = _prefill_logits(torch, model, params, prompt, "kernel",
+                                 policy)
     finally:
         common.fqt_matmul, embeddings.fqt_matmul = saved
     return logits, calls
@@ -768,7 +904,7 @@ def _vs_plain(torch, cfg, params, prompts, tag):
     return err
 
 
-def _profile_decode(torch, eng):
+def _profile_decode(torch, eng, what="dense"):
     """One full-batch granite decode step, profiled by ``_profile``."""
     B = eng.slots
     cache = eng.model.init_cache_quant(eng.cfg, B, eng.max_seq, device="cuda")
@@ -776,7 +912,7 @@ def _profile_decode(torch, eng):
     pos = torch.full((B,), eng.max_seq // 2, dtype=torch.int64, device="cuda")
     step = lambda: eng.model.decode(eng.params, cache, {"tokens": tok},  # noqa: E731
                                     eng.policy, positions=pos, kv_quant=True)
-    return _profile(torch, step, f"one decode step ({B} slots)")
+    return _profile(torch, step, f"one decode step ({B} slots, {what})")
 
 
 def _profile(torch, step, label):
@@ -1324,27 +1460,196 @@ def serve_statquant(torch, seed, report) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the main path: serving from bit-packed weights
+# ---------------------------------------------------------------------------
+
+def _gemm_weight_bytes(params) -> int:
+    """Resident bytes of the dense kernels (``"w"`` leaves, packed or not)."""
+    from repro_torch.serve import weight_nbytes
+    if isinstance(params, dict):
+        return sum(weight_nbytes(v) if k == "w" else _gemm_weight_bytes(v)
+                   for k, v in params.items())
+    return 0
+
+
+def _swapped(name, fn):
+    """A context in which ``core/backend.py`` calls ``fn`` for ``name``."""
+    import contextlib
+    import repro_torch.core.backend as backend
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = getattr(backend, name)
+        setattr(backend, name, fn)
+        try:
+            yield
+        finally:
+            setattr(backend, name, saved)
+    return ctx()
+
+
+def serve_granite_packed(torch, seed, report, dense_eng, workload):
+    """granite-3-2b at full width from weights packed once at load; see
+    the module docstring.  Returns the results and the 8- and 4-bit
+    engines (profiled at the end)."""
+    import numpy as np
+    from repro_torch.core import QuantPolicy, fqt_matmul
+    from repro_torch.kernels import (fused_qlhs_packed_matmul_plain,
+                                     packed_matmul_plain)
+    from repro_torch.serve import ServeEngine
+    cfg, params = dense_eng.cfg, dense_eng.params
+    per_fwd = _gemms_per_forward(cfg)
+    res, engines = {}, {}
+    total = {"fused_qlhs_packed_matmul": 0, "packed_matmul": 0}
+
+    def engine(bits, fused=None):
+        t0 = time.perf_counter()
+        eng = ServeEngine(cfg, params, policy=QuantPolicy.qat(
+            backend="kernel", fused=fused), slots=8, max_seq=256,
+            kv_quant=True, seed=seed, weight_bits=bits, device="cuda")
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t0
+        eng.submit([1] * 16, max_new=2)             # the dense warm-up
+        eng.run()
+        eng.step_times.clear()
+        return eng, pack_s
+
+    def serve(eng, reqs):
+        for prompt, kw in reqs:
+            eng.submit(prompt, **kw)
+        seen = _record_sampling_logits(eng)
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return ({r: c.tokens for r, c in done.items()}, seen, _read_counts(),
+                wall)
+
+    def run(tag, bits, reqs, kernel, plain, fused=None):
+        eng, pack_s = engine(bits, fused)
+        tokens, seen, counts, wall = serve(eng, reqs)
+        steps = len(eng.step_times)
+        want = {kernel: per_fwd * (len(reqs) + steps),
+                "kv_dequant_rows": 2 * cfg.n_layers * steps}
+        n_tok = sum(len(t) for t in tokens.values())
+        dts = np.asarray([dt for dt, _ in eng.step_times])
+        r = dict(requests=len(tokens), tokens=n_tok, wall_s=wall,
+                 tok_per_s=n_tok / wall, decode_steps=steps, pack_s=pack_s,
+                 p50_step_ms=float(np.percentile(dts, 50)) * 1e3,
+                 p95_step_ms=float(np.percentile(dts, 95)) * 1e3,
+                 launches=counts, expected_launches=want,
+                 gemm_weight_bytes=_gemm_weight_bytes(eng.params),
+                 gemm_weight_bytes_fp32=_gemm_weight_bytes(params))
+        log(f"[{tag}] granite full width, 8 slots: packed at load in "
+            f"{pack_s:.2f}s, GEMM weights {r['gemm_weight_bytes'] / 1e9:.3f}"
+            f" GB resident (fp32 {r['gemm_weight_bytes_fp32'] / 1e9:.3f} "
+            f"GB); {len(tokens)} requests, {n_tok} tokens in {wall:.2f}s "
+            f"({r['tok_per_s']:.1f} tok/s), {steps} decode steps, p50 "
+            f"{r['p50_step_ms']:.2f} ms p95 {r['p95_step_ms']:.2f} ms")
+        log(f"[{tag}] launches {counts} expected {want}")
+        _check_counts(counts, want, tag)
+        max_new = reqs[0][1]["max_new"]
+        check(len(tokens) == len(reqs) and all(
+            len(t) == max_new and all(0 <= v < cfg.vocab_size for v in t)
+            for t in tokens.values()),
+            f"{tag}: requests did not complete in the vocabulary")
+        total[kernel] += counts[kernel]
+        with _swapped(kernel, plain):
+            eng_p, _ = engine(bits, fused)
+            tokens_p, seen_p, _, _ = serve(eng_p, reqs)
+        del eng_p
+        same_log = seen.keys() == seen_p.keys() and all(
+            torch.equal(seen[k], seen_p[k]) for k in seen)
+        log(f"[{tag}] replay through {kernel}'s plain version: tokens equal "
+            f"{tokens_p == tokens}, logits of all {len(seen)} decode samples "
+            f"bit-identical {same_log}")
+        check(tokens_p == tokens and same_log,
+              f"{tag}: the plain replay differs")
+        r["plain_replay_identical"] = True
+        return eng, tokens, r
+
+    eng8, tokens8, res["w8"] = run("packed w8", 8, workload,
+                                   "fused_qlhs_packed_matmul",
+                                   fused_qlhs_packed_matmul_plain)
+    same = tokens8 == report["granite"]["tokens"]
+    log(f"[packed w8] tokens equal the dense engine's: {same}")
+    check(same, "packed w8: tokens differ from the dense engine's")
+    same_logits = all(
+        torch.equal(dense_eng._prefill(np.asarray([p]))[0],
+                    eng8._prefill(np.asarray([p]))[0]) for p, _ in workload)
+    log(f"[packed w8] prefill logits of all {len(workload)} prompts "
+        f"bit-identical to the dense engine's: {same_logits}")
+    check(same_logits, "packed w8: prefill logits differ from the dense "
+                       "engine's")
+    res["w8"]["prefill_logits_identical_to_dense"] = True
+    engines[8] = eng8
+
+    eng4, tokens4, res["w4"] = run("packed w4", 4, workload,
+                                   "fused_qlhs_packed_matmul",
+                                   fused_qlhs_packed_matmul_plain)
+    dense = report["granite"]["tokens"]
+    agree = sum(a == b for r in dense for a, b in zip(dense[r], tokens4[r]))
+    n = sum(len(t) for t in dense.values())
+    log(f"[packed w4] token agreement with the dense (8-bit) engine: "
+        f"{agree}/{n} (measured, not held: 4-bit weights are another model)")
+    res["w4"]["dense_token_agreement"] = [agree, n]
+    engines[4] = eng4
+
+    short = [(p, dict(kw, max_new=8)) for p, kw in workload[:4]]
+    eng4u, _, res["w4_unfused"] = run("packed w4 unfused", 4, short,
+                                      "packed_matmul", packed_matmul_plain,
+                                      fused=False)
+    del eng4u
+
+    # every GEMM of one prefill from the 4-bit weights vs simulate on them
+    sim = dataclasses.replace(eng4.policy, backend="simulate")
+    _, calls = _prefill_gemms(torch, eng4.model, eng4.params, workload[0][0],
+                              eng4.policy)
+    check(len(calls) == per_fwd, f"packed w4: {len(calls)} GEMMs in one "
+                                 f"prefill, the path implies {per_fwd}")
+    worst = 0.0
+    for i, (path, x, w, y) in enumerate(calls):
+        ref = fqt_matmul(x, w, None, sim, path=path)
+        worst = max(worst, float((y - ref).abs().max()))
+        check(within_tol(y, ref),
+              f"packed w4: GEMM {i} ({path}) kernel vs simulate differ by "
+              f"{float((y - ref).abs().max())} beyond rtol {RTOL}/atol "
+              f"{ATOL}")
+    del calls
+    log(f"[packed w4] all {per_fwd} GEMMs of one prefill (prompt "
+        f"{len(workload[0][0])}) vs simulate on the same packed weights: "
+        f"max|d|={worst:.3g} (checked, rtol {RTOL}, atol {ATOL})")
+    res["w4"]["gemms_vs_simulate_max_abs_diff"] = worst
+    res["launches"] = total
+    report["packed"] = res
+    return res, engines
+
+
+# ---------------------------------------------------------------------------
 # the main path: training
 # ---------------------------------------------------------------------------
 
 TRAIN_STEPS = 5
 
 
-def _train_policy(quant, bits, backend, fused=None):
+def _train_policy(quant, bits, backend, fused=None, overrides=()):
     """The launcher's FQT policy (``launch/train.py``: bhq_block=256);
     ``fused=False`` takes every role off the fused kernels."""
     from repro_torch.core import QuantPolicy
     return QuantPolicy.fqt(quant, bits, bhq_block=256, backend=backend,
-                           fused=fused)
+                           fused=fused, overrides=overrides)
 
 
-def _train_engine(cfg, quant, bits, backend, seed, fused=None):
+def _train_engine(cfg, quant, bits, backend, seed, fused=None, overrides=(),
+                  steps=TRAIN_STEPS):
     """The engine ``python -m repro_torch.launch.train --full --quant
-    QUANT --grad-bits BITS --backend BACKEND`` builds (batch 8, seq 64),
-    with the policy's ``fused`` knob."""
+    QUANT --grad-bits BITS --backend BACKEND [--override ...]`` builds
+    (batch 8, seq 64), with the policy's ``fused`` knob."""
     from repro_torch.engine import Engine
-    return Engine(cfg, _train_policy(quant, bits, backend, fused),
-                  steps=TRAIN_STEPS, batch_size=8, seq_len=64, seed=seed,
+    return Engine(cfg, _train_policy(quant, bits, backend, fused, overrides),
+                  steps=steps, batch_size=8, seq_len=64, seed=seed,
                   device="cuda", log_every=1, log_fn=log)
 
 
@@ -1358,18 +1663,19 @@ def _replay(torch, eng, steps=TRAIN_STEPS):
     return out
 
 
-def _replay_plain(torch, eng):
+def _replay_plain(torch, eng, steps=TRAIN_STEPS):
     """``_replay`` with every training kernel's wrapper swapped for its
     plain version (on the card): same device, same ops around them."""
     import repro_torch.core.backend as backend
     from repro_torch import kernels
     names = ("fused_qlhs_matmul", "fused_qboth_tn_matmul", "q8_matmul",
-             "quantize_sr_rows", "quantize_sr_tensor")
+             "quantize_sr_rows", "quantize_sr_tensor",
+             "fused_qlhs_packed_matmul", "packed_matmul")
     saved = {n: getattr(backend, n) for n in names}
     for n in names:
         setattr(backend, n, getattr(kernels, n + "_plain"))
     try:
-        return _replay(torch, eng)
+        return _replay(torch, eng, steps)
     finally:
         for n, fn in saved.items():
             setattr(backend, n, fn)
@@ -1576,6 +1882,65 @@ def train_unfused(torch, seed, report) -> dict:
     return res
 
 
+PACKED_TRAIN_STEPS = 3
+
+
+def train_packed(torch, seed, report) -> dict:
+    """statquant-tx at full width and depth trains PACKED_TRAIN_STEPS steps
+    under fqt(psq, 8) with the forward weights quantized by ``int4w:4``
+    (``launch/train.py --override '.*=fwd_weight:int4w:4'``), fused and
+    unfused: exact launch counts, finite loss and gradient norm, and the
+    same numbers through the plain versions."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import parse_override
+    cfg = get_config("statquant-tx")
+    n = _gemms_per_forward(cfg)
+    S = PACKED_TRAIN_STEPS
+    overrides = (parse_override(".*=fwd_weight:int4w:4"),)
+    total = {"fused_qlhs_packed_matmul": 0, "packed_matmul": 0}
+    res = {}
+    for fused, tag in ((None, "train psq8 int4w"),
+                       (False, "train psq8 int4w unfused")):
+        eng = _train_engine(cfg, "psq", 8, "kernel", seed, fused=fused,
+                            overrides=overrides, steps=S)
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        history = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        if fused is None:
+            want = {"fused_qlhs_packed_matmul": n * S,
+                    "fused_qlhs_matmul_dx": n * S,
+                    "fused_qboth_tn_matmul": n * S}
+        else:
+            want = {"packed_matmul": n * S, "q8_matmul": 2 * n * S,
+                    "quantize_sr_rows": n * S, "quantize_sr_tensor": n * S}
+        log(f"[{tag}] {cfg.name} full width: {S} steps of 8 x 64 tokens in "
+            f"{wall:.2f}s, launches {counts} expected {want}")
+        _check_counts(counts, want, tag)
+        for name in total:
+            total[name] += counts[name]
+        kern = _replay(torch, eng, S)
+        check([k[0] for k in kern] == [loss for _, loss in history]
+              and all(np.isfinite(v) for k in kern for v in k),
+              f"{tag}: the run {history} and its replay {kern} differ or "
+              f"are not finite")
+        plain = _replay_plain(torch, eng, S)
+        log(f"[{tag}] (loss, grad norm) per step {kern}; through the plain "
+            f"versions {plain}")
+        check(kern == plain, f"{tag}: the steps through the kernels differ "
+                             f"from the plain versions")
+        res["unfused" if fused is False else "fused"] = dict(
+            wall_s=wall, step_s=wall / S, launches=counts,
+            expected_launches=want, kernel=kern, plain=plain)
+    res["launches"] = total
+    report["train_packed"] = res
+    return res
+
+
 def _one_step(eng):
     """A closure running one step of ``eng`` from a fresh state."""
     batch = eng.loader.get(0)
@@ -1717,17 +2082,19 @@ def time_kernels(torch, report) -> dict:
             log(f"[time] {name} {(M, N)}: kernel {ms:.4f} ms, plain "
                 f"{plain:.4f} ms, bound {bound:.5f} ms ({by})")
     rows += time_train_kernels(torch, gen, flush)
+    rows += time_packed_kernels(torch, gen, flush)
     report["timings"] = rows
 
-    def pick(kernel, shape):
+    def pick(kernel, shape, wbits=None):
         r = next(r for r in rows
-                 if r["kernel"] == kernel and r["shape"] == shape)
+                 if r["kernel"] == kernel and r["shape"] == shape
+                 and r.get("wbits") == wbits)
         return {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms")}
     # the line's numbers: the decode-step shapes for the serving kernels
-    # (MLP up-projection, and one layer's K or V read at 8 slots x 256
-    # positions, pages of 16 for the gather), the lm_head GEMMs and
-    # gradient (the largest) for the training kernels
+    # (MLP up-projection, at 4 bits for the packed ones, and one layer's K
+    # or V read at 8 slots x 256 positions, pages of 16 for the gather),
+    # the lm_head GEMMs and gradient (the largest) for the training kernels
     return {"fused_qlhs_matmul": pick("fused_qlhs_matmul", [8, 2048, 8192]),
             "kv_dequant_rows": pick("kv_dequant_rows", [2048, 512]),
             "fused_qlhs_matmul_dx": pick("fused_qlhs_matmul_dx",
@@ -1737,7 +2104,10 @@ def time_kernels(torch, report) -> dict:
                                           [512, 512, 10240]),
             "kv_gather_pages": pick("kv_gather_pages", [8, 256, 512]),
             "quantize_sr_rows": pick("quantize_sr_rows", [512, 10240]),
-            "quantize_sr_tensor": pick("quantize_sr_tensor", [512, 10240])}
+            "quantize_sr_tensor": pick("quantize_sr_tensor", [512, 10240]),
+            "fused_qlhs_packed_matmul": pick("fused_qlhs_packed_matmul",
+                                             [8, 2048, 8192], 4),
+            "packed_matmul": pick("packed_matmul", [8, 2048, 8192], 4)}
 
 
 def time_train_kernels(torch, gen, flush) -> list:
@@ -1795,6 +2165,45 @@ def time_train_kernels(torch, gen, flush) -> list:
             lambda: fused_qboth_tn_matmul_plain(*ops, bits_a=8, bits_b=8),
             (codes(K, M).T, codes(K, N)), (M, N, K),
             4 * K * M + 12 * K * N + 16 + 4 * M + 4 * M * N)
+    return rows
+
+
+def time_packed_kernels(torch, gen, flush) -> list:
+    """Both packed kernels at the decode MLP up-projection (8, 2048, 8192)
+    at 8, 4, 2 and 1 bits and at lm_head (8, 2048, 49408) at 4 bits,
+    beside the plain version, ``torch._int_mm`` on the unpacked int8 codes
+    (M padded to 32; the bare product) and the bound: bytes over 3.35
+    TB/s, each input read once (the f32 LHS or its int8 codes, the packed
+    bytes, the vectors) and the f32 output written once."""
+    from repro_torch.kernels import (fused_qlhs_packed_matmul,
+                                     fused_qlhs_packed_matmul_plain,
+                                     packed_matmul, packed_matmul_plain)
+    rows = []
+    M = 8
+    for (K, N, wbits) in [(2048, 8192, w) for w in (8, 4, 2, 1)] + [
+            (2048, 49408, 4)]:
+        fused, unfused, pt = packed_operands(torch, gen, M, K, N, wbits)
+        kp = fused[3].shape[0]
+        a8 = torch.zeros((32, K), dtype=torch.int8, device="cuda")
+        w8 = pt.int8_codes
+        lib = _time_ms(torch, lambda: torch._int_mm(a8, w8), flush, 20)
+        for name, kern, plain, args, kw, nbytes in (
+                ("fused_qlhs_packed_matmul", fused_qlhs_packed_matmul,
+                 fused_qlhs_packed_matmul_plain, fused,
+                 dict(bits=8, wbits=wbits),
+                 M * K * 4 + kp * N + M * N * 4 + M * 8 + N * 4 + 8),
+                ("packed_matmul", packed_matmul, packed_matmul_plain,
+                 unfused, dict(wbits=wbits, kdim=K),
+                 M * K + kp * N + 12 * (M + N) + 4 * M * N)):
+            ms = _time_ms(torch, lambda: kern(*args, **kw), flush, 20)
+            plain_ms = _time_ms(torch, lambda: plain(*args, **kw), flush, 5)
+            bound, by = _bound(nbytes, 2.0 * M * N * K, INT8_OPS_PER_S)
+            rows.append(dict(kernel=name, shape=[M, K, N], wbits=wbits,
+                             ms=ms, plain_ms=plain_ms, library_ms=lib,
+                             bound_ms=bound, bound_by=by))
+            log(f"[time] {name} {(M, K, N)} w{wbits}: kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, _int_mm(M=32, int8 codes) "
+                f"{lib:.4f} ms, bound {bound:.5f} ms ({by})")
     return rows
 
 

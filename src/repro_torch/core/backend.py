@@ -24,7 +24,10 @@ GEMMs (Eq. 6).  Backends:
                 ``kernels/fused_fqt.py`` for the fused roles, ``q8_matmul``
                 for the unfused GEMMs (the BHQ activation grad, and every
                 GEMM of an unfused role), whose PTQ/PSQ operands the
-                ``quantize_sr`` kernels quantize
+                ``quantize_sr`` kernels quantize; against a bit-packed
+                weight (:class:`~repro_torch.kernels.pack.PackedTensor`) the
+                forward runs ``fused_qlhs_packed_matmul`` (fused) or
+                ``packed_matmul`` (unfused), which stream the packed bytes
   ``native``    the JAX package's XLA int8 dot: not ported, raises
 
 SR bits are ``prng.bits(key, shape)`` drawn on the operand's device, the
@@ -39,7 +42,10 @@ from typing import Union
 import torch
 
 from .. import prng
-from ..kernels.fused_fqt import fused_qboth_tn_matmul, fused_qlhs_matmul
+from ..kernels.fused_fqt import (fused_qboth_tn_matmul, fused_qlhs_matmul,
+                                 fused_qlhs_packed_matmul)
+from ..kernels.pack import PackedTensor
+from ..kernels.q4_matmul import packed_matmul
 from ..kernels.q8_matmul import q8_matmul
 from ..kernels.quantize_sr import quantize_sr_rows, quantize_sr_tensor
 from .bhq import BHQTensor
@@ -84,18 +90,22 @@ def _vec(v, n: int, device) -> torch.Tensor:
 
 
 def epilogue_coeffs(a8: torch.Tensor, alpha_a, beta_a, b8: torch.Tensor,
-                    alpha_b, beta_b, bias=None):
+                    alpha_b, beta_b, bias=None, colsum=None):
     """The epilogue coefficient vectors (rs, cs, r2, u, a, b) for a8 (M, K)
     shifted codes with per-row or per-tensor factors and b8 (K, N) with
-    per-tensor factors; ``bias`` fills the free b_j slot."""
+    per-tensor factors; ``bias`` fills the free b_j slot.  ``colsum``: b8's
+    int32 column sums when the caller holds them (a packed weight's), in
+    which case ``b8`` is not read."""
     m, kdim = a8.shape
-    n = b8.shape[1]
     dev = a8.device
     alpha_b = torch.as_tensor(alpha_b, dtype=torch.float32,
                               device=dev).reshape(())
     beta_b = torch.as_tensor(beta_b, dtype=torch.float32, device=dev).reshape(())
     rowsum = a8.to(torch.int32).sum(dim=1).to(torch.float32)
-    colsum = b8.to(torch.int32).sum(dim=0).to(torch.float32)
+    if colsum is None:
+        colsum = b8.to(torch.int32).sum(dim=0)
+    colsum = colsum.to(torch.float32)
+    n = colsum.shape[0]
     rs = _vec(alpha_a, m, dev)
     r2 = _vec(beta_a, m, dev)
     cs = alpha_b.expand(n)
@@ -139,15 +149,43 @@ def _codes_dequant2d(qt) -> torch.Tensor:
     return d.reshape(-1, d.shape[-1])
 
 
-def qt_gemm(aq: QTensor, bq: QTensor, *, backend: str) -> torch.Tensor:
+def qt_gemm(aq: QTensor, bq: Union[QTensor, PackedTensor], *,
+            backend: str) -> torch.Tensor:
     """Forward GEMM ``A-hat @ B-hat`` (Eq. 3: ``Q_f(X) @ Q_theta(W)``) from
-    two quantized operands."""
+    two quantized operands; a :class:`PackedTensor` B stays packed and runs
+    through ``packed_matmul`` (``simulate`` dequantizes either)."""
     if backend == "simulate":
         return _codes_dequant2d(aq) @ _codes_dequant2d(bq)
+    if isinstance(bq, PackedTensor):
+        return _packed_gemm(aq, bq, backend=backend)
     alpha_a, beta_a = affine_factors(aq.scale, aq.zero, aq.bits)
     alpha_b, beta_b = affine_factors(bq.scale, bq.zero, bq.bits)
     return q8_gemm(_codes2d(aq), alpha_a, beta_a, _codes2d(bq),
                    alpha_b, beta_b, backend=backend)
+
+
+def _packed_scalars(pt: PackedTensor):
+    """A per-layer packed weight's (alpha_b, beta_b) as 0-d tensors (a slice
+    of a stacked tensor carries (1, 1) scale and zero)."""
+    return affine_factors(pt.scale.reshape(()), pt.zero.reshape(()), pt.bits)
+
+
+def _packed_gemm(aq: QTensor, pt: PackedTensor, *, backend: str,
+                 bias=None) -> torch.Tensor:
+    """``A-hat @ B-hat`` with the B codes bit-packed, through
+    ``packed_matmul``.  The epilogue's ``u`` takes the unpacked codes'
+    column sums from ``pt.colsum`` (computed once at pack time), so no
+    unpacked weight is made here."""
+    _check_backend(backend, "the packed GEMM")
+    a8 = _codes2d(aq)
+    alpha_a, beta_a = affine_factors(aq.scale, aq.zero, aq.bits)
+    alpha_b, beta_b = _packed_scalars(pt)
+    coeffs = epilogue_coeffs(a8, alpha_a, beta_a, None, alpha_b, beta_b,
+                             bias, colsum=pt.colsum.reshape(-1))
+    packed2d = pt.packed.reshape(-1, pt.packed.shape[-1])
+    return packed_matmul(a8.contiguous(), packed2d,
+                         *(c.contiguous() for c in coeffs), wbits=pt.bits,
+                         kdim=pt.kdim)
 
 
 def qt_gemm_tn(aq: QTensor, bq: QTensor, *, backend: str) -> torch.Tensor:
@@ -161,7 +199,8 @@ def qt_gemm_tn(aq: QTensor, bq: QTensor, *, backend: str) -> torch.Tensor:
                    alpha_b, beta_b, backend=backend)
 
 
-def qt_gemm_nt(aq: Union[QTensor, BHQTensor], bq: QTensor, *,
+def qt_gemm_nt(aq: Union[QTensor, BHQTensor],
+               bq: Union[QTensor, PackedTensor], *,
                backend: str) -> torch.Tensor:
     """Activation-grad GEMM ``A-hat @ B-hat.T`` (``Q_b2(dY) @ Q_theta(W).T``).
 
@@ -169,7 +208,10 @@ def qt_gemm_nt(aq: Union[QTensor, BHQTensor], bq: QTensor, *,
     for BHQ the ``S^{-1}`` epilogue commutes with the right-matmul,
     ``Q_b(g) @ B-hat.T = S^{-1}((codes + Z) @ B-hat.T)``, so the int GEMM
     runs on raw codes and ``dequant_epilogue`` mixes the output rows.
-    ``B-hat.T`` stays a view of the weight codes (read K-major)."""
+    ``B-hat.T`` stays a view of the weight codes (read K-major); a
+    :class:`PackedTensor` B unpacks transiently here (its ``int8_codes``):
+    the dX contraction runs over the packed layout's column axis, which the
+    packed kernels do not cover."""
     if backend == "simulate":
         a = aq.dequant()
         return a.reshape(-1, a.shape[-1]) @ _codes_dequant2d(bq).T
@@ -238,9 +280,11 @@ def requantize_det(x2: torch.Tensor, scale, zero, bits: int) -> QTensor:
                    shape=tuple(x2.shape))
 
 
-def fused_fqt_fwd(x2: torch.Tensor, wq: QTensor, bits_act: int, *,
-                  backend: str):
-    """Forward Eq. 3 ``Q_f(x2) @ W-hat`` with Q_f fused into the GEMM.
+def fused_fqt_fwd(x2: torch.Tensor, wq: Union[QTensor, PackedTensor],
+                  bits_act: int, *, backend: str):
+    """Forward Eq. 3 ``Q_f(x2) @ W-hat`` with Q_f fused into the GEMM; a
+    :class:`PackedTensor` weight stays packed (``fused_qlhs_packed_matmul``,
+    ``u`` from its stored column sums).
 
     Returns (y, scale_x, zero_x) — the scale/zero are the residuals the
     backward rematerializes the activation codes from."""
@@ -249,6 +293,14 @@ def fused_fqt_fwd(x2: torch.Tensor, wq: QTensor, bits_act: int, *,
     zero, scale = _ptq_range(x2, bits_act)
     sa = scale.reshape(1, 1).expand(M, 1).contiguous()
     za = zero.reshape(1, 1).expand(M, 1).contiguous()
+    if isinstance(wq, PackedTensor):
+        alpha_b, beta_b = _packed_scalars(wq)
+        colsum = wq.colsum.reshape(-1).to(torch.float32)
+        u = alpha_b * colsum + float(K) * beta_b
+        y = fused_qlhs_packed_matmul(
+            x2.contiguous(), sa, za, wq.packed.reshape(-1, wq.shape[-1]),
+            alpha_b, beta_b, u, bits=bits_act, wbits=wq.bits)
+        return y, scale, zero
     w8 = wq.int8_codes.reshape(-1, wq.shape[-1])
     alpha_b, beta_b = affine_factors(wq.scale, wq.zero, wq.bits)
     colsum = w8.to(torch.int32).sum(dim=0).to(torch.float32)

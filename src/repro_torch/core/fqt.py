@@ -25,6 +25,13 @@ runs ``q8_matmul``.  A role that does not fuse (``fused=False``, or a
 forward other than ``ptq_det``) quantizes on its own — PTQ/PSQ through the
 ``quantize_sr`` kernels — and runs its GEMM through ``q8_matmul``.
 ``simulate`` quantize-dequantizes and runs fp32 matmuls.  dW comes back in fp32, dX in the stream dtype.
+
+The bit-packed forward-weight quantizers (``int4w``, ``binary``,
+``ternary``) fuse like ``ptq_det``: their packed weight runs through
+``fused_qlhs_packed_matmul`` (or ``packed_matmul`` unfused), and the
+backward unpacks it transiently.  A weight packed once at load (a
+:class:`~repro_torch.kernels.pack.PackedTensor` given as ``w``, the
+serving engine's ``weight_bits``) takes the inference-only ``_packed_fwd``.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from typing import Union
 import torch
 
 from .. import prng
+from ..kernels.pack import PackedTensor
 from .backend import (fused_fqt_dw, fused_fqt_dx, fused_fqt_fwd, qt_gemm,
                       qt_gemm_nt, qt_gemm_tn, requantize_det)
 from .policy import QuantPolicy
@@ -47,15 +55,18 @@ def _fused_roles(cfg: GemmQuantConfig):
 
     ``cfg.fused`` is the knob (None = auto: on for the kernel backend); a
     role only fuses when the fused kernels implement its quantizer — the
-    deterministic-PTQ forward, per-tensor stochastic-PTQ wgrad, PTQ/PSQ
-    agrad; the fused wgrad also needs the fused forward's residuals.
+    deterministic-PTQ forward (its weight ``ptq_det`` or a packed-weight
+    quantizer), per-tensor stochastic-PTQ wgrad, PTQ/PSQ agrad; the fused
+    wgrad also needs the fused forward's residuals.
     """
     if cfg.backend == "simulate" or not cfg.quantize_fwd:
         return False, False, False
     on = cfg.fused if cfg.fused is not None else (cfg.backend == "kernel")
     if not on:
         return False, False, False
-    fwd = cfg.fwd_act.name == "ptq_det" and cfg.fwd_weight.name == "ptq_det"
+    w_packed = get_quantizer(cfg.fwd_weight.name).packed_weights
+    fwd = (cfg.fwd_act.name == "ptq_det"
+           and (cfg.fwd_weight.name == "ptq_det" or w_packed))
     wg = fwd and cfg.wgrad is not None and cfg.wgrad.name == "ptq"
     ag = cfg.agrad is not None and cfg.agrad.name in ("ptq", "psq")
     return fwd, wg, ag
@@ -159,8 +170,12 @@ def fqt_matmul(x: torch.Tensor, w: torch.Tensor, key,
     ``prng`` key, kept on the CPU) consumed by the backward's stochastic
     quantizers (``None`` is fine for the forward and for QAT).  ``policy``
     is a :class:`QuantPolicy`, resolved against ``path``, or an
-    already-resolved :class:`GemmQuantConfig`.
+    already-resolved :class:`GemmQuantConfig`.  A :class:`PackedTensor`
+    ``w`` (quantized and packed once at load) runs the inference-only
+    packed forward.
     """
+    if isinstance(w, PackedTensor):
+        return _packed_fwd(x, w, policy, path)
     if isinstance(policy, QuantPolicy):
         if not policy.enabled:
             return x @ w
@@ -170,3 +185,35 @@ def fqt_matmul(x: torch.Tensor, w: torch.Tensor, key,
     if not cfg.quantize_fwd:                 # layer pinned exact
         return x @ w
     return _FQT.apply(x, w, key, cfg)
+
+
+def _packed_fwd(x: torch.Tensor, pt: PackedTensor,
+                policy: Union[QuantPolicy, GemmQuantConfig],
+                path: str) -> torch.Tensor:
+    """Forward against a pre-packed weight: ``Q_f(x) @ B-hat``, B packed.
+
+    The weight role was applied when the weight was packed, so only the
+    activation side of the resolved config runs here: exact or simulated
+    activations against the dequantized weight (no quantized forward, or
+    ``simulate``), the fused packed kernel, or ``Q_f`` then
+    ``packed_matmul``.  No gradient: training with packed weights goes
+    through the packed quantizers on fp32 weights."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+    if isinstance(policy, QuantPolicy):
+        cfg = policy.resolve(path) if policy.enabled else None
+    else:
+        cfg = policy.validate() if policy is not None else None
+    if cfg is None or not cfg.quantize_fwd or cfg.backend == "simulate":
+        if cfg is not None and cfg.quantize_fwd:
+            xv = _quantize_role(cfg.fwd_act, x2, None, cfg).dequant()
+        else:
+            xv = x2
+        y = xv @ pt.dequant().reshape(-1, pt.shape[-1])
+    elif _fused_roles(cfg)[0]:
+        y, _, _ = fused_fqt_fwd(x2, pt, cfg.fwd_act.bits or 8,
+                                backend=cfg.backend)
+    else:
+        xq = _quantize_role(cfg.fwd_act, x2, None, cfg)
+        y = qt_gemm(xq, pt, backend=cfg.backend)
+    return y.reshape(*lead, pt.shape[-1]).to(x.dtype)

@@ -10,7 +10,9 @@ each tensor role of the linear-layer training step (Sec. 2, Eq. 3/6):
 
 plus the serving-time ``kv_cache`` role: the forward quantizer
 (``ptq_det``), the stochastic backward quantizers (``ptq``, ``psq``,
-``bhq``) and the int8 KV codec (``kv_int8``).  On the ``kernel`` backend
+``bhq``), the int8 KV codec (``kv_int8``) and the bit-packed forward-weight
+quantizers (``int4w``, ``binary``, ``ternary``), which return a
+:class:`~repro_torch.kernels.pack.PackedTensor`.  On the ``kernel`` backend
 the FQT step fuses PTQ/PSQ into the GEMM kernels; PTQ/PSQ in an unfused
 role there run through the ``quantize_sr_*`` kernels.
 """
@@ -22,8 +24,9 @@ from typing import Optional
 
 import torch
 
+from ..kernels.pack import pack_qtensor
 from .bhq import quantize_bhq_stoch
-from .quantizers import (QTensor, quantize_ptq_det, quantize_psq_stoch,
+from .quantizers import (_EPS, QTensor, quantize_ptq_det, quantize_psq_stoch,
                          quantize_ptq_stoch)
 
 __all__ = [
@@ -173,10 +176,12 @@ class GemmQuantConfig:
 class Quantizer:
     """Base class for pluggable quantizers.  Subclasses implement
     :meth:`quantize`; ``key`` is ``None`` for the deterministic forward
-    roles."""
+    roles.  ``packed_weights``: the quantizer returns a bit-packed weight,
+    which the fused forward takes as it is."""
 
     name: str = ""
     stochastic: bool = True
+    packed_weights: bool = False
 
     def quantize(self, x2d: torch.Tensor, key, spec: QuantizerSpec, *,
                  backend: str):
@@ -289,6 +294,77 @@ class KVCacheInt8(Quantizer):
         return dequant_kv_rows(codes8, scale, zero, bits, backend=backend)
 
 
+class PackedPTQWeight(Quantizer):
+    """``int4w``: deterministic PTQ forward-weight quantizer with bit-packed
+    storage: the ``ptq_det`` code grid at 4 or 2 bits, returned as a
+    :class:`~repro_torch.kernels.pack.PackedTensor`.  Weight-role only: the
+    packed kernels keep the weight on the RHS of the forward GEMM."""
+
+    name = "int4w"
+    stochastic = False
+    packed_weights = True
+    default_bits = 4
+
+    def quantize(self, x2d, key, spec, *, backend):
+        bits = spec.bits if spec.bits is not None else self.default_bits
+        if bits not in (2, 4):
+            raise ValueError(
+                f"int4w packs sub-byte PTQ codes; bits must be 4 or 2, got "
+                f"{bits!r} (use 'ptq_det' for 8-bit, 'binary' for 1-bit)")
+        return pack_qtensor(quantize_ptq_det(x2d, bits))
+
+
+class BinaryWeight(Quantizer):
+    """``binary``: 1-bit BWN-style weights ``w -> alpha * sign(w)`` with
+    ``alpha = mean|w|``.  Codes are the sign plane ``{0, 1}`` packed 8 a
+    byte; ``scale = 1/(2 alpha)``, ``zero = -alpha`` put ``dequant`` on
+    ``{-alpha, +alpha}``, so the standard epilogue needs no special case."""
+
+    name = "binary"
+    stochastic = False
+    packed_weights = True
+    default_bits = 1
+
+    def quantize(self, x2d, key, spec, *, backend):
+        if spec.bits not in (None, 1):
+            raise ValueError(
+                f"binary is 1-bit by definition, got bits={spec.bits!r}")
+        x = x2d.to(torch.float32)
+        alpha = torch.mean(torch.abs(x))
+        codes = (x > 0).to(torch.uint8)             # sign(0) -> -alpha
+        return pack_qtensor(QTensor(
+            codes=codes, scale=1.0 / (2.0 * alpha + _EPS), zero=-alpha,
+            bits=1, shape=tuple(x2d.shape)))
+
+
+class TernaryWeight(Quantizer):
+    """``ternary``: TWN-style weights ``w -> alpha * {-1, 0, +1}`` with
+    threshold ``delta = 0.7 mean|w|`` and ``alpha = mean(|w| : |w| >
+    delta)``.  Codes ``{0, 1, 2}`` ride the 2-bit pack; ``scale = 1/alpha``,
+    ``zero = -alpha`` put ``dequant`` on ``{-alpha, 0, +alpha}``."""
+
+    name = "ternary"
+    stochastic = False
+    packed_weights = True
+    default_bits = 2
+
+    def quantize(self, x2d, key, spec, *, backend):
+        if spec.bits not in (None, 2):
+            raise ValueError(
+                f"ternary stores {{-1,0,+1}} as 2-bit codes, got "
+                f"bits={spec.bits!r}")
+        x = x2d.to(torch.float32)
+        ax = torch.abs(x)
+        delta = 0.7 * torch.mean(ax)
+        mask = ax > delta
+        alpha = torch.sum(torch.where(mask, ax, 0.0)) / torch.clamp_min(
+            torch.sum(mask.to(torch.float32)), 1.0)
+        codes = torch.where(mask, torch.where(x > 0, 2, 0), 1).to(torch.uint8)
+        return pack_qtensor(QTensor(
+            codes=codes, scale=1.0 / (alpha + _EPS), zero=-alpha,
+            bits=2, shape=tuple(x2d.shape)))
+
+
 def resolve_kv_cache_spec(value) -> Optional[QuantizerSpec]:
     """Coerce the serving engine's quantized-KV knob: ``None``/``False`` =>
     full-precision cache; ``True`` => ``kv_int8:8``; otherwise a spec-ish
@@ -312,3 +388,6 @@ register_quantizer("ptq", StochasticPTQ())
 register_quantizer("psq", StochasticPSQ())
 register_quantizer("bhq", BlockHouseholder())
 register_quantizer("kv_int8", KVCacheInt8())
+register_quantizer("int4w", PackedPTQWeight())
+register_quantizer("binary", BinaryWeight())
+register_quantizer("ternary", TernaryWeight())

@@ -1,7 +1,8 @@
 // Fused quantize -> int8 GEMM -> affine epilogue, for Hopper.
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/fused_fqt.py
-// fused_qlhs_matmul (body _qlhs_kernel) in all its modes: out =
+// Replaces two Pallas TPU kernels of src/repro/kernels/fused_fqt.py:
+// fused_qlhs_matmul (body _qlhs_kernel) in all its modes, and
+// fused_qlhs_packed_matmul (body _qlhs_packed_kernel).  out =
 // Q(xf) @ B-hat with the per-row quantize of the f32 LHS done on the fly,
 // so no int8 codes of the quantized operand ever reach device memory.
 // The FQT step calls it twice per linear layer:
@@ -10,6 +11,17 @@
 //   * activation grad (trans_b = 1, stochastic): Q_b2(dY) @ Q_theta(W).T
 //     for PTQ/PSQ Q_b2, with B = the same (d_in, d_out) weight codes read
 //     as their transpose, whose K axis is the contiguous one.
+// The packed entry (fused_qlhs_packed) is the forward against weights
+// bit-packed once at load (kernels/pack.py: 1, 2, 4 or 8 bits, ppb codes a
+// byte along K): every forward GEMM of a weight_bits serving engine, and
+// the training forward under the int4w/binary/ternary weight quantizers.
+// It differs from the forward only in its B-tile loader, which unpacks the
+// (64/ppb) x 64 byte tile in registers (gemm_tile.cuh load_b_packed: one
+// byte holds ppb consecutive K codes of a column, so no transpose is
+// needed below 8 bits) and masks rows >= K, the pack's padding, which
+// unpack to code 0 and not to the shifted zero.  The quantize and the
+// epilogue are the same code, so at 8 bits the packed result is
+// bit-identical to the forward on the same codes.
 //
 // What it computes, per output (i, j):
 //   t_ik   = scale_i * (x_ik - zero_i)
@@ -31,22 +43,23 @@
 //
 // What bounds it on an H100: at decode (M = slot count, 1..16) the kernel
 // must stream the K x N int8 weight codes once, K*N bytes (17 MB for the
-// 2048 x 8192 MLP projection, 101 MB for lm_head): it is bound by device
-// memory.  At training shapes (M = 512 tokens) and prefill the f32 LHS
+// 2048 x 8192 MLP projection, 101 MB for lm_head), or K*N/ppb packed
+// bytes: it is bound by device memory.  At training shapes (M = 512 tokens) and prefill the f32 LHS
 // (and the int64 SR bits) dominate the bytes, and the int8 operations come
 // close.  The design is deliberately simple (first port; wgmma/TMA come
-// later): one block owns a 32 x 64 output tile and sweeps K in steps of 64.
+// later): the shared tile of gemm_tile.cuh, one block owning a 32 x 64
+// output tile and sweeping K in steps of 64.
 // Each step it
 //   * loads its 32 x 64 f32 LHS tile (and SR bits), quantizes it in
 //     registers, and stores the codes K-major in shared memory (4 codes per
 //     32-bit word), keeping each row's code sum in registers;
-//   * loads the 64 x 64 weight-code tile: N-major (forward) it is
-//     transposed 4 x 4 bytes at a time in registers (__byte_perm) so it
-//     lands K-major in shared memory as well; K-major (dX) each 4-code word
-//     is stored as it comes;
+//   * loads the 64 x 64 weight-code tile: N-major (forward, and packed at
+//     8 bits) it is transposed 4 x 4 bytes at a time in registers
+//     (__byte_perm) so it lands K-major in shared memory as well; K-major
+//     (dX) each 4-code word is stored as it comes; packed below 8 bits it
+//     is unpacked into K-major words;
 //   * accumulates with __dp4a, 2 x 4 outputs per thread.
-// Shared-memory rows are padded to 17 words so the column reads of the
-// inner loop hit 16 distinct banks.  Ragged M, N and K edges are masked in
+// Ragged M, N and K edges are masked in
 // the kernel (codes of padded K columns are zero, as the Pallas kernel's
 // col < kdim mask makes them), so the wrapper never pads or slices.
 // A quad of four LHS values (or SR bits, or weight codes) that lies whole
@@ -57,14 +70,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "gemm_tile.cuh"
+
 namespace {
 
-constexpr int BM = 32;
-constexpr int BN = 64;
-constexpr int BK = 64;
-constexpr int THREADS = 256;
-constexpr int KQ = BK / 4;     // 32-bit words (4 codes) per tile row
-constexpr int LDS = KQ + 1;    // padded shared-memory row stride, in words
+using namespace gemm_tile;
+
 constexpr float U32_TO_UNIT = 2.3283064365386963e-10f;   // 2^-32, exact
 
 template <bool SR>
@@ -98,32 +109,18 @@ __device__ __forceinline__ void load_quad_bits(const long long* src,
   }
 }
 
-__device__ __forceinline__ unsigned pack4(int c0, int c1, int c2, int c3) {
-  return static_cast<unsigned>((c0 & 0xff) | ((c1 & 0xff) << 8) |
-                               ((c2 & 0xff) << 16) | ((c3 & 0xff) << 24));
-}
-
-// Four consecutive int8 codes of one row starting at column c, as one word;
-// columns at or beyond `cols` (and any row that is out of range) read 0.
-__device__ __forceinline__ unsigned load_word(const int8_t* row, int c,
-                                              int cols, bool row_ok) {
-  const int8_t* src = row + c;
-  if (row_ok && c + 3 < cols && (reinterpret_cast<uintptr_t>(src) & 3) == 0)
-    return *reinterpret_cast<const unsigned*>(src);
-  int b[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-    b[q] = (row_ok && c + q < cols) ? static_cast<int>(src[q]) : 0;
-  return pack4(b[0], b[1], b[2], b[3]);
-}
-
-template <bool TRANS_B, bool SR>
+// WBITS = 0: B is int8 weight codes, (K, N) row-major or, TRANS_B, stored
+// (N, K).  WBITS in {1, 2, 4, 8}: B is the (ceil(K/ppb), N) bit-packed
+// unsigned codes of kernels/pack.py (forward only: TRANS_B and SR false);
+// only the B-tile loader differs, so at WBITS = 8 the result is
+// bit-identical to WBITS = 0 on the same codes.
+template <int WBITS, bool TRANS_B, bool SR>
 __global__ void __launch_bounds__(THREADS)
 fused_qlhs_kernel(const float* __restrict__ xf,
                   const float* __restrict__ sa,
                   const float* __restrict__ za,
                   const long long* __restrict__ rbits,
-                  const int8_t* __restrict__ y8,
+                  const uint8_t* __restrict__ y8,
                   const float* __restrict__ ab_ptr,
                   const float* __restrict__ bb_ptr,
                   const float* __restrict__ u,
@@ -184,51 +181,19 @@ fused_qlhs_kernel(const float* __restrict__ xf,
       rsum[i] += c[0] + c[1] + c[2] + c[3];
       As[a_row[i] * LDS + a_kq] = static_cast<int>(pack4(c[0], c[1], c[2], c[3]));
     }
-    if (TRANS_B) {
-      // B stored (N, K): each word already holds four K-consecutive codes.
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int idx = t + THREADS * i;
-        const int col = idx >> 4;
-        const int kq = idx & 15;
-        const int n = n0 + col;
-        Bs[col * LDS + kq] = static_cast<int>(load_word(
-            y8 + static_cast<size_t>(n) * K, k0 + kq * 4, K, n < N));
-      }
+    if constexpr (WBITS == 0) {
+      if (TRANS_B)
+        load_b_kmajor(Bs, y8, N, K, n0, k0, t);
+      else
+        load_b_nmajor(Bs, y8, N, K, n0, k0, t, 0u);
+    } else if constexpr (WBITS == 8) {
+      // the identity pack: unsigned codes u, u ^ 0x80 = u - 128 as int8
+      load_b_nmajor(Bs, y8, N, K, n0, k0, t, 0x80808080u);
     } else {
-      // B stored (K, N): one 4 x 4 byte block per thread, transposed.
-      const int b_nq = t & 15;
-      const int b_kq = t >> 4;
-      const int n = n0 + b_nq * 4;
-      unsigned r[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kk = k0 + b_kq * 4 + j;
-        r[j] = load_word(y8 + static_cast<size_t>(kk) * N, n, N, kk < K);
-      }
-      // word i holds column n+i at rows k..k+3
-      const unsigned lo01 = __byte_perm(r[0], r[1], 0x5140);
-      const unsigned hi01 = __byte_perm(r[0], r[1], 0x7362);
-      const unsigned lo23 = __byte_perm(r[2], r[3], 0x5140);
-      const unsigned hi23 = __byte_perm(r[2], r[3], 0x7362);
-      const int col = b_nq * 4;
-      Bs[(col + 0) * LDS + b_kq] = static_cast<int>(__byte_perm(lo01, lo23, 0x5410));
-      Bs[(col + 1) * LDS + b_kq] = static_cast<int>(__byte_perm(lo01, lo23, 0x7632));
-      Bs[(col + 2) * LDS + b_kq] = static_cast<int>(__byte_perm(hi01, hi23, 0x5410));
-      Bs[(col + 3) * LDS + b_kq] = static_cast<int>(__byte_perm(hi01, hi23, 0x7632));
+      load_b_packed<WBITS>(Bs, y8, N, K, n0, k0, t);
     }
     __syncthreads();
-#pragma unroll
-    for (int kq = 0; kq < KQ; ++kq) {
-      const int a0 = As[ty * LDS + kq];
-      const int a1 = As[(ty + 16) * LDS + kq];
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        const int b = Bs[(tx + 16 * cc) * LDS + kq];
-        acc[0][cc] = __dp4a(a0, b, acc[0][cc]);
-        acc[1][cc] = __dp4a(a1, b, acc[1][cc]);
-      }
-    }
+    dp4a_step(As, Bs, ty, tx, acc);
     __syncthreads();
   }
 
@@ -269,45 +234,74 @@ fused_qlhs_kernel(const float* __restrict__ xf,
   }
 }
 
-template <bool TRANS_B, bool SR>
-void launch(const float* xf, const float* sa, const float* za,
-            const long long* rbits, const int8_t* y8, const float* ab,
-            const float* bb, const float* u, float* out, int M, int N, int K,
-            float nbins, float off, cudaStream_t s) {
+template <int WBITS, bool TRANS_B, bool SR>
+int launch(const float* xf, const float* sa, const float* za,
+           const long long* rbits, const void* y8, const float* ab,
+           const float* bb, const float* u, float* out, int M, int N, int K,
+           int bits, void* stream) {
+  const float nbins = static_cast<float>((1 << bits) - 1);
+  const float off = static_cast<float>(1 << (bits - 1));
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  fused_qlhs_kernel<TRANS_B, SR><<<grid, THREADS, 0, s>>>(
-      xf, sa, za, rbits, y8, ab, bb, u, out, M, N, K, nbins, off);
+  fused_qlhs_kernel<WBITS, TRANS_B, SR>
+      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          xf, sa, za, rbits, static_cast<const uint8_t*>(y8), ab, bb, u, out,
+          M, N, K, nbins, off);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes.  rbits: (M, K) int64 SR bits, or
-// nullptr for deterministic rounding; y8 is (K, N) row-major when trans_b == 0 and stored (N, K)
-// row-major when trans_b != 0.  Returns cudaGetLastError() after the launch
-// (0 = launched).
+// nullptr for deterministic rounding; y8 is (K, N) row-major when
+// trans_b == 0 and stored (N, K) row-major when trans_b != 0.  Returns
+// cudaGetLastError() after the launch (0 = launched).
 extern "C" int fused_qlhs(const float* xf, const float* scale_a,
                           const float* zero_a, const long long* rbits,
                           const int8_t* y8, const float* alpha_b,
                           const float* beta_b, const float* u, float* out,
                           int M, int N, int K, int bits, int trans_b,
                           void* stream) {
-  const float nbins = static_cast<float>((1 << bits) - 1);
-  const float off = static_cast<float>(1 << (bits - 1));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (trans_b) {
-    if (rbits)
-      launch<true, true>(xf, scale_a, zero_a, rbits, y8, alpha_b, beta_b, u,
-                         out, M, N, K, nbins, off, s);
-    else
-      launch<true, false>(xf, scale_a, zero_a, rbits, y8, alpha_b, beta_b, u,
-                          out, M, N, K, nbins, off, s);
-  } else {
-    if (rbits)
-      launch<false, true>(xf, scale_a, zero_a, rbits, y8, alpha_b, beta_b, u,
-                          out, M, N, K, nbins, off, s);
-    else
-      launch<false, false>(xf, scale_a, zero_a, rbits, y8, alpha_b, beta_b, u,
-                           out, M, N, K, nbins, off, s);
+  if (trans_b)
+    return rbits ? launch<0, true, true>(xf, scale_a, zero_a, rbits, y8,
+                                         alpha_b, beta_b, u, out, M, N, K,
+                                         bits, stream)
+                 : launch<0, true, false>(xf, scale_a, zero_a, rbits, y8,
+                                          alpha_b, beta_b, u, out, M, N, K,
+                                          bits, stream);
+  return rbits ? launch<0, false, true>(xf, scale_a, zero_a, rbits, y8,
+                                        alpha_b, beta_b, u, out, M, N, K,
+                                        bits, stream)
+               : launch<0, false, false>(xf, scale_a, zero_a, rbits, y8,
+                                         alpha_b, beta_b, u, out, M, N, K,
+                                         bits, stream);
+}
+
+// The packed-weight forward (deterministic LHS quantize): packed is the
+// (ceil(K/ppb), N) uint8 codes at wbits in {1, 2, 4, 8}.  Returns
+// cudaErrorInvalidValue for any other wbits, else as fused_qlhs.
+extern "C" int fused_qlhs_packed(const float* xf, const float* scale_a,
+                                 const float* zero_a, const uint8_t* packed,
+                                 const float* alpha_b, const float* beta_b,
+                                 const float* u, float* out, int M, int N,
+                                 int K, int bits, int wbits, void* stream) {
+  switch (wbits) {
+    case 1:
+      return launch<1, false, false>(xf, scale_a, zero_a, nullptr, packed,
+                                     alpha_b, beta_b, u, out, M, N, K, bits,
+                                     stream);
+    case 2:
+      return launch<2, false, false>(xf, scale_a, zero_a, nullptr, packed,
+                                     alpha_b, beta_b, u, out, M, N, K, bits,
+                                     stream);
+    case 4:
+      return launch<4, false, false>(xf, scale_a, zero_a, nullptr, packed,
+                                     alpha_b, beta_b, u, out, M, N, K, bits,
+                                     stream);
+    case 8:
+      return launch<8, false, false>(xf, scale_a, zero_a, nullptr, packed,
+                                     alpha_b, beta_b, u, out, M, N, K, bits,
+                                     stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

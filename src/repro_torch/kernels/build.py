@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels.
 
-Every ``csrc/<name>.cu`` compiles on its own, with a plain C interface, into
+Every ``csrc/<name>.cu`` compiles on its own (with the shared headers
+``csrc/*.cuh``), with a plain C interface, into
 ``build/repro_torch/lib<name>.so`` at the root of the checkout, at first
 use:
 
@@ -46,9 +47,13 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or a shared header
+    (``csrc/*.cuh``)."""
     lib = _lib_path(name)
-    src = CSRC / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    srcs = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in srcs)
 
 
 def build_all() -> dict:

@@ -11,6 +11,12 @@ it, used on CPU tensors.
     transposed for the activation grad ``Q_b2(dY) @ Q_theta(W).T`` (PTQ or
     PSQ ``Q_b2``, per-row scale/zero as (M, 1), stochastic rounding from
     ``rbits``).
+``fused_qlhs_packed_matmul`` (Pallas ``_qlhs_packed_kernel``, the
+    ``fused_qlhs_packed`` entry of ``csrc/fused_qlhs.cu``)
+    the forward ``Q_f(X) @ W-hat`` against weights bit-packed at 1, 2, 4
+    or 8 bits (``kernels/pack.py``), unpacked in the K sweep; the
+    quantize and epilogue are the forward's, so at 8 bits it equals
+    ``fused_qlhs_matmul`` on the same codes bit for bit.
 ``fused_qboth_tn_matmul`` (Pallas ``_qboth_tn_kernel``,
     ``csrc/fused_qboth_tn.cu``)
     the weight grad ``Q_f(X).T @ Q_b1(dY)``: both operands quantized in
@@ -38,8 +44,10 @@ import torch
 
 from .build import load_function
 from .checks import check_bits, check_tensor
+from .pack import codes_per_byte, max_safe_k_packed, unpack_tile
 
 __all__ = ["fused_qlhs_matmul", "fused_qlhs_matmul_plain",
+           "fused_qlhs_packed_matmul", "fused_qlhs_packed_matmul_plain",
            "fused_qboth_tn_matmul", "fused_qboth_tn_matmul_plain"]
 
 _U32_TO_UNIT = 1.0 / 4294967296.0          # bits * 2^-32, the one SR rule
@@ -48,6 +56,10 @@ _U32_TO_UNIT = 1.0 / 4294967296.0          # bits * 2^-32, the one SR rule
 # trans_b, stream
 _QLHS_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 5
                   + (ctypes.c_void_p,))
+# xf, scale_a, zero_a, packed, alpha_b, beta_b, u, out, M, N, K, bits,
+# wbits, stream
+_QLHS_PACKED_ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 5
+                         + (ctypes.c_void_p,))
 # af, scale_a, zero_a, bf, scale_b, zero_b, rbits, a_vec, out, M, N, K,
 # bits_a, bits_b, stream
 _QBOTH_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 5
@@ -150,6 +162,88 @@ def fused_qlhs_matmul(xf: torch.Tensor, scale_a: torch.Tensor,
 
 fused_qlhs_matmul.launches = 0
 fused_qlhs_matmul.launches_dx = 0
+
+
+def _check_qlhs_packed(who: str, xf, packed, bits: int, wbits: int) -> None:
+    check_bits(who, bits)
+    check_bits(who, wbits, lo=1)
+    ppb = codes_per_byte(wbits)
+    if xf.dim() != 2 or packed.dim() != 2:
+        raise ValueError(f"{who}: xf {tuple(xf.shape)} and packed "
+                         f"{tuple(packed.shape)} must be 2-D")
+    K = xf.shape[1]
+    if packed.shape[0] != -(-K // ppb):
+        raise ValueError(f"{who}: packed rows {packed.shape[0]} != "
+                         f"ceil({K}/{ppb}) for {wbits}-bit codes")
+    safe = max_safe_k_packed(bits, wbits)
+    if K > safe:
+        raise ValueError(f"{who}: K={K} overflows the int32 accumulator for "
+                         f"int{bits} x int{wbits} codes (max_safe_k={safe})")
+
+
+def fused_qlhs_packed_matmul_plain(xf: torch.Tensor, scale_a: torch.Tensor,
+                                   zero_a: torch.Tensor,
+                                   packed: torch.Tensor, alpha_b, beta_b,
+                                   u_vec: torch.Tensor, *, bits: int,
+                                   wbits: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_qlhs_packed_matmul`: unpack
+    with shifts and masks, then the forward of
+    :func:`fused_qlhs_matmul_plain`."""
+    _check_qlhs_packed("fused_qlhs_packed_matmul_plain", xf, packed, bits,
+                       wbits)
+    w8 = unpack_tile(packed, wbits)[:xf.shape[1]] - (1 << (wbits - 1))
+    return fused_qlhs_matmul_plain(xf, scale_a, zero_a, None, w8, alpha_b,
+                                   beta_b, u_vec, bits=bits)
+
+
+def fused_qlhs_packed_matmul(xf: torch.Tensor, scale_a: torch.Tensor,
+                             zero_a: torch.Tensor, packed: torch.Tensor,
+                             alpha_b, beta_b, u_vec: torch.Tensor, *,
+                             bits: int, wbits: int) -> torch.Tensor:
+    """``Q_det(xf) @ W-hat`` with W bit-packed: the forward against weights
+    packed once at load.
+
+    xf: (M, K) f32; scale_a/zero_a: (M, 1); packed: (ceil(K/ppb), N) uint8
+    at ``wbits`` in {1, 2, 4, 8} (kernels/pack.py layout); alpha_b/beta_b:
+    the weight's scalar affine factors (0-d tensors on the card); u_vec:
+    (N,) ``alpha_b * colsum(w8) + K * beta_b`` over the unpacked codes.
+    Raises above ``max_safe_k_packed(bits, wbits)``.  Returns (M, N) f32.
+
+    On a CUDA tensor this launches the kernel (counted in
+    ``fused_qlhs_packed_matmul.launches``); on a CPU tensor it runs the
+    plain version."""
+    name = "fused_qlhs_packed_matmul"
+    _check_qlhs_packed(name, xf, packed, bits, wbits)
+    if xf.device.type == "cpu":
+        return fused_qlhs_packed_matmul_plain(xf, scale_a, zero_a, packed,
+                                              alpha_b, beta_b, u_vec,
+                                              bits=bits, wbits=wbits)
+    (M, K), N = xf.shape, packed.shape[1]
+    dev = xf.device
+    check_tensor(name, "xf", xf, torch.float32, (M, K))
+    check_tensor(name, "scale_a", scale_a, torch.float32, (M, 1), dev)
+    check_tensor(name, "zero_a", zero_a, torch.float32, (M, 1), dev)
+    check_tensor(name, "packed", packed, torch.uint8, tuple(packed.shape),
+                 dev)
+    check_tensor(name, "alpha_b", alpha_b, torch.float32, (), dev)
+    check_tensor(name, "beta_b", beta_b, torch.float32, (), dev)
+    check_tensor(name, "u_vec", u_vec, torch.float32, (N,), dev)
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    fn = load_function("fused_qlhs", "fused_qlhs_packed",
+                       _QLHS_PACKED_ARGTYPES)
+    err = fn(xf.data_ptr(), scale_a.data_ptr(), zero_a.data_ptr(),
+             packed.data_ptr(), alpha_b.data_ptr(), beta_b.data_ptr(),
+             u_vec.data_ptr(), out.data_ptr(), M, N, K, bits, wbits,
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{err} at (M, K, N) = ({M}, {K}, {N}), "
+                           f"wbits={wbits}")
+    fused_qlhs_packed_matmul.launches += 1
+    return out
+
+
+fused_qlhs_packed_matmul.launches = 0
 
 
 def _qboth_shapes(af: torch.Tensor, bf: torch.Tensor, who: str):

@@ -8,11 +8,15 @@ synthetic workload, and reports throughput and per-step latency
 percentiles.  It runs on the card unless ``--device cpu`` is given.
 ``--paged`` serves from the paged int8 page pool (prefix reuse, chunked
 prefill, preemption, ``--spec-decode``) instead of one lane per slot.
+``--weight-bits B`` bit-packs every dense kernel once at load and serves
+from the packed codes.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
         --full --slots 8 --max-seq 256 --requests 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
         --full --paged --page-size 16 --spec-decode
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
+        --full --weight-bits 4
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import numpy as np
 from ..configs import get_config
 from ..core import QuantPolicy
 from ..models import build_model
-from ..serve import ServeEngine
+from ..serve import ServeEngine, weight_nbytes
 
 __all__ = ["main"]
 
@@ -79,6 +83,13 @@ def main(argv=None):
                     help="EOS token id (evicts the slot on emission)")
     ap.add_argument("--kv-cache", choices=["int8", "fp32"], default="int8",
                     help="KV-cache storage")
+    ap.add_argument("--weight-bits", type=int, default=None,
+                    choices=[8, 4, 2],
+                    help="bit-pack every dense kernel once at load "
+                         "(kernels/pack.py): resident GEMM weights drop to "
+                         "bits/32 of fp32 and every forward unpacks tiles "
+                         "in-kernel; omit to keep fp32 weights with "
+                         "per-call forward quantization")
     ap.add_argument("--backend", default="kernel",
                     choices=["simulate", "kernel"],
                     help="execution backend for the quantized ops, "
@@ -101,13 +112,17 @@ def main(argv=None):
             ap.error(f"{name} needs --paged")
     kw = dict(policy=policy, slots=args.slots, max_seq=args.max_seq,
               kv_quant=kv_quant, eos_id=args.eos, seed=args.seed,
-              device=args.device)
+              weight_bits=args.weight_bits, device=args.device)
     if args.paged:
         kw.update(paged=True, page_size=args.page_size, pages=args.pages,
                   prefill_chunk=args.prefill_chunk,
                   spec_decode=args.spec_decode, spec_k=args.spec_k)
     params = build_model(cfg).init(args.seed, device=args.device)
     eng = ServeEngine(cfg, params, **kw)
+    if args.weight_bits is not None:
+        print(f"[serve] packed w{args.weight_bits} weights: "
+              f"{weight_nbytes(eng.params)} resident bytes (fp32: "
+              f"{weight_nbytes(params)})")
 
     # warmup: every prefill bucket the workload can hit, off the clock
     hi = min(args.max_prompt, args.max_seq - 1)

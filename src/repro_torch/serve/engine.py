@@ -26,8 +26,14 @@ size and submission order.
 ``paged=True`` builds the paged-pool engine (serve/paged.py) instead: the
 same scheduler surface over a shared int8 page pool with block tables,
 prefix reuse, chunked prefill, preemption and optional speculative decode.
-Sub-byte packed weights and checkpoint startup come with later slices of
-the port and raise ``NotImplementedError`` here.
+
+``weight_bits=8|4|2`` quantizes every dense kernel once at load
+(deterministic per-tensor PTQ, per layer for a stacked leaf) and bit-packs
+it (:func:`pack_dense_weights`): the resident GEMM weights drop to
+bits/32 of fp32, and every forward streams the stored codes through the
+packed kernels instead of quantizing the fp32 weights per call.
+Checkpoint startup comes with a later slice of the port and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,12 +47,70 @@ import numpy as np
 import torch
 
 from .. import prng
-from ..core import QuantPolicy, quantize_kv_rows, resolve_kv_cache_spec
+from ..core import (QuantPolicy, RoleOverride, quantize_kv_rows,
+                    quantize_ptq_det, resolve_kv_cache_spec)
+from ..core.quantizers import range_scale
 from ..device import resolve_device
+from ..kernels.pack import PackedTensor, pack_codes, pack_qtensor
 from ..models import build_model
 from .sampling import sample_tokens, slot_keys
 
-__all__ = ["Request", "Completion", "ServeEngine"]
+__all__ = ["Request", "Completion", "ServeEngine", "pack_dense_weights",
+           "weight_nbytes"]
+
+# bits -> the forward-weight role spec the packed policy advertises (8-bit
+# packs to identity bytes but still holds a quarter of fp32 and skips the
+# per-call weight quantize)
+_PACKED_WEIGHT_SPECS = {8: "ptq_det:8", 4: "int4w:4", 2: "int4w:2"}
+
+
+def _pack_leaf(w: torch.Tensor, bits: int) -> PackedTensor:
+    """Quantize one dense kernel to ``bits`` (deterministic per-tensor PTQ,
+    the paper's Q_theta) and bit-pack it.  A stacked ``(L, K, N)`` leaf is
+    quantized per layer: one affine pair per layer, shaped ``(L, 1, 1)``,
+    the scales through ``range_scale`` (IEEE division, as the reference)."""
+    w = w.to(torch.float32)
+    if w.dim() == 2:
+        return pack_qtensor(quantize_ptq_det(w, bits))
+    nbins = (1 << bits) - 1
+    zero = torch.amin(w, dim=(-2, -1), keepdim=True)
+    hi = torch.amax(w, dim=(-2, -1), keepdim=True)
+    scale = range_scale(nbins, hi - zero)
+    codes = torch.clamp(torch.round(scale * (w - zero)), 0, nbins)
+    return PackedTensor(packed=pack_codes(codes.to(torch.uint8), bits),
+                        scale=scale, zero=zero, bits=bits, kdim=w.shape[-2])
+
+
+def pack_dense_weights(params, bits: int):
+    """Every dense kernel leaf (dict key ``"w"``, ndim >= 2) replaced by a
+    :class:`PackedTensor` quantized once at ``bits``; embeddings, biases and
+    norm scales stay fp (they are not GEMM operands)."""
+    if bits not in _PACKED_WEIGHT_SPECS:
+        raise ValueError(f"weight_bits={bits!r}: packable widths are "
+                         f"{sorted(_PACKED_WEIGHT_SPECS)}")
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: (_pack_leaf(v, bits)
+                        if k == "w" and getattr(v, "ndim", 0) >= 2
+                        else walk(v))
+                    for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    return walk(params)
+
+
+def weight_nbytes(params) -> int:
+    """Resident bytes of a params tree (packed leaves count packed)."""
+    if isinstance(params, dict):
+        return sum(weight_nbytes(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(weight_nbytes(v) for v in params)
+    if isinstance(params, PackedTensor):
+        return params.nbytes
+    return params.numel() * params.element_size()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,10 +184,6 @@ class ServeEngine:
                  weight_bits: Optional[int] = None, paged: bool = False,
                  device=None):
         del paged                       # consumed by __new__
-        if weight_bits is not None:
-            raise NotImplementedError(
-                "weight_bits (bit-packed sub-byte weights, packed_matmul) "
-                "comes with the sub-byte-weights slice of the port")
         if cfg.family in ("vlm", "audio"):
             raise ValueError(
                 f"{cfg.name}: the serving engine drives token-input decoder "
@@ -142,6 +202,16 @@ class ServeEngine:
         self.model = build_model(cfg)
         self.policy = policy or QuantPolicy.qat(backend="kernel")
         self.params = params
+        self.weight_bits = weight_bits
+        if weight_bits is not None:
+            # pack once at load; the catch-all override, applied last, gives
+            # every path the fwd_weight spec of the packed leaves
+            self.params = pack_dense_weights(params, weight_bits)
+            self.policy = dataclasses.replace(
+                self.policy,
+                overrides=tuple(self.policy.overrides) + (
+                    ("", RoleOverride.of(
+                        {"fwd_weight": _PACKED_WEIGHT_SPECS[weight_bits]})),))
         self.slots = slots
         self.max_seq = max_seq
         self.eos_id = eos_id

@@ -239,7 +239,8 @@ class PagedServeEngine(ServeEngine):
         self.spec_k = spec_k
         super().__init__(cfg, params, kv_quant=kv_quant, **kw)
         self._draft_policy = (draft_policy if draft_policy is not None
-                              else default_draft_policy(self.policy))
+                              else default_draft_policy(
+                                  self.policy, self.weight_bits is not None))
         self.spec_stats = SpecStats()
         self.page_usage: List[int] = []      # pages in use, per step
         self.page_events: Dict[str, int] = {

@@ -3,11 +3,12 @@ version on the same inputs: the forward mode of ``fused_qlhs_matmul`` to
 float32 round-off (max|d| <= 1e-6 * max|plain|; the kernel rounds every
 operation explicitly, so it is expected to be exact), its dX/SR mode,
 ``fused_qboth_tn_matmul``, ``q8_matmul``, ``kv_dequant_rows``,
-``kv_gather_pages`` and ``quantize_sr_rows``/``_tensor`` bit for bit
-(page-0 tables, zero scales, SR bits across all 32 bits), short serving
-runs (dense and paged) that must go through the serving kernels, and short
-training runs (fused and unfused) that must go through the training
-kernels.
+``kv_gather_pages``, ``quantize_sr_rows``/``_tensor``,
+``fused_qlhs_packed_matmul`` and ``packed_matmul`` bit for bit (page-0
+tables, zero scales, SR bits across all 32 bits, 1/2/4/8-bit packed
+weights with ragged K), short serving runs (dense, paged and from packed
+weights) that must go through the serving kernels, and short training runs
+(fused and unfused) that must go through the training kernels.
 
 Run on a machine with an H100 and the CUDA toolkit:
 
@@ -423,4 +424,92 @@ def test_paged_serving_runs_through_kv_gather(cuda):
         out[dev] = {r: c.tokens for r, c in eng.run().items()}
     assert kv_gather_pages.launches == 2 * cfg.n_layers * eng.paged_forwards
     assert eng.paged_forwards > 0 and kv_dequant_rows.launches == 0
+    assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("mkn", [(8, 2048, 8192), (128, 2048, 512),
+                                 (33, 67, 130), (1, 130, 49), (3, 5, 3)])
+@pytest.mark.parametrize("wbits", [1, 2, 4, 8])
+def test_packed_kernels_bit_identical(cuda, mkn, wbits):
+    """Both packed GEMMs against their plain versions on random codes
+    (padding rows of a ragged K included), and at 8 bits the packed
+    forward against ``fused_qlhs_matmul`` on the same codes."""
+    from repro_torch.core import affine_factors, epilogue_coeffs
+    from repro_torch.core import quantize_ptq_det
+    from repro_torch.core.backend import _ptq_range
+    from repro_torch.kernels import (PackedTensor, fused_qlhs_matmul,
+                                     fused_qlhs_packed_matmul,
+                                     fused_qlhs_packed_matmul_plain,
+                                     pack_codes, packed_matmul,
+                                     packed_matmul_plain)
+    M, K, N = mkn
+    gen = torch.Generator(device=cuda).manual_seed(sum(mkn) + wbits)
+    codes = torch.randint(0, 1 << wbits, (K, N), generator=gen, device=cuda,
+                          dtype=torch.int32).to(torch.uint8)
+    pt = PackedTensor(pack_codes(codes, wbits),
+                      torch.tensor(7.0, device=cuda),
+                      torch.tensor(-0.3, device=cuda), wbits, K)
+    x = torch.randn(M, K, generator=gen, device=cuda)
+    ab, bb = affine_factors(pt.scale, pt.zero, wbits)
+    u = ab * pt.colsum.to(torch.float32) + float(K) * bb
+    zero, scale = _ptq_range(x, 8)
+    sa = scale.reshape(1, 1).expand(M, 1).contiguous()
+    za = zero.reshape(1, 1).expand(M, 1).contiguous()
+    args = (x, sa, za, pt.packed, ab, bb, u)
+    before = fused_qlhs_packed_matmul.launches
+    got = fused_qlhs_packed_matmul(*args, bits=8, wbits=wbits)
+    assert fused_qlhs_packed_matmul.launches == before + 1
+    assert torch.equal(got, fused_qlhs_packed_matmul_plain(
+        *args, bits=8, wbits=wbits))
+    if wbits == 8:
+        assert torch.equal(got, fused_qlhs_matmul(
+            x, sa, za, None, pt.int8_codes, ab, bb, u, bits=8))
+    aq = quantize_ptq_det(x, 8)
+    aa, ba = affine_factors(aq.scale, aq.zero, 8)
+    co = [c.contiguous() for c in epilogue_coeffs(
+        aq.int8_codes, aa, ba, None, ab, bb, colsum=pt.colsum)]
+    before = packed_matmul.launches
+    got = packed_matmul(aq.int8_codes, pt.packed, *co, wbits=wbits, kdim=K)
+    assert packed_matmul.launches == before + 1
+    assert torch.equal(got, packed_matmul_plain(aq.int8_codes, pt.packed,
+                                                *co, wbits=wbits, kdim=K))
+    column_major = pt.packed.T.contiguous().T
+    if not column_major.is_contiguous():
+        with pytest.raises(ValueError, match="contiguous"):
+            packed_matmul(aq.int8_codes, column_major, *co, wbits=wbits,
+                          kdim=K)
+
+
+@pytest.mark.parametrize("bits,fused", [(8, None), (4, None), (4, False)])
+def test_packed_serving_runs_through_packed_kernels(cuda, bits, fused):
+    """``ServeEngine(weight_bits=...)`` on the card: every forward GEMM
+    through ``fused_qlhs_packed_matmul`` (or ``packed_matmul`` unfused),
+    never the fp32-weight kernel, and the tokens of the same run on the
+    CPU (plain versions)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import QuantPolicy
+    from repro_torch.kernels import (fused_qlhs_matmul,
+                                     fused_qlhs_packed_matmul, packed_matmul)
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine
+    cfg = get_config("granite-3-2b", smoke=True)
+    params = build_model(cfg).init(0, device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(cfg, _tree_to(params, dev), slots=2, max_seq=32,
+                          kv_quant=True, weight_bits=bits, device=dev,
+                          policy=QuantPolicy.qat(backend="kernel",
+                                                 fused=fused))
+        for fn in (fused_qlhs_matmul, fused_qlhs_packed_matmul,
+                   packed_matmul):
+            fn.launches = 0
+        eng.submit([1, 2, 3], max_new=4)
+        eng.submit(list(range(5, 20)), max_new=4)
+        out[dev] = {r: c.tokens for r, c in eng.run().items()}
+    n = 7 * cfg.n_layers + 1
+    calls = n * (2 + len(eng.step_times))
+    want = packed_matmul if fused is False else fused_qlhs_packed_matmul
+    other = fused_qlhs_packed_matmul if fused is False else packed_matmul
+    assert want.launches == calls and other.launches == 0
+    assert fused_qlhs_matmul.launches == 0
     assert out["cuda"] == out["cpu"]

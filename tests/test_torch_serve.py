@@ -98,8 +98,10 @@ def test_unported_engine_options_raise():
     assert isinstance(ServeEngine(cfg, params, paged=True, kv_quant=True,
                                   max_seq=16, device="cpu"),
                       PagedServeEngine)
-    with pytest.raises(NotImplementedError, match="sub-byte"):
-        ServeEngine(cfg, params, weight_bits=4, device="cpu")
+    # packed weights are ported (tests/test_torch_packed_serve.py); a width
+    # outside {8, 4, 2} is refused
+    with pytest.raises(ValueError, match="packable widths"):
+        ServeEngine(cfg, params, weight_bits=5, device="cpu")
     with pytest.raises(NotImplementedError, match="checkpoint slice"):
         ServeEngine.from_checkpoint(cfg, "/nonexistent")
     with pytest.raises(NotImplementedError, match="not ported"):
