@@ -10,7 +10,11 @@ toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
      name and power limit); exits non-zero with no result when there is no
      CUDA device or no ``src/repro_torch`` beside this file.
   2. Builds every kernel of ``src/repro_torch/csrc`` into
-     ``build/repro_torch`` (one nvcc per source, in parallel) and times it.
+     ``build/repro_torch`` (one nvcc per source, in parallel) and times it;
+     prints ``-Xptxas -v``'s registers, shared memory and spills, and for
+     the two int8 tensor-core kernels (``q8_matmul``, the dX entry
+     ``fused_qlhs_dx``) one line with their tile and dynamic shared
+     memory.
   3. Holds each kernel against its plain PyTorch version on the card:
      ``fused_qlhs_matmul`` (forward) at every (K, N) of granite-3-2b's
      serving path for M in {1, 8, 128} plus ragged shapes; its dX/SR mode,
@@ -116,7 +120,11 @@ toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
      the same int8 shapes as the library yardstick (the bare int8
      product, without the quantize and epilogue), and its bound (bytes
      over 3.35 TB/s or int8 operations over 1,979 TOP/s, the H100 SXM
-     data-sheet peaks); the packed kernels at the decode up-projection at
+     data-sheet peaks), ``q8_matmul`` with an N-major B too, at the
+     unfused step's lm_head forward and dW (512, 512, 10240), and dX and
+     ``q8_matmul`` at lm_head at every split of K (bit-identical to the
+     planned call); the packed
+     kernels at the decode up-projection at
      8, 4, 2 and 1 bits and lm_head at 4 bits, with ``torch._int_mm`` on
      the unpacked codes.  Then profiles one granite decode step (dense,
      paged, and from 8- and 4-bit packed weights) and one training step under each policy (fused and unfused):
@@ -206,6 +214,7 @@ def main(argv=None) -> int:
         for line in r["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    report["int8_mma_build"] = int8_mma_build(built)
 
     errs = kernel_vs_plain(torch, report)
     errs.update(train_kernel_vs_plain(torch, report))
@@ -241,7 +250,7 @@ def main(argv=None) -> int:
               "src/repro/kernels/kv_dequant.py:31",
               serve["launches"]["kv_dequant_rows"]),
         entry("fused_qlhs_matmul (dX, SR)", "fused_qlhs_matmul_dx",
-              csrc + "fused_qlhs.cu", "src/repro/kernels/fused_fqt.py:93",
+              csrc + "fused_qlhs_dx.cu", "src/repro/kernels/fused_fqt.py:93",
               train["launches"]["fused_qlhs_matmul_dx"]),
         entry("q8_matmul", "q8_matmul", csrc + "q8_matmul.cu",
               "src/repro/kernels/q8_matmul.py:38",
@@ -278,6 +287,53 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def int8_mma_build(built) -> dict:
+    """One line for each of the two int8 tensor-core kernels: its tile
+    (the library's ``*_tile``), the dynamic shared memory it asks for,
+    and ``-Xptxas -v``'s registers, static shared memory and spills over
+    its instantiations (one per cluster size and layout or SR mode); and
+    one with the blocks the card runs at once in clusters of 1..8 (the
+    library's ``*_capacity``, cudaOccupancyMaxActiveClusters) beside what
+    ``kernels/splitk.py`` plans with."""
+    import ctypes
+    import re
+    from repro_torch.kernels import splitk
+    from repro_torch.kernels.build import load_library
+    out = {}
+    for lib, modes in (("q8_matmul", ("K-major", "N-major")),
+                       ("fused_qlhs_dx", ("SR", "deterministic"))):
+        log_text = built.get(lib, {}).get("log", "")
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers",
+                                           log_text)]
+        smem = [int(x) for x in re.findall(r"(\d+) bytes smem", log_text)]
+        spill = [int(x) for x in re.findall(r"(\d+) bytes spill stores",
+                                            log_text)]
+        cfg = (ctypes.c_int * 8)()
+        getattr(load_library(lib), lib + "_tile")(cfg)
+        bm, bn, bk, threads, nacc, stages, dyn0, dyn1 = list(cfg)
+        out[lib] = dict(tile=[bm, bn, bk], threads=threads, stages=stages,
+                        dynamic_smem={modes[0]: dyn0, modes[1]: dyn1},
+                        kernels=len(regs), registers=regs,
+                        static_smem=smem, spill_store_bytes=spill)
+        log(f"[build] {lib} (int8_mma.cuh): tile {bm}x{bn}x{bk}, {threads} "
+            f"threads, {stages} stages, dynamic smem {modes[0]} {dyn0} B / "
+            f"{modes[1]} {dyn1} B; ptxas over {len(regs)} kernels: "
+            f"registers {min(regs, default=0)}-{max(regs, default=0)}, "
+            f"static smem {max(smem, default=0)} B, spill stores "
+            f"{min(spill, default=0)}-{max(spill, default=0)} B")
+        cap = getattr(load_library(lib), lib + "_capacity")
+        cap.argtypes = [ctypes.c_int, ctypes.c_int]
+        tile = splitk.Q8_TILE if lib == "q8_matmul" else splitk.DX_TILE
+        got = {c: cap(1, c) for c in range(1, 9)}
+        plan = dict(enumerate(tile.capacity, start=1))
+        out[lib]["cluster_capacity"] = got
+        out[lib]["planned_capacity"] = plan
+        log(f"[build] {lib} blocks at once in clusters of 1..8: "
+            f"{[got[c] for c in range(1, 9)]}; kernels/splitk.py plans "
+            f"with {[plan[c] for c in range(1, 9)]}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -514,14 +570,44 @@ def train_kernel_vs_plain(torch, report) -> dict:
               f"{name} {shape}: max|d| {err} > {KERNEL_TOL} * {scale}")
         worst[name] = max(worst[name], err)
 
-    for i, (M, K, N) in enumerate(dx):
+    def exact(name, shape, fn, plain, tag=""):
+        """A redesigned kernel (int8_mma.cuh) against its plain version
+        bit for bit, and a second call bit-identical to the first."""
+        got = fn()
+        again = fn()
+        ref = plain()
+        torch.cuda.synchronize()
+        same, repeat = torch.equal(got, ref), torch.equal(got, again)
+        err = float((got - ref).abs().max())
+        rows.append(dict(kernel=name, shape=list(shape), case=tag,
+                         max_abs_err=err, bit_identical=same,
+                         repeat_identical=repeat))
+        log(f"[kernel] {name} {tuple(shape)}{' ' + tag if tag else ''} "
+            f"bit-identical={same} repeat-identical={repeat}")
+        check(same, f"{name} {shape} {tag}: differs from plain by {err}")
+        check(repeat, f"{name} {shape} {tag}: two calls differ")
+        worst[name] = max(worst[name], err)
+
+    # the dX GEMMs, a K off the 16-code grid at a multi-slice split
+    for i, (M, K, N) in enumerate(dx + [(256, 1030, 200)]):
         bits = 8 if i % 3 else 4
         ops = dx_operands(torch, gen, M, K, N, bits)
-        hold("fused_qlhs_matmul_dx", (M, K, N),
-             fused_qlhs_matmul(*ops, bits=bits, trans_b=True),
-             fused_qlhs_matmul_plain(*ops, bits=bits, trans_b=True))
+        exact("fused_qlhs_matmul_dx", (M, K, N),
+              lambda: fused_qlhs_matmul(*ops, bits=bits, trans_b=True),
+              lambda: fused_qlhs_matmul_plain(*ops, bits=bits, trans_b=True),
+              f"SR {bits}-bit")
+        det = ops[:3] + (None,) + ops[4:]
+        exact("fused_qlhs_matmul_dx", (M, K, N),
+              lambda: fused_qlhs_matmul(*det, bits=bits, trans_b=True),
+              lambda: fused_qlhs_matmul_plain(*det, bits=bits, trans_b=True),
+              f"deterministic {bits}-bit")
         ops = q8_operands(torch, gen, M, K, N)
-        hold("q8_matmul", (M, K, N), q8_matmul(*ops), q8_matmul_plain(*ops))
+        exact("q8_matmul", (M, K, N), lambda: q8_matmul(*ops),
+              lambda: q8_matmul_plain(*ops), "K-major B")
+        nmaj = (ops[0], ops[1].contiguous()) + ops[2:]
+        exact("q8_matmul", (M, K, N), lambda: q8_matmul(*nmaj),
+              lambda: q8_matmul_plain(*nmaj), "N-major B")
+    redesign_edge_cases(torch, gen, exact)
     for i, (K, M, N) in enumerate(dw):
         bits_b = 8 if i % 3 else 5
         ops = dw_operands(torch, gen, K, M, N, bits_b)
@@ -555,6 +641,57 @@ def train_kernel_vs_plain(torch, report) -> dict:
             worst[name] = max(worst[name], err)
     report["train_kernel_vs_plain"] = rows
     return worst
+
+
+def redesign_edge_cases(torch, gen, exact) -> None:
+    """The int8 tensor-core kernels on rows off the 16-byte grid (row views
+    of a larger matrix with K = 67 or 130), and on codes over all of
+    -128..127 at K = 10,240, with rows and columns at the extremes: the
+    int32 accumulator's worst case, across the split-K reduction."""
+    from repro_torch.kernels import (fused_qlhs_matmul,
+                                     fused_qlhs_matmul_plain, q8_matmul,
+                                     q8_matmul_plain)
+    dev = gen.device
+    for (M, K, N) in [(33, 67, 130), (40, 130, 72)]:
+        g, s, z, rb, w8, ab, bb, u = dx_operands(torch, gen, M + 1, K, N, 8)
+        ops = (g[1:], s[1:].contiguous(), z[1:].contiguous(), rb[1:], w8, ab,
+               bb, u)
+        exact("fused_qlhs_matmul_dx", (M, K, N),
+              lambda: fused_qlhs_matmul(*ops, bits=8, trans_b=True),
+              lambda: fused_qlhs_matmul_plain(*ops, bits=8, trans_b=True),
+              "unaligned rows")
+        q = q8_operands(torch, gen, M + 1, K, N)
+        x8 = q[0][1:]
+        vec = (q[2][1:].contiguous(),) + q[3:4] + (q[4][1:].contiguous(),) \
+            + q[5:6] + (q[6][1:].contiguous(),) + q[7:]
+        exact("q8_matmul", (M, K, N), lambda: q8_matmul(x8, q[1], *vec),
+              lambda: q8_matmul_plain(x8, q[1], *vec), "unaligned rows")
+
+    def full_range(shape):
+        c = torch.randint(-128, 128, shape, generator=gen, device=dev,
+                          dtype=torch.int8)
+        c[0], c[1], c[2] = -128, 127, -128
+        return c
+
+    M, K, N = 512, 10240, 512
+    x8, w8 = full_range((M, K)), full_range((N, K))
+    vec = [torch.randn(n, generator=gen, device=dev)
+           for n in (M, N, M, N, M, N)]
+    for tag, y8 in (("K-major B", w8.T), ("N-major B", w8.T.contiguous())):
+        exact("q8_matmul", (M, K, N), lambda: q8_matmul(x8, y8, *vec),
+              lambda: q8_matmul_plain(x8, y8, *vec),
+              f"full-range codes, {tag}")
+    for bits in (8, 4):
+        g, s, z, rb, _, ab, bb, _ = dx_operands(torch, gen, M, K, N, bits)
+        s, z = s.clone(), z.clone()
+        s[0], z[0] = 1e3, g[0].max() + 1.0     # every code -2^(b-1)
+        s[1], z[1] = 1e3, g[1].min() - 1.0     # every code 2^(b-1) - 1
+        u = ab * w8.to(torch.int32).sum(1).to(torch.float32) + float(K) * bb
+        ops = (g, s, z, rb, w8, ab, bb, u)
+        exact("fused_qlhs_matmul_dx", (M, K, N),
+              lambda: fused_qlhs_matmul(*ops, bits=bits, trans_b=True),
+              lambda: fused_qlhs_matmul_plain(*ops, bits=bits, trans_b=True),
+              f"full-range codes, SR {bits}-bit")
 
 
 def unfused_q8_shapes():
@@ -2082,6 +2219,7 @@ def time_kernels(torch, report) -> dict:
             log(f"[time] {name} {(M, N)}: kernel {ms:.4f} ms, plain "
                 f"{plain:.4f} ms, bound {bound:.5f} ms ({by})")
     rows += time_train_kernels(torch, gen, flush)
+    report["split_sweep"] = split_sweep(torch, gen, flush)
     rows += time_packed_kernels(torch, gen, flush)
     report["timings"] = rows
 
@@ -2117,7 +2255,8 @@ def time_train_kernels(torch, gen, flush) -> list:
     out as the path stores them (the dX GEMMs' B is the transpose of the
     (d_in, d_out) weight codes, the dW GEMM's A the transpose of the
     (tokens, d_in) activations), without the kernels' quantize, SR bits
-    and epilogue."""
+    and epilogue.  ``q8_matmul`` also with an N-major B at the unfused
+    step's lm_head forward and dW, both (512, 512, 10240)."""
     from repro_torch.kernels import (fused_qboth_tn_matmul,
                                      fused_qboth_tn_matmul_plain,
                                      fused_qlhs_matmul,
@@ -2129,7 +2268,7 @@ def time_train_kernels(torch, gen, flush) -> list:
     def codes(*shape):
         return torch.zeros(shape, dtype=torch.int8, device="cuda")
 
-    def one(name, shape, fn, plain, lib_args, mnk, nbytes):
+    def one(name, shape, fn, plain, lib_args, mnk, nbytes, role=None):
         M, N, K = mnk
         ms = _time_ms(torch, fn, flush, 20)
         plain_ms = _time_ms(torch, plain, flush, 5)
@@ -2137,10 +2276,10 @@ def time_train_kernels(torch, gen, flush) -> list:
         bound, by = _bound(nbytes, 2.0 * M * N * K, INT8_OPS_PER_S)
         rows.append(dict(kernel=name, shape=list(shape), ms=ms,
                          plain_ms=plain_ms, library_ms=lib, bound_ms=bound,
-                         bound_by=by))
-        log(f"[time] {name} {tuple(shape)}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, _int_mm {lib:.4f} ms, bound {bound:.4f} ms "
-            f"({by})")
+                         bound_by=by, **({"role": role} if role else {})))
+        log(f"[time] {name} {tuple(shape)}{' ' + role if role else ''}: "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, _int_mm "
+            f"{lib:.4f} ms, bound {bound:.4f} ms ({by})")
 
     for (M, K, N) in dx[:4]:
         lib_args = (codes(M, K), codes(N, K).T)
@@ -2165,6 +2304,64 @@ def time_train_kernels(torch, gen, flush) -> list:
             lambda: fused_qboth_tn_matmul_plain(*ops, bits_a=8, bits_b=8),
             (codes(K, M).T, codes(K, N)), (M, N, K),
             4 * K * M + 12 * K * N + 16 + 4 * M + 4 * M * N)
+    # the unfused lm_head forward (tokens, d_in) x (d_in, d_out) and dW
+    # (d_in, tokens) x (tokens, d_out): B row-major (N-major)
+    M, K, N = 512, 512, 10240
+    for role in ("N-major forward", "N-major dW"):
+        ops = q8_unfused_operands(torch, gen, M, K, N)
+        one("q8_matmul", (M, K, N), lambda: q8_matmul(*ops),
+            lambda: q8_matmul_plain(*ops), (codes(M, K), codes(K, N)),
+            (M, N, K), M * K + K * N + 12 * (M + N) + 4 * M * N, role)
+    return rows
+
+
+def split_sweep(torch, gen, flush) -> list:
+    """dX and ``q8_matmul`` (K-major B) at lm_head (512, 10240, 512) at
+    every split of K the kernels take (1..8 slices, one cluster a tile),
+    through their C entries with the split forced: each split's time and
+    blocks, and each result bit-identical to the planned call's (the
+    int32 sums do not depend on the split)."""
+    from repro_torch.kernels import fused_qlhs_matmul, q8_matmul, splitk
+    from repro_torch.kernels.build import load_function
+    from repro_torch.kernels.fused_fqt import _QLHS_DX_ARGTYPES
+    from repro_torch.kernels.q8_matmul import _ARGTYPES as _Q8_ARGTYPES
+    M, K, N = 512, 10240, 512
+    stream = torch.cuda.current_stream().cuda_stream
+    dx = dx_operands(torch, gen, M, K, N, 8)
+    q8 = q8_operands(torch, gen, M, K, N)
+    rows = []
+    for name, tile, ref, call in (
+            ("fused_qlhs_matmul_dx", splitk.DX_TILE,
+             fused_qlhs_matmul(*dx, bits=8, trans_b=True),
+             lambda out, s, span: load_function(
+                 "fused_qlhs_dx", "fused_qlhs_dx", _QLHS_DX_ARGTYPES)(
+                 *[t.data_ptr() for t in dx], out.data_ptr(), M, N, K, 8, s,
+                 span, stream)),
+            ("q8_matmul", splitk.Q8_TILE, q8_matmul(*q8),
+             lambda out, s, span: load_function(
+                 "q8_matmul", "q8_matmul", _Q8_ARGTYPES)(
+                 *[t.data_ptr() for t in q8], out.data_ptr(), M, N, K, 1, s,
+                 span, stream))):
+        planned = splitk.plan(tile, M, N, K).splits
+        steps = -(-K // tile.bk)
+        for s in range(1, 9):
+            per = -(-steps // s)
+            if -(-steps // per) != s:
+                continue
+            out = torch.empty((M, N), dtype=torch.float32, device="cuda")
+            check(call(out, s, per * tile.bk) == 0, f"{name} split {s}: "
+                                                   f"launch failed")
+            torch.cuda.synchronize()
+            same = torch.equal(out, ref)
+            check(same, f"{name} split {s}: differs from the planned call")
+            ms = _time_ms(torch, lambda: call(out, s, per * tile.bk), flush,
+                          20)
+            blocks = -(-M // tile.bm) * -(-N // tile.bn) * s
+            rows.append(dict(kernel=name, splits=s, blocks=blocks, ms=ms,
+                             planned=s == planned))
+            log(f"[split] {name} (512, 10240, 512) {s} slices, {blocks} "
+                f"blocks: {ms:.4f} ms{' (planned)' if s == planned else ''}"
+                f", bit-identical to the planned call")
     return rows
 
 

@@ -1,16 +1,14 @@
-// Fused quantize -> int8 GEMM -> affine epilogue, for Hopper.
+// Fused quantize -> int8 GEMM -> affine epilogue, for Hopper: the forward.
 //
 // Replaces two Pallas TPU kernels of src/repro/kernels/fused_fqt.py:
-// fused_qlhs_matmul (body _qlhs_kernel) in all its modes, and
+// fused_qlhs_matmul (body _qlhs_kernel) in its forward mode, and
 // fused_qlhs_packed_matmul (body _qlhs_packed_kernel).  out =
 // Q(xf) @ B-hat with the per-row quantize of the f32 LHS done on the fly,
 // so no int8 codes of the quantized operand ever reach device memory.
-// The FQT step calls it twice per linear layer:
-//   * forward (trans_b = 0, deterministic): Q_f(X) @ Q_theta(W), with
-//     B = the (K, N) weight codes;
-//   * activation grad (trans_b = 1, stochastic): Q_b2(dY) @ Q_theta(W).T
-//     for PTQ/PSQ Q_b2, with B = the same (d_in, d_out) weight codes read
-//     as their transpose, whose K axis is the contiguous one.
+// The FQT step's forward is Q_f(X) @ Q_theta(W), with B = the (K, N)
+// weight codes; the activation-grad mode of the same Pallas kernel
+// (trans_b, Q_b2(dY) @ Q_theta(W).T) is fused_qlhs_dx.cu, on the int8
+// tensor cores.
 // The packed entry (fused_qlhs_packed) is the forward against weights
 // bit-packed once at load (kernels/pack.py: 1, 2, 4 or 8 bits, ppb codes a
 // byte along K): every forward GEMM of a weight_bits serving engine, and
@@ -44,20 +42,19 @@
 // What bounds it on an H100: at decode (M = slot count, 1..16) the kernel
 // must stream the K x N int8 weight codes once, K*N bytes (17 MB for the
 // 2048 x 8192 MLP projection, 101 MB for lm_head), or K*N/ppb packed
-// bytes: it is bound by device memory.  At training shapes (M = 512 tokens) and prefill the f32 LHS
-// (and the int64 SR bits) dominate the bytes, and the int8 operations come
-// close.  The design is deliberately simple (first port; wgmma/TMA come
-// later): the shared tile of gemm_tile.cuh, one block owning a 32 x 64
-// output tile and sweeping K in steps of 64.
+// bytes: it is bound by device memory.  At prefill the f32 LHS dominates
+// the bytes, and the int8 operations come close.  The design is
+// deliberately simple (first port; wgmma/TMA come later): the shared tile
+// of gemm_tile.cuh, one block owning a 32 x 64 output tile and sweeping K
+// in steps of 64.
 // Each step it
 //   * loads its 32 x 64 f32 LHS tile (and SR bits), quantizes it in
 //     registers, and stores the codes K-major in shared memory (4 codes per
 //     32-bit word), keeping each row's code sum in registers;
-//   * loads the 64 x 64 weight-code tile: N-major (forward, and packed at
-//     8 bits) it is transposed 4 x 4 bytes at a time in registers
-//     (__byte_perm) so it lands K-major in shared memory as well; K-major
-//     (dX) each 4-code word is stored as it comes; packed below 8 bits it
-//     is unpacked into K-major words;
+//   * loads the 64 x 64 weight-code tile: N-major (the forward, and packed
+//     at 8 bits) it is transposed 4 x 4 bytes at a time in registers
+//     (__byte_perm) so it lands K-major in shared memory as well; packed
+//     below 8 bits it is unpacked into K-major words;
 //   * accumulates with __dp4a, 2 x 4 outputs per thread.
 // Ragged M, N and K edges are masked in
 // the kernel (codes of padded K columns are zero, as the Pallas kernel's
@@ -109,12 +106,11 @@ __device__ __forceinline__ void load_quad_bits(const long long* src,
   }
 }
 
-// WBITS = 0: B is int8 weight codes, (K, N) row-major or, TRANS_B, stored
-// (N, K).  WBITS in {1, 2, 4, 8}: B is the (ceil(K/ppb), N) bit-packed
-// unsigned codes of kernels/pack.py (forward only: TRANS_B and SR false);
-// only the B-tile loader differs, so at WBITS = 8 the result is
-// bit-identical to WBITS = 0 on the same codes.
-template <int WBITS, bool TRANS_B, bool SR>
+// WBITS = 0: B is int8 weight codes, (K, N) row-major.  WBITS in
+// {1, 2, 4, 8}: B is the (ceil(K/ppb), N) bit-packed unsigned codes of
+// kernels/pack.py (SR false); only the B-tile loader differs, so at
+// WBITS = 8 the result is bit-identical to WBITS = 0 on the same codes.
+template <int WBITS, bool SR>
 __global__ void __launch_bounds__(THREADS)
 fused_qlhs_kernel(const float* __restrict__ xf,
                   const float* __restrict__ sa,
@@ -182,10 +178,7 @@ fused_qlhs_kernel(const float* __restrict__ xf,
       As[a_row[i] * LDS + a_kq] = static_cast<int>(pack4(c[0], c[1], c[2], c[3]));
     }
     if constexpr (WBITS == 0) {
-      if (TRANS_B)
-        load_b_kmajor(Bs, y8, N, K, n0, k0, t);
-      else
-        load_b_nmajor(Bs, y8, N, K, n0, k0, t, 0u);
+      load_b_nmajor(Bs, y8, N, K, n0, k0, t, 0u);
     } else if constexpr (WBITS == 8) {
       // the identity pack: unsigned codes u, u ^ 0x80 = u - 128 as int8
       load_b_nmajor(Bs, y8, N, K, n0, k0, t, 0x80808080u);
@@ -234,7 +227,7 @@ fused_qlhs_kernel(const float* __restrict__ xf,
   }
 }
 
-template <int WBITS, bool TRANS_B, bool SR>
+template <int WBITS, bool SR>
 int launch(const float* xf, const float* sa, const float* za,
            const long long* rbits, const void* y8, const float* ab,
            const float* bb, const float* u, float* out, int M, int N, int K,
@@ -242,7 +235,7 @@ int launch(const float* xf, const float* sa, const float* za,
   const float nbins = static_cast<float>((1 << bits) - 1);
   const float off = static_cast<float>(1 << (bits - 1));
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  fused_qlhs_kernel<WBITS, TRANS_B, SR>
+  fused_qlhs_kernel<WBITS, SR>
       <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
           xf, sa, za, rbits, static_cast<const uint8_t*>(y8), ab, bb, u, out,
           M, N, K, nbins, off);
@@ -252,28 +245,17 @@ int launch(const float* xf, const float* sa, const float* za,
 }  // namespace
 
 // C interface, loaded with ctypes.  rbits: (M, K) int64 SR bits, or
-// nullptr for deterministic rounding; y8 is (K, N) row-major when
-// trans_b == 0 and stored (N, K) row-major when trans_b != 0.  Returns
+// nullptr for deterministic rounding; y8 is (K, N) row-major.  Returns
 // cudaGetLastError() after the launch (0 = launched).
 extern "C" int fused_qlhs(const float* xf, const float* scale_a,
                           const float* zero_a, const long long* rbits,
                           const int8_t* y8, const float* alpha_b,
                           const float* beta_b, const float* u, float* out,
-                          int M, int N, int K, int bits, int trans_b,
-                          void* stream) {
-  if (trans_b)
-    return rbits ? launch<0, true, true>(xf, scale_a, zero_a, rbits, y8,
-                                         alpha_b, beta_b, u, out, M, N, K,
-                                         bits, stream)
-                 : launch<0, true, false>(xf, scale_a, zero_a, rbits, y8,
-                                          alpha_b, beta_b, u, out, M, N, K,
-                                          bits, stream);
-  return rbits ? launch<0, false, true>(xf, scale_a, zero_a, rbits, y8,
-                                        alpha_b, beta_b, u, out, M, N, K,
-                                        bits, stream)
-               : launch<0, false, false>(xf, scale_a, zero_a, rbits, y8,
-                                         alpha_b, beta_b, u, out, M, N, K,
-                                         bits, stream);
+                          int M, int N, int K, int bits, void* stream) {
+  return rbits ? launch<0, true>(xf, scale_a, zero_a, rbits, y8, alpha_b,
+                                 beta_b, u, out, M, N, K, bits, stream)
+               : launch<0, false>(xf, scale_a, zero_a, rbits, y8, alpha_b,
+                                  beta_b, u, out, M, N, K, bits, stream);
 }
 
 // The packed-weight forward (deterministic LHS quantize): packed is the
@@ -286,21 +268,17 @@ extern "C" int fused_qlhs_packed(const float* xf, const float* scale_a,
                                  int K, int bits, int wbits, void* stream) {
   switch (wbits) {
     case 1:
-      return launch<1, false, false>(xf, scale_a, zero_a, nullptr, packed,
-                                     alpha_b, beta_b, u, out, M, N, K, bits,
-                                     stream);
+      return launch<1, false>(xf, scale_a, zero_a, nullptr, packed,
+                              alpha_b, beta_b, u, out, M, N, K, bits, stream);
     case 2:
-      return launch<2, false, false>(xf, scale_a, zero_a, nullptr, packed,
-                                     alpha_b, beta_b, u, out, M, N, K, bits,
-                                     stream);
+      return launch<2, false>(xf, scale_a, zero_a, nullptr, packed,
+                              alpha_b, beta_b, u, out, M, N, K, bits, stream);
     case 4:
-      return launch<4, false, false>(xf, scale_a, zero_a, nullptr, packed,
-                                     alpha_b, beta_b, u, out, M, N, K, bits,
-                                     stream);
+      return launch<4, false>(xf, scale_a, zero_a, nullptr, packed,
+                              alpha_b, beta_b, u, out, M, N, K, bits, stream);
     case 8:
-      return launch<8, false, false>(xf, scale_a, zero_a, nullptr, packed,
-                                     alpha_b, beta_b, u, out, M, N, K, bits,
-                                     stream);
+      return launch<8, false>(xf, scale_a, zero_a, nullptr, packed,
+                              alpha_b, beta_b, u, out, M, N, K, bits, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

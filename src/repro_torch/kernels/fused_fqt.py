@@ -4,13 +4,14 @@ Port of ``repro.kernels.fused_fqt``: two kernel families, each a
 hand-written CUDA kernel on the card with its plain PyTorch version beside
 it, used on CPU tensors.
 
-``fused_qlhs_matmul`` (Pallas ``_qlhs_kernel``, ``csrc/fused_qlhs.cu``)
+``fused_qlhs_matmul`` (Pallas ``_qlhs_kernel``)
     ``Q(xf) @ B-hat`` with the LHS quantized inside the GEMM, so no int8
     codes of it reach device memory.  ``trans_b=False`` is the forward
-    ``Q_f(X) @ Q_theta(W)``; ``trans_b=True`` reads the weight codes
-    transposed for the activation grad ``Q_b2(dY) @ Q_theta(W).T`` (PTQ or
-    PSQ ``Q_b2``, per-row scale/zero as (M, 1), stochastic rounding from
-    ``rbits``).
+    ``Q_f(X) @ Q_theta(W)`` (``csrc/fused_qlhs.cu``); ``trans_b=True``
+    reads the weight codes transposed for the activation grad
+    ``Q_b2(dY) @ Q_theta(W).T`` (PTQ or PSQ ``Q_b2``, per-row scale/zero as
+    (M, 1), stochastic rounding from ``rbits``): ``csrc/fused_qlhs_dx.cu``,
+    on the int8 tensor cores with K split by ``kernels/splitk.py``.
 ``fused_qlhs_packed_matmul`` (Pallas ``_qlhs_packed_kernel``, the
     ``fused_qlhs_packed`` entry of ``csrc/fused_qlhs.cu``)
     the forward ``Q_f(X) @ W-hat`` against weights bit-packed at 1, 2, 4
@@ -42,20 +43,26 @@ from typing import Optional
 
 import torch
 
+from . import splitk
 from .build import load_function
 from .checks import check_bits, check_tensor
 from .pack import codes_per_byte, max_safe_k_packed, unpack_tile
 
-__all__ = ["fused_qlhs_matmul", "fused_qlhs_matmul_plain",
+__all__ = ["fused_qlhs_matmul", "fused_qlhs_matmul_plain", "qlhs_codes",
+           "qlhs_epilogue",
            "fused_qlhs_packed_matmul", "fused_qlhs_packed_matmul_plain",
            "fused_qboth_tn_matmul", "fused_qboth_tn_matmul_plain"]
 
 _U32_TO_UNIT = 1.0 / 4294967296.0          # bits * 2^-32, the one SR rule
 
 # xf, scale_a, zero_a, rbits, y8, alpha_b, beta_b, u, out, M, N, K, bits,
-# trans_b, stream
-_QLHS_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 5
+# stream
+_QLHS_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 4
                   + (ctypes.c_void_p,))
+# xf, scale_a, zero_a, rbits, y8, alpha_b, beta_b, u, out, M, N, K, bits,
+# splits, k_span, stream
+_QLHS_DX_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6
+                     + (ctypes.c_void_p,))
 # xf, scale_a, zero_a, packed, alpha_b, beta_b, u, out, M, N, K, bits,
 # wbits, stream
 _QLHS_PACKED_ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 5
@@ -88,23 +95,39 @@ def fused_qlhs_matmul_plain(xf: torch.Tensor, scale_a: torch.Tensor,
     """Plain PyTorch version of :func:`fused_qlhs_matmul`, every mode."""
     check_bits("fused_qlhs_matmul_plain", bits)
     _shape_nk(xf, y8, trans_b, "fused_qlhs_matmul_plain")
-    nbins = float((1 << bits) - 1)
-    off = float(1 << (bits - 1))
-    M = xf.shape[0]
-    scale_a = scale_a.reshape(M, 1)
-    zero_a = zero_a.reshape(M, 1)
-    t = scale_a * (xf.to(torch.float32) - zero_a)
-    q = torch.round(t) if rbits is None else torch.floor(t + _sr_unit(rbits))
-    c = (torch.clamp(q, 0.0, nbins) - off).to(torch.float64)
+    c = qlhs_codes(xf, scale_a, zero_a, rbits, bits=bits).to(torch.float64)
     w = y8.to(torch.float64)
-    acc = (c @ (w.T if trans_b else w)).to(torch.float32)
-    rsum = c.sum(dim=1, keepdim=True).to(torch.float32)
+    acc = c @ (w.T if trans_b else w)
+    return qlhs_epilogue(acc, c.sum(dim=1), scale_a, zero_a, alpha_b,
+                         beta_b, u_vec, bits=bits)
+
+
+def qlhs_codes(xf: torch.Tensor, scale_a: torch.Tensor, zero_a: torch.Tensor,
+               rbits: Optional[torch.Tensor], *, bits: int) -> torch.Tensor:
+    """The shifted codes ``Q(xf)`` (M, K) as float32: round half to even,
+    or SR from ``rbits``; clip to ``[0, 2^b-1]``, shift by ``-2^(b-1)``."""
+    nbins = float((1 << bits) - 1)
+    M = xf.shape[0]
+    t = scale_a.reshape(M, 1) * (xf.to(torch.float32) - zero_a.reshape(M, 1))
+    q = torch.round(t) if rbits is None else torch.floor(t + _sr_unit(rbits))
+    return torch.clamp(q, 0.0, nbins) - float(1 << (bits - 1))
+
+
+def qlhs_epilogue(acc: torch.Tensor, rsum: torch.Tensor,
+                  scale_a: torch.Tensor, zero_a: torch.Tensor, alpha_b,
+                  beta_b, u_vec: torch.Tensor, *, bits: int) -> torch.Tensor:
+    """The epilogue on the exact integer sums: ``acc`` (M, N) and the row
+    code sums ``rsum`` (M,), in any dtype that holds them exactly."""
+    off = float(1 << (bits - 1))
+    M = acc.shape[0]
+    scale_a = scale_a.reshape(M, 1)
     alpha_a = 1.0 / scale_a
-    beta_a = off * alpha_a + zero_a
-    ab = torch.as_tensor(alpha_b, dtype=torch.float32, device=xf.device)
-    bb = torch.as_tensor(beta_b, dtype=torch.float32, device=xf.device)
-    a_i = (alpha_a * bb) * rsum
-    return acc * (alpha_a * ab) + beta_a * u_vec.reshape(1, -1) + a_i
+    beta_a = off * alpha_a + zero_a.reshape(M, 1)
+    ab = torch.as_tensor(alpha_b, dtype=torch.float32, device=acc.device)
+    bb = torch.as_tensor(beta_b, dtype=torch.float32, device=acc.device)
+    a_i = (alpha_a * bb) * rsum.reshape(M, 1).to(torch.float32)
+    return (acc.to(torch.float32) * (alpha_a * ab)
+            + beta_a * u_vec.reshape(1, -1) + a_i)
 
 
 def fused_qlhs_matmul(xf: torch.Tensor, scale_a: torch.Tensor,
@@ -122,8 +145,9 @@ def fused_qlhs_matmul(xf: torch.Tensor, scale_a: torch.Tensor,
 
     On a CUDA tensor this launches the kernel and counts the launch in
     ``fused_qlhs_matmul.launches`` (and, for ``trans_b=True``, in
-    ``fused_qlhs_matmul.launches_dx`` too); on a CPU tensor it runs the
-    plain version."""
+    ``fused_qlhs_matmul.launches_dx`` too): one device launch in either
+    mode, whatever the split of K (``kernels/splitk.py``).  On a CPU tensor
+    it runs the plain version."""
     check_bits("fused_qlhs_matmul", bits)
     N, K = _shape_nk(xf, y8, trans_b, "fused_qlhs_matmul")
     if xf.device.type == "cpu":
@@ -144,12 +168,19 @@ def fused_qlhs_matmul(xf: torch.Tensor, scale_a: torch.Tensor,
     check_tensor(name, "beta_b", beta_b, torch.float32, (), dev)
     check_tensor(name, "u_vec", u_vec, torch.float32, (N,), dev)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
-    fn = load_function("fused_qlhs", "fused_qlhs", _QLHS_ARGTYPES)
-    err = fn(xf.data_ptr(), scale_a.data_ptr(), zero_a.data_ptr(),
-             None if rbits is None else rbits.data_ptr(), y8.data_ptr(),
-             alpha_b.data_ptr(), beta_b.data_ptr(), u_vec.data_ptr(),
-             out.data_ptr(), M, N, K, bits, int(trans_b),
-             torch.cuda.current_stream(dev).cuda_stream)
+    args = (xf.data_ptr(), scale_a.data_ptr(), zero_a.data_ptr(),
+            None if rbits is None else rbits.data_ptr(), y8.data_ptr(),
+            alpha_b.data_ptr(), beta_b.data_ptr(), u_vec.data_ptr(),
+            out.data_ptr(), M, N, K, bits)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if trans_b:
+        p = splitk.plan(splitk.DX_TILE, M, N, K)
+        fn = load_function("fused_qlhs_dx", "fused_qlhs_dx",
+                           _QLHS_DX_ARGTYPES)
+        err = fn(*args, p.splits, p.k_span, stream)
+    else:
+        fn = load_function("fused_qlhs", "fused_qlhs", _QLHS_ARGTYPES)
+        err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"fused_qlhs_matmul: kernel launch failed with "
                            f"CUDA error {err} at (M, K, N) = ({M}, {K}, {N}), "

@@ -88,9 +88,16 @@ def _dx_operands(gen, M, K, N, bits):
     return (g, scale, zero, rbits, w8, ab, bb, u)
 
 
-@pytest.mark.parametrize("mkn", [(512, 512, 512), (512, 1024, 512),
-                                 (512, 10240, 512), (33, 67, 130),
-                                 (1, 64, 49), (3, 5, 3)])
+# (M, K, N) of the dX GEMMs: statquant-tx's (512 tokens), a K off the
+# 16-code grid at a multi-slice split, granite-3-2b's with 2048 tokens,
+# and ragged
+DX_SHAPES = [(512, 512, 512), (512, 1024, 512), (512, 10240, 512),
+             (256, 1030, 200), (2048, 2048, 2048), (2048, 512, 2048),
+             (2048, 8192, 2048), (2048, 2048, 8192), (2048, 49408, 2048),
+             (33, 67, 130), (1, 64, 49), (3, 5, 3)]
+
+
+@pytest.mark.parametrize("mkn", DX_SHAPES)
 @pytest.mark.parametrize("bits", [4, 8])
 def test_fused_qlhs_matmul_dx_sr_vs_plain(cuda, mkn, bits):
     """The activation-grad mode (trans_b=True, SR from rbits), and SR with
@@ -105,11 +112,99 @@ def test_fused_qlhs_matmul_dx_sr_vs_plain(cuda, mkn, bits):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     g, s, z, rb, w8, ab, bb, u = ops
+    det = (g, s, z, None, w8, ab, bb, u)
+    assert torch.equal(fused_qlhs_matmul(*det, bits=bits, trans_b=True),
+                       fused_qlhs_matmul_plain(*det, bits=bits, trans_b=True))
+    if mkn[0] * mkn[1] * mkn[2] > 2 ** 32:
+        return                 # SR in the forward layout: the smaller shapes
     fwd = (g, s, z, rb, w8.T.contiguous(), ab, bb, u)
     assert torch.equal(fused_qlhs_matmul(*fwd, bits=bits),
                        fused_qlhs_matmul_plain(*fwd, bits=bits))
     with pytest.raises(ValueError, match="contiguous"):
         fused_qlhs_matmul(g, s, z, rb, w8.T, ab, bb, u, bits=bits)
+
+
+def _extreme_codes(codes):
+    """Rows and columns pinned at -128 and 127 (the int32 sum's extremes
+    at the largest K) beside the random full-range codes."""
+    codes[0], codes[1], codes[2] = -128, 127, -128
+    return codes
+
+
+@pytest.mark.parametrize("k_major", [True, False])
+def test_q8_matmul_full_range_codes_at_lm_head_depth(cuda, k_major):
+    """Codes over all of -128..127 on both sides at K = 10,240, with rows
+    and columns at the extremes: the int32 accumulator's worst case
+    (|sum| = 128 * 128 * 10240 < 2^31), across the split-K reduction."""
+    from repro_torch.kernels import q8_matmul, q8_matmul_plain
+    M, K, N = 512, 10240, 512
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x8 = _extreme_codes(torch.randint(-128, 128, (M, K), generator=gen,
+                                      device=cuda, dtype=torch.int8))
+    y8 = _extreme_codes(torch.randint(-128, 128, (N, K), generator=gen,
+                                      device=cuda, dtype=torch.int8))
+    y8 = y8.T if k_major else y8.T.contiguous()
+    vec = [torch.randn(n, generator=gen, device=cuda)
+           for n in (M, N, M, N, M, N)]
+    got = q8_matmul(x8, y8, *vec)
+    assert torch.equal(got, q8_matmul_plain(x8, y8, *vec))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_fused_qlhs_dx_full_range_codes_at_lm_head_depth(cuda, bits):
+    """dX with the LHS spanning every code of ``bits`` (rows clipped to
+    each end of the range) against weight codes over all of -128..127 with
+    rows at the extremes, at K = 10,240."""
+    from repro_torch.kernels import fused_qlhs_matmul, fused_qlhs_matmul_plain
+    M, K, N = 512, 10240, 512
+    gen = torch.Generator(device=cuda).manual_seed(12 + bits)
+    g, s, z, rb, _, ab, bb, _ = _dx_operands(gen, M, K, N, bits)
+    s[0], z[0] = 1e3, g[0].max() + 1.0        # every code clips to -2^(b-1)
+    s[1], z[1] = 1e3, g[1].min() - 1.0        # every code clips to 2^(b-1)-1
+    w8 = _extreme_codes(torch.randint(-128, 128, (N, K), generator=gen,
+                                      device=cuda, dtype=torch.int8))
+    u = ab * w8.to(torch.int32).sum(1).to(torch.float32) + float(K) * bb
+    ops = (g, s, z, rb, w8, ab, bb, u)
+    got = fused_qlhs_matmul(*ops, bits=bits, trans_b=True)
+    assert torch.equal(got, fused_qlhs_matmul_plain(*ops, bits=bits,
+                                                    trans_b=True))
+
+
+@pytest.mark.parametrize("mkn", [(512, 10240, 512), (256, 1030, 200),
+                                 (33, 67, 130)])
+def test_split_k_calls_repeat_bit_for_bit(cuda, mkn):
+    """Two calls on the same inputs give the same bits: the split-K
+    slices may land in any order, but their int32 sum and the one
+    epilogue after it do not depend on it."""
+    from repro_torch.kernels import fused_qlhs_matmul, q8_matmul, splitk
+    M, K, N = mkn
+    assert splitk.plan(splitk.Q8_TILE, M, N, K).splits > 1
+    assert splitk.plan(splitk.DX_TILE, M, N, K).splits > 1
+    gen = torch.Generator(device=cuda).manual_seed(sum(mkn))
+    ops = _dx_operands(gen, M, K, N, 8)
+    first = fused_qlhs_matmul(*ops, bits=8, trans_b=True)
+    assert torch.equal(first, fused_qlhs_matmul(*ops, bits=8, trans_b=True))
+    x8 = torch.randint(-128, 128, (M, K), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    y8 = torch.randint(-128, 128, (N, K), generator=gen, device=cuda,
+                       dtype=torch.int8).T
+    vec = [torch.randn(n, generator=gen, device=cuda)
+           for n in (M, N, M, N, M, N)]
+    first = q8_matmul(x8, y8, *vec)
+    assert torch.equal(first, q8_matmul(x8, y8, *vec))
+
+
+def test_split_plan_tiles_match_the_built_kernels(cuda):
+    """kernels/splitk.py's tiles are the ones the CUDA sources build."""
+    import ctypes
+    from repro_torch.kernels import splitk
+    from repro_torch.kernels.build import load_library
+    for lib, tile in (("q8_matmul", splitk.Q8_TILE),
+                      ("fused_qlhs_dx", splitk.DX_TILE)):
+        cfg = (ctypes.c_int * 8)()
+        getattr(load_library(lib), lib + "_tile")(cfg)
+        assert list(cfg)[:5] == [tile.bm, tile.bn, tile.bk, tile.threads,
+                                 tile.nacc], lib
 
 
 def test_sr_bits_reach_the_kernel_unsaturated(cuda):
@@ -157,9 +252,8 @@ def test_fused_qboth_tn_matmul_vs_plain(cuda, kmn, bits_b):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("mkn", [(512, 512, 512), (512, 1024, 512),
-                                 (512, 10240, 512), (33, 67, 130),
-                                 (1, 64, 49), (3, 5, 3)])
+@pytest.mark.parametrize("mkn", DX_SHAPES + [(512, 512, 10240),
+                                             (37, 130, 67), (130, 33, 67)])
 @pytest.mark.parametrize("k_major", [True, False])
 def test_q8_matmul_vs_plain(cuda, mkn, k_major):
     """Both layouts of y8: a contiguous (K, N) tensor and the transpose of
