@@ -2,6 +2,11 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (Hopper, sm_90a).
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --step-wall TREE [TREE ...]
+
+The second form only times the GEMM wrappers' host cost a call and the
+training step's wall for the package of each checkout TREE, one process
+each, in the order given (``step_wall_trees``).
 
 From the root of a checkout, on a machine with one CUDA card and the CUDA
 toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
@@ -12,17 +17,23 @@ toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
   2. Builds every kernel of ``src/repro_torch/csrc`` into
      ``build/repro_torch`` (one nvcc per source, in parallel) and times it;
      prints ``-Xptxas -v``'s registers, shared memory and spills, and for
-     the two int8 tensor-core kernels (``q8_matmul``, the dX entry
-     ``fused_qlhs_dx``) one line with their tile and dynamic shared
-     memory.
-  3. Holds each kernel against its plain PyTorch version on the card:
-     ``fused_qlhs_matmul`` (forward) at every (K, N) of granite-3-2b's
-     serving path for M in {1, 8, 128} plus ragged shapes; its dX/SR mode,
-     ``q8_matmul`` and ``fused_qboth_tn_matmul`` at every GEMM of the
+     each tile of the int8 tensor-core kernels (``q8_matmul``, the dX
+     entry ``fused_qlhs_dx``, dW ``fused_qboth_tn`` and the int8 forward
+     ``fused_qlhs_fwd``'s decode and wide tiles, deterministic and SR) one
+     line with its shape and dynamic shared memory and one with the
+     blocks the card runs at once in clusters of 1..8 as the library
+     reports it (what the wrappers plan with) beside
+     ``kernels/splitk.py``'s table.
+  3. Holds each kernel against its plain PyTorch version on the card, bit
+     for bit, and a second call against the first: ``fused_qlhs_matmul``
+     (the int8 forward) at every (K, N) of granite-3-2b's serving path for
+     M in {1, 8, 16, 128} and at 2048 rows, at statquant-tx's training
+     forward, deterministic and SR, K = 1030, unaligned rows, full-range
+     codes at K = 8192, and ragged; its dX/SR mode, ``q8_matmul`` and
+     ``fused_qboth_tn_matmul`` (5- and 8-bit dY) at every GEMM of the
      statquant-tx training step (512 tokens), at granite-3-2b's (K, N)
-     with 2048 tokens, and ragged; all within max|kernel - plain| <= 1e-6
-     * max|plain| (float32 round-off; the kernels round each operation
-     explicitly, so 0 is expected), and ``kv_dequant_rows`` bit for bit;
+     with 2048 tokens, full-range codes and unaligned rows, and ragged;
+     ``kv_dequant_rows`` bit for bit;
      ``kv_gather_pages`` at granite-3-2b's paged shapes (8 lanes, D = 512,
      P = 8 and 16, nb*P = 256) and ragged ones (P = 3, D = 40; tables that
      repeat pages and point at page 0; zero scales), and
@@ -121,11 +132,12 @@ toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
      product, without the quantize and epilogue), and its bound (bytes
      over 3.35 TB/s or int8 operations over 1,979 TOP/s, the H100 SXM
      data-sheet peaks), ``q8_matmul`` with an N-major B too, at the
-     unfused step's lm_head forward and dW (512, 512, 10240), and dX and
-     ``q8_matmul`` at lm_head at every split of K (bit-identical to the
-     planned call); the packed
-     kernels at the decode up-projection at
-     8, 4, 2 and 1 bits and lm_head at 4 bits, with ``torch._int_mm`` on
+     unfused step's lm_head forward and dW (512, 512, 10240), the int8
+     forward at the fused step's lm_head (512, 512, 10240), and dX,
+     ``q8_matmul`` and dW at lm_head, ``q8_matmul`` at (512, 512, 512)
+     and the int8 forward at (8, 2048, 8192) at every split of K
+     (bit-identical to the planned call); the packed kernels at the
+     decode up-projection at 8, 4, 2 and 1 bits and lm_head at 4 bits, with ``torch._int_mm`` on
      the unpacked codes.  Then profiles one granite decode step (dense,
      paged, and from 8- and 4-bit packed weights) and one training step under each policy (fused and unfused):
      wall time, device busy time and idle share, device time by op and by
@@ -181,17 +193,28 @@ def log(*a) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--step-wall", nargs="+", metavar="TREE", type=Path,
+                    help="only time the training step's wall and the GEMM "
+                         "wrappers' host time a call, for the package of "
+                         "each checkout TREE in turn (one process each)")
+    ap.add_argument("--step-wall-of", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print("chip_smoke.py: no src/repro_torch beside this script",
+    if args.step_wall:
+        return step_wall_trees(args.step_wall, args.seed)
+    tree = args.step_wall_of or ROOT
+    if not (tree / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke.py: no src/repro_torch in {tree}",
               file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(tree / "src"))
+    if args.step_wall_of:
+        print(json.dumps(step_wall(torch, args.seed)))
+        return 0
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -244,7 +267,7 @@ def main(argv=None) -> int:
     csrc = "src/repro_torch/csrc/"
     kernels = [
         entry("fused_qlhs_matmul", "fused_qlhs_matmul",
-              csrc + "fused_qlhs.cu", "src/repro/kernels/fused_fqt.py:93",
+              csrc + "fused_qlhs_fwd.cu", "src/repro/kernels/fused_fqt.py:93",
               serve["launches"]["fused_qlhs_matmul"]),
         entry("kv_dequant_rows", "kv_dequant_rows", csrc + "kv_dequant.cu",
               "src/repro/kernels/kv_dequant.py:31",
@@ -290,20 +313,29 @@ def main(argv=None) -> int:
 
 
 def int8_mma_build(built) -> dict:
-    """One line for each of the two int8 tensor-core kernels: its tile
+    """One line for each tile of the int8 tensor-core kernels: its shape
     (the library's ``*_tile``), the dynamic shared memory it asks for,
     and ``-Xptxas -v``'s registers, static shared memory and spills over
-    its instantiations (one per cluster size and layout or SR mode); and
-    one with the blocks the card runs at once in clusters of 1..8 (the
-    library's ``*_capacity``, cudaOccupancyMaxActiveClusters) beside what
-    ``kernels/splitk.py`` plans with."""
+    its library's instantiations (one per cluster size and layout, SR
+    mode or tile); and one with the blocks the card runs at once in
+    clusters of 1..8 (the library's ``*_capacity``,
+    cudaOccupancyMaxActiveClusters, which the wrappers plan with through
+    ``splitk.on_card``) beside the table ``kernels/splitk.py`` keeps as
+    its CPU default."""
     import ctypes
     import re
     from repro_torch.kernels import splitk
     from repro_torch.kernels.build import load_library
     out = {}
-    for lib, modes in (("q8_matmul", ("K-major", "N-major")),
-                       ("fused_qlhs_dx", ("SR", "deterministic"))):
+    for tile, modes in (
+            (splitk.Q8_TILE, ("K-major", "N-major")),
+            (splitk.DX_TILE, ("SR", "deterministic")),
+            (splitk.DW_TILE, ("", "")),
+            (splitk.FWD_DECODE_TILE, ("SR", "deterministic")),
+            (splitk.FWD_DECODE_SR_TILE, ("SR", "deterministic")),
+            (splitk.FWD_WIDE_TILE, ("SR", "deterministic")),
+            (splitk.FWD_WIDE_SR_TILE, ("SR", "deterministic"))):
+        lib = tile.lib
         log_text = built.get(lib, {}).get("log", "")
         regs = [int(x) for x in re.findall(r"Used (\d+) registers",
                                            log_text)]
@@ -311,28 +343,29 @@ def int8_mma_build(built) -> dict:
         spill = [int(x) for x in re.findall(r"(\d+) bytes spill stores",
                                             log_text)]
         cfg = (ctypes.c_int * 8)()
-        getattr(load_library(lib), lib + "_tile")(cfg)
+        if lib == "fused_qlhs_fwd":
+            load_library(lib).fused_qlhs_fwd_tile(tile.mode, cfg)
+        else:
+            getattr(load_library(lib), lib + "_tile")(cfg)
         bm, bn, bk, threads, nacc, stages, dyn0, dyn1 = list(cfg)
-        out[lib] = dict(tile=[bm, bn, bk], threads=threads, stages=stages,
-                        dynamic_smem={modes[0]: dyn0, modes[1]: dyn1},
-                        kernels=len(regs), registers=regs,
-                        static_smem=smem, spill_store_bytes=spill)
-        log(f"[build] {lib} (int8_mma.cuh): tile {bm}x{bn}x{bk}, {threads} "
-            f"threads, {stages} stages, dynamic smem {modes[0]} {dyn0} B / "
-            f"{modes[1]} {dyn1} B; ptxas over {len(regs)} kernels: "
+        dyn = (f"{modes[0]} {dyn0} B / {modes[1]} {dyn1} B" if modes[0]
+               else f"{dyn0} B")
+        got = splitk.on_card(tile).capacity
+        rec = dict(library=lib, tile=[bm, bn, bk], threads=threads,
+                   stages=stages, dynamic_smem=[dyn0, dyn1],
+                   kernels=len(regs), registers=regs, static_smem=smem,
+                   spill_store_bytes=spill, cluster_capacity=list(got),
+                   planned_capacity=list(tile.capacity))
+        out[tile.name] = rec
+        log(f"[build] {tile.name} ({lib}.cu, int8_mma.cuh): tile "
+            f"{bm}x{bn}x{bk}, {threads} threads, {stages} stages, dynamic "
+            f"smem {dyn}; ptxas over the library's {len(regs)} kernels: "
             f"registers {min(regs, default=0)}-{max(regs, default=0)}, "
             f"static smem {max(smem, default=0)} B, spill stores "
             f"{min(spill, default=0)}-{max(spill, default=0)} B")
-        cap = getattr(load_library(lib), lib + "_capacity")
-        cap.argtypes = [ctypes.c_int, ctypes.c_int]
-        tile = splitk.Q8_TILE if lib == "q8_matmul" else splitk.DX_TILE
-        got = {c: cap(1, c) for c in range(1, 9)}
-        plan = dict(enumerate(tile.capacity, start=1))
-        out[lib]["cluster_capacity"] = got
-        out[lib]["planned_capacity"] = plan
-        log(f"[build] {lib} blocks at once in clusters of 1..8: "
-            f"{[got[c] for c in range(1, 9)]}; kernels/splitk.py plans "
-            f"with {[plan[c] for c in range(1, 9)]}")
+        log(f"[build] {tile.name} blocks at once in clusters of 1..8: "
+            f"queried {list(got)}; kernels/splitk.py table "
+            f"{list(tile.capacity)}")
     return out
 
 
@@ -410,6 +443,19 @@ def pool_operands(torch, gen, B, P, D, ragged=False):
     return codes, scale, zero, table.contiguous()
 
 
+def fwd_shapes():
+    """(M, K, N) of the int8 forward: every (K, N) of granite-3-2b's serving
+    path at 1, 8 and 16 slots (the decode tile) and at 128 rows (a prefill
+    bucket), statquant-tx's training forward at lm_head (512 tokens) and
+    granite's (K, N) at 2048 tokens (the wide tile), a K off the 16-code
+    grid, and ragged."""
+    dec = [(m, k, n) for (k, n) in GRANITE_KN for m in (1, 8, 16, 128)]
+    wide = [(512, 512, 10240), (512, 512, 512)] + [(2048, k, n)
+                                                   for k, n in GRANITE_KN]
+    return dec + wide + [(8, 1030, 200), (128, 1030, 200), (37, 130, 67),
+                         (37, 67, 130)]
+
+
 def kernel_vs_plain(torch, report) -> dict:
     from repro_torch.kernels import (fused_qlhs_matmul,
                                      fused_qlhs_matmul_plain,
@@ -418,25 +464,41 @@ def kernel_vs_plain(torch, report) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rows, worst = [], {"fused_qlhs_matmul": 0.0, "kv_dequant_rows": 0.0,
                        "kv_gather_pages": 0.0}
-    shapes = [(m, k, n) for (k, n) in GRANITE_KN for m in (1, 8, 128)]
-    shapes += [(37, 130, 67), (37, 67, 130)]
-    for (M, K, N) in shapes:
-        ops = qlhs_operands(torch, gen, M, K, N)
-        got = fused_qlhs_matmul(*ops, bits=8)
-        ref = fused_qlhs_matmul_plain(*ops, bits=8)
+
+    def exact(name, shape, fn, plain, tag=""):
+        got = fn()
+        again = fn()
+        ref = plain()
         torch.cuda.synchronize()
+        same, repeat = torch.equal(got, ref), torch.equal(got, again)
         err = float((got - ref).abs().max())
-        scale = float(ref.abs().max())
-        rows.append(dict(kernel="fused_qlhs_matmul", shape=[M, K, N],
-                         max_abs_err=err, max_abs_ref=scale))
-        log(f"[kernel] fused_qlhs_matmul {(M, K, N)} max|d|={err:.3g} "
-            f"max|ref|={scale:.4g}")
-        check(bool(torch.isfinite(got).all()), f"non-finite output {M, K, N}")
-        check(err <= KERNEL_TOL * scale,
-              f"fused_qlhs_matmul {(M, K, N)}: max|d| {err} > "
-              f"{KERNEL_TOL} * {scale}")
-        worst["fused_qlhs_matmul"] = max(worst["fused_qlhs_matmul"], err)
-        gemm_vs_simulate(torch, gen, M, K, N, rows)
+        rows.append(dict(kernel=name, shape=list(shape), case=tag,
+                         max_abs_err=err, bit_identical=same,
+                         repeat_identical=repeat))
+        log(f"[kernel] {name} {tuple(shape)}{' ' + tag if tag else ''} "
+            f"bit-identical={same} repeat-identical={repeat}")
+        check(bool(torch.isfinite(got).all()), f"{name} {shape}: non-finite")
+        check(same, f"{name} {shape} {tag}: differs from plain by {err}")
+        check(repeat, f"{name} {shape} {tag}: two calls differ")
+        worst[name] = max(worst[name], err)
+
+    # the int8 forward, deterministic (every shape; the original serving
+    # set also against simulate) and SR (every third shape)
+    for i, (M, K, N) in enumerate(fwd_shapes()):
+        ops = qlhs_operands(torch, gen, M, K, N)
+        exact("fused_qlhs_matmul", (M, K, N),
+              lambda: fused_qlhs_matmul(*ops, bits=8),
+              lambda: fused_qlhs_matmul_plain(*ops, bits=8), "deterministic")
+        if i % 3 == 0:
+            rb = torch.randint(0, 2 ** 32, (M, K), generator=gen,
+                               device="cuda", dtype=torch.int64)
+            sr = ops[:3] + (rb,) + ops[4:]
+            exact("fused_qlhs_matmul", (M, K, N),
+                  lambda: fused_qlhs_matmul(*sr, bits=8),
+                  lambda: fused_qlhs_matmul_plain(*sr, bits=8), "SR")
+        if (M in (1, 8, 128) and (K, N) in GRANITE_KN) or M == 37:
+            gemm_vs_simulate(torch, gen, M, K, N, rows)
+    forward_edge_cases(torch, gen, exact)
     for (M, N) in [(2048, 512), (33, 130)]:
         c, s, z = kv_operands(torch, gen, M, N)
         got = kv_dequant_rows(c, s, z)
@@ -469,6 +531,41 @@ def kernel_vs_plain(torch, report) -> dict:
         worst["kv_gather_pages"] = max(worst["kv_gather_pages"], err)
     report["kernel_vs_plain"] = rows
     return worst
+
+
+def forward_edge_cases(torch, gen, exact) -> None:
+    """The int8 forward on LHS rows off the 16-byte grid (row views with K
+    = 67 and 130) at 8 and 128 rows, and at K = 8192 with weight codes over
+    all of -128..127 (rows at the extremes) against LHS rows clipped to
+    each end of the code range: the int32 accumulator's worst case, across
+    the split-K reduction."""
+    from repro_torch.kernels import fused_qlhs_matmul, fused_qlhs_matmul_plain
+    dev = gen.device
+    for M in (8, 128):
+        for (K, N) in [(67, 130), (130, 72)]:
+            x, s, z, _, w8, ab, bb, u = qlhs_operands(torch, gen, M + 1, K,
+                                                      N)
+            ops = (x[1:], s[1:].contiguous(), z[1:].contiguous(), None, w8,
+                   ab, bb, u)
+            exact("fused_qlhs_matmul", (M, K, N),
+                  lambda: fused_qlhs_matmul(*ops, bits=8),
+                  lambda: fused_qlhs_matmul_plain(*ops, bits=8),
+                  "unaligned rows")
+        K, N = 8192, 2048
+        x, s, z, _, _, ab, bb, _ = qlhs_operands(torch, gen, M, K, N)
+        s, z = s.clone(), z.clone()
+        s[0], z[0] = 1e3, x[0].max() + 1.0     # every code -128
+        s[1], z[1] = 1e3, x[1].min() - 1.0     # every code 127
+        w8 = torch.randint(-128, 128, (N, K), generator=gen, device=dev,
+                           dtype=torch.int8)
+        w8[0], w8[1], w8[2] = -128, 127, -128
+        w8 = w8.T.contiguous()
+        u = ab * w8.to(torch.int32).sum(0).to(torch.float32) + float(K) * bb
+        ops = (x, s, z, None, w8, ab, bb, u)
+        exact("fused_qlhs_matmul", (M, K, N),
+              lambda: fused_qlhs_matmul(*ops, bits=8),
+              lambda: fused_qlhs_matmul_plain(*ops, bits=8),
+              "full-range codes")
 
 
 def dx_operands(torch, gen, M, K, N, bits):
@@ -540,8 +637,10 @@ def train_shapes():
 
 
 def train_kernel_vs_plain(torch, report) -> dict:
-    """The three training kernels against their plain versions on the card
-    at every shape of ``train_shapes``, within KERNEL_TOL (0 expected)."""
+    """The training kernels against their plain versions on the card, bit
+    for bit and a second call bit-identical to the first, at every shape
+    of ``train_shapes`` (dW at both 5- and 8-bit dY, and at the ragged
+    shapes of tests/test_torch_gpu.py), plus the edge cases."""
     from repro_torch.kernels import (fused_qboth_tn_matmul,
                                      fused_qboth_tn_matmul_plain,
                                      fused_qlhs_matmul,
@@ -557,22 +656,9 @@ def train_kernel_vs_plain(torch, report) -> dict:
              "fused_qboth_tn_matmul": 0.0, "quantize_sr_rows": 0.0,
              "quantize_sr_tensor": 0.0}
 
-    def hold(name, shape, got, ref):
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        scale = float(ref.abs().max())
-        rows.append(dict(kernel=name, shape=list(shape), max_abs_err=err,
-                         max_abs_ref=scale))
-        log(f"[kernel] {name} {tuple(shape)} max|d|={err:.3g} "
-            f"max|ref|={scale:.4g}")
-        check(bool(torch.isfinite(got).all()), f"{name} {shape}: non-finite")
-        check(err <= KERNEL_TOL * scale,
-              f"{name} {shape}: max|d| {err} > {KERNEL_TOL} * {scale}")
-        worst[name] = max(worst[name], err)
-
     def exact(name, shape, fn, plain, tag=""):
-        """A redesigned kernel (int8_mma.cuh) against its plain version
-        bit for bit, and a second call bit-identical to the first."""
+        """A kernel against its plain version bit for bit, and a second
+        call bit-identical to the first."""
         got = fn()
         again = fn()
         ref = plain()
@@ -608,17 +694,22 @@ def train_kernel_vs_plain(torch, report) -> dict:
         exact("q8_matmul", (M, K, N), lambda: q8_matmul(*nmaj),
               lambda: q8_matmul_plain(*nmaj), "N-major B")
     redesign_edge_cases(torch, gen, exact)
-    for i, (K, M, N) in enumerate(dw):
-        bits_b = 8 if i % 3 else 5
-        ops = dw_operands(torch, gen, K, M, N, bits_b)
-        hold("fused_qboth_tn_matmul", (K, M, N),
-             fused_qboth_tn_matmul(*ops, bits_a=8, bits_b=bits_b),
-             fused_qboth_tn_matmul_plain(*ops, bits_a=8, bits_b=bits_b))
+    for (K, M, N) in dw + [(130, 33, 67), (64, 1, 49), (5, 3, 3)]:
+        for bits_b in (5, 8):
+            ops = dw_operands(torch, gen, K, M, N, bits_b)
+            exact("fused_qboth_tn_matmul", (K, M, N),
+                  lambda: fused_qboth_tn_matmul(*ops, bits_a=8,
+                                                bits_b=bits_b),
+                  lambda: fused_qboth_tn_matmul_plain(*ops, bits_a=8,
+                                                      bits_b=bits_b),
+                  f"{bits_b}-bit dY")
+    dw_edge_cases(torch, gen, exact)
     # the unfused step's forward (M tokens, d_in, d_out; B row-major) and
     # dW (d_in, M tokens, d_out; A a transposed copy) GEMMs
     for (M, K, N) in unfused_q8_shapes():
         ops = q8_unfused_operands(torch, gen, M, K, N)
-        hold("q8_matmul", (M, K, N), q8_matmul(*ops), q8_matmul_plain(*ops))
+        exact("q8_matmul", (M, K, N), lambda: q8_matmul(*ops),
+              lambda: q8_matmul_plain(*ops), "unfused roles")
     for i, (M, N) in enumerate(sr_shapes()):
         bits = 8 if i % 3 else 4
         x, rb = sr_operands(torch, gen, M, N)
@@ -692,6 +783,45 @@ def redesign_edge_cases(torch, gen, exact) -> None:
               lambda: fused_qlhs_matmul(*ops, bits=bits, trans_b=True),
               lambda: fused_qlhs_matmul_plain(*ops, bits=bits, trans_b=True),
               f"full-range codes, SR {bits}-bit")
+
+
+def dw_edge_cases(torch, gen, exact) -> None:
+    """dW at K = 8192 tokens (M = N = 512) with columns of X and dY at the
+    ends of their ranges (every code -2^(b-1) or 2^(b-1) - 1) beside
+    random ones, at 5- and 8-bit dY; then at widths of 67 and 130 on
+    tensors whose first element is off the 16-byte grid, so no row is
+    aligned."""
+    from repro_torch.core.backend import dw_operands as ops_of
+    from repro_torch.kernels import (fused_qboth_tn_matmul,
+                                     fused_qboth_tn_matmul_plain)
+    dev = gen.device
+    K, M, N = 8192, 512, 512
+    x = torch.randn(K, M, generator=gen, device=dev)
+    g = torch.randn(K, N, generator=gen, device=dev) * 1e-3
+    x[:, 0], x[:, 1] = x.min(), x.max()
+    g[:, 0], g[:, 1] = g.min(), g.max()
+    rb = torch.randint(0, 2 ** 32, (K, N), generator=gen, device=dev,
+                       dtype=torch.int64)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        return buf[1:].view(t.shape).copy_(t)
+
+    for tag, xs, gs, rs in (
+            ("full-range codes", x, g, rb),
+            ("unaligned rows", shifted(x[:, :67]), shifted(g[:, :130]),
+             shifted(rb[:, :130]))):
+        zx, hx = torch.aminmax(xs)
+        sx = 255.0 / torch.clamp_min(hx - zx, 1e-12)
+        for bits_b in (5, 8):
+            ops = ops_of(xs, sx, zx, 8, gs, rs, bits_b)
+            exact("fused_qboth_tn_matmul", (K,) + tuple(ops[7].shape)
+                  + (gs.shape[1],),
+                  lambda: fused_qboth_tn_matmul(*ops, bits_a=8,
+                                                bits_b=bits_b),
+                  lambda: fused_qboth_tn_matmul_plain(*ops, bits_a=8,
+                                                      bits_b=bits_b),
+                  f"{tag}, {bits_b}-bit dY")
 
 
 def unfused_q8_shapes():
@@ -2171,6 +2301,21 @@ def time_kernels(torch, report) -> dict:
             log(f"[time] fused_qlhs_matmul {(M, K, N)}: kernel {ms:.4f} ms, "
                 f"plain {plain:.4f} ms, _int_mm(M={max(M, 32)}) {lib:.4f} "
                 f"ms, bound {bound:.4f} ms ({by})")
+    # the fused training step's forward at lm_head (512 tokens)
+    M, K, N = 512, 512, 10240
+    ops = qlhs_operands(torch, gen, M, K, N)
+    ms = _time_ms(torch, lambda: fused_qlhs_matmul(*ops, bits=8), flush, 20)
+    plain = _time_ms(torch, lambda: fused_qlhs_matmul_plain(*ops, bits=8),
+                     flush, 5)
+    a8 = torch.zeros((M, K), dtype=torch.int8, device="cuda")
+    lib = _time_ms(torch, lambda: torch._int_mm(a8, ops[4]), flush, 20)
+    nbytes = M * K * 4 + K * N + M * N * 4 + M * 8 + N * 4 + 8
+    bound, by = _bound(nbytes, 2.0 * M * N * K, INT8_OPS_PER_S)
+    rows.append(dict(kernel="fused_qlhs_matmul", shape=[M, K, N], ms=ms,
+                     plain_ms=plain, library_ms=lib, bound_ms=bound,
+                     bound_by=by))
+    log(f"[time] fused_qlhs_matmul {(M, K, N)}: kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, _int_mm {lib:.4f} ms, bound {bound:.4f} ms ({by})")
     for (M, N) in [(2048, 512), (33, 130)]:
         c, s, z = kv_operands(torch, gen, M, N)
         ms = _time_ms(torch, lambda: kv_dequant_rows(c, s, z), flush, 50)
@@ -2316,53 +2461,187 @@ def time_train_kernels(torch, gen, flush) -> list:
 
 
 def split_sweep(torch, gen, flush) -> list:
-    """dX and ``q8_matmul`` (K-major B) at lm_head (512, 10240, 512) at
-    every split of K the kernels take (1..8 slices, one cluster a tile),
-    through their C entries with the split forced: each split's time and
-    blocks, and each result bit-identical to the planned call's (the
-    int32 sums do not depend on the split)."""
-    from repro_torch.kernels import fused_qlhs_matmul, q8_matmul, splitk
+    """The int8 tensor-core kernels at every split of K they take (1..8
+    slices, one cluster a tile), through their C entries with the split
+    forced: dX and ``q8_matmul`` (K-major B) at lm_head (512, 10240, 512),
+    ``q8_matmul`` at the unfused step's (512, 512, 512), dW at lm_head (K
+    512, M 512, N 10240), and the int8 forward's decode tile at the decode
+    MLP up-projection (8, 2048, 8192).  Each split's time and blocks, and
+    each result bit-identical to the planned call's (the int32 sums do not
+    depend on the split)."""
+    from repro_torch.kernels import (fused_qboth_tn_matmul,
+                                     fused_qlhs_matmul, q8_matmul, splitk)
     from repro_torch.kernels.build import load_function
-    from repro_torch.kernels.fused_fqt import _QLHS_DX_ARGTYPES
+    from repro_torch.kernels.fused_fqt import (_QBOTH_ARGTYPES,
+                                               _QLHS_DX_ARGTYPES,
+                                               _QLHS_FWD_ARGTYPES)
     from repro_torch.kernels.q8_matmul import _ARGTYPES as _Q8_ARGTYPES
-    M, K, N = 512, 10240, 512
     stream = torch.cuda.current_stream().cuda_stream
+
+    def ptrs(ops):
+        return [None if t is None else t.data_ptr() for t in ops]
+
+    M, K, N = 512, 10240, 512
     dx = dx_operands(torch, gen, M, K, N, 8)
     q8 = q8_operands(torch, gen, M, K, N)
+    q8s = q8_operands(torch, gen, 512, 512, 512)
+    dw = dw_operands(torch, gen, 512, 512, 10240, 8)
+    fwd = qlhs_operands(torch, gen, 8, 2048, 8192)
+    cases = [
+        ("fused_qlhs_matmul_dx", splitk.DX_TILE, (M, K, N),
+         fused_qlhs_matmul(*dx, bits=8, trans_b=True),
+         lambda out, s, span: load_function(
+             "fused_qlhs_dx", "fused_qlhs_dx", _QLHS_DX_ARGTYPES)(
+             *ptrs(dx), out.data_ptr(), M, N, K, 8, s, span, stream)),
+        ("q8_matmul", splitk.Q8_TILE, (M, K, N), q8_matmul(*q8),
+         lambda out, s, span: load_function(
+             "q8_matmul", "q8_matmul", _Q8_ARGTYPES)(
+             *ptrs(q8), out.data_ptr(), M, N, K, 1, s, span, stream)),
+        ("q8_matmul", splitk.Q8_TILE, (512, 512, 512), q8_matmul(*q8s),
+         lambda out, s, span: load_function(
+             "q8_matmul", "q8_matmul", _Q8_ARGTYPES)(
+             *ptrs(q8s), out.data_ptr(), 512, 512, 512, 1, s, span,
+             stream)),
+        ("fused_qboth_tn_matmul", splitk.DW_TILE, (512, 512, 10240),
+         fused_qboth_tn_matmul(*dw, bits_a=8, bits_b=8),
+         lambda out, s, span: load_function(
+             "fused_qboth_tn", "fused_qboth_tn", _QBOTH_ARGTYPES)(
+             *ptrs(dw), out.data_ptr(), 512, 10240, 512, 8, 8, s, span,
+             stream)),
+        ("fused_qlhs_matmul", splitk.FWD_DECODE_TILE, (8, 2048, 8192),
+         fused_qlhs_matmul(*fwd, bits=8),
+         lambda out, s, span: load_function(
+             "fused_qlhs_fwd", "fused_qlhs_fwd", _QLHS_FWD_ARGTYPES)(
+             *ptrs(fwd), out.data_ptr(), 8, 8192, 2048, 8,
+             splitk.FWD_DECODE_TILE.mode, s, span, stream))]
     rows = []
-    for name, tile, ref, call in (
-            ("fused_qlhs_matmul_dx", splitk.DX_TILE,
-             fused_qlhs_matmul(*dx, bits=8, trans_b=True),
-             lambda out, s, span: load_function(
-                 "fused_qlhs_dx", "fused_qlhs_dx", _QLHS_DX_ARGTYPES)(
-                 *[t.data_ptr() for t in dx], out.data_ptr(), M, N, K, 8, s,
-                 span, stream)),
-            ("q8_matmul", splitk.Q8_TILE, q8_matmul(*q8),
-             lambda out, s, span: load_function(
-                 "q8_matmul", "q8_matmul", _Q8_ARGTYPES)(
-                 *[t.data_ptr() for t in q8], out.data_ptr(), M, N, K, 1, s,
-                 span, stream))):
-        planned = splitk.plan(tile, M, N, K).splits
-        steps = -(-K // tile.bk)
+    for name, tile, shape, ref, call in cases:
+        # (M, K, N) of the GEMM; dW's shape is (K, M, N), its grid M x N
+        gm, gk, gn = ((shape[1], shape[0], shape[2])
+                      if name == "fused_qboth_tn_matmul" else shape)
+        p = splitk.plan(splitk.on_card(tile), gm, gn, gk)
+        steps = -(-gk // tile.bk)
         for s in range(1, 9):
             per = -(-steps // s)
             if -(-steps // per) != s:
                 continue
-            out = torch.empty((M, N), dtype=torch.float32, device="cuda")
-            check(call(out, s, per * tile.bk) == 0, f"{name} split {s}: "
-                                                   f"launch failed")
+            out = torch.empty_like(ref)
+            check(call(out, s, per * tile.bk) == 0, f"{tile.name} split "
+                                                   f"{s}: launch failed")
             torch.cuda.synchronize()
             same = torch.equal(out, ref)
-            check(same, f"{name} split {s}: differs from the planned call")
+            check(same, f"{tile.name} split {s}: differs from the planned "
+                        f"call")
             ms = _time_ms(torch, lambda: call(out, s, per * tile.bk), flush,
                           20)
-            blocks = -(-M // tile.bm) * -(-N // tile.bn) * s
-            rows.append(dict(kernel=name, splits=s, blocks=blocks, ms=ms,
-                             planned=s == planned))
-            log(f"[split] {name} (512, 10240, 512) {s} slices, {blocks} "
-                f"blocks: {ms:.4f} ms{' (planned)' if s == planned else ''}"
-                f", bit-identical to the planned call")
+            blocks = p.tiles * s
+            is_plan = s == p.splits
+            rows.append(dict(kernel=name, tile=tile.name, shape=list(shape),
+                             splits=s, blocks=blocks, ms=ms, planned=is_plan))
+            log(f"[split] {tile.name} {tuple(shape)} {s} slices, {blocks} "
+                f"blocks: {ms:.4f} ms{' (planned)' if is_plan else ''}, "
+                f"bit-identical to the planned call")
     return rows
+
+
+def _host_us(torch, fn, calls: int = 200) -> float:
+    """Host time of one call of ``fn`` in microseconds: ``calls`` calls
+    queued behind a spin kernel, so the host never waits on the card."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES_PER_CALL * 10)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / calls * 1e6
+
+
+def step_wall(torch, seed) -> dict:
+    """For the ``repro_torch`` on ``sys.path``: each FQT GEMM wrapper's
+    host time a call (``_host_us``) at the statquant-tx step's (512, 512,
+    512) and the forward at the decode (8, 2048, 8192), and the training
+    step's wall (statquant-tx full width, 8 x 64 tokens, median of 10
+    steps after 2, no profiler) under the four policies the smoke run
+    profiles.  It uses only wrapper signatures and engine options that
+    older checkouts of the package share, so two compare in one call."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (build, fused_qboth_tn_matmul,
+                                     fused_qlhs_matmul, q8_matmul)
+    build.build_all()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    fwd = qlhs_operands(torch, gen, 512, 512, 512)
+    dec = qlhs_operands(torch, gen, 8, 2048, 8192)
+    dx = dx_operands(torch, gen, 512, 512, 512, 8)
+    dw = dw_operands(torch, gen, 512, 512, 512, 8)
+    q8 = q8_operands(torch, gen, 512, 512, 512)
+    host = {
+        "fused_qlhs_matmul (512, 512, 512)":
+            _host_us(torch, lambda: fused_qlhs_matmul(*fwd, bits=8)),
+        "fused_qlhs_matmul (8, 2048, 8192)":
+            _host_us(torch, lambda: fused_qlhs_matmul(*dec, bits=8)),
+        "fused_qlhs_matmul dX (512, 512, 512)":
+            _host_us(torch, lambda: fused_qlhs_matmul(*dx, bits=8,
+                                                      trans_b=True)),
+        "fused_qboth_tn_matmul (512, 512, 512)":
+            _host_us(torch, lambda: fused_qboth_tn_matmul(*dw, bits_a=8,
+                                                          bits_b=8)),
+        "q8_matmul (512, 512, 512)": _host_us(torch, lambda: q8_matmul(*q8)),
+    }
+    cfg = get_config("statquant-tx")
+    walls = {}
+    for tag, quant, bits, fused in (("psq8", "psq", 8, None),
+                                    ("bhq5", "bhq", 5, None),
+                                    ("psq8 unfused", "psq", 8, False),
+                                    ("ptq8 unfused", "ptq", 8, False)):
+        step = _one_step(_train_engine(cfg, quant, bits, "kernel", seed,
+                                       fused=fused))
+        ms = []
+        for i in range(12):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        walls[tag] = dict(median_ms=float(np.median(ms[2:])), ms=ms[2:])
+    return dict(host_us_per_call=host, step_wall=walls)
+
+
+def step_wall_trees(trees, seed) -> int:
+    """``step_wall`` for each checkout in ``trees``, in order, one process
+    each (a tree's package builds into its own ``build/``); prints each
+    result and a table, and writes them to chiprun_out/step_wall.json."""
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True).stdout.strip())
+    res = []
+    for tree in trees:
+        r = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                            "--seed", str(seed), "--step-wall-of",
+                            str(tree.resolve())], capture_output=True,
+                           text=True)
+        if r.returncode != 0:
+            print(r.stdout[-4000:], r.stderr[-4000:], file=sys.stderr)
+            return r.returncode
+        out = json.loads(r.stdout.strip().splitlines()[-1])
+        res.append(dict(tree=str(tree), **out))
+        log(f"[step wall] {tree}: " + json.dumps(out))
+    for key in ("host_us_per_call", "step_wall"):
+        for name in res[0][key]:
+            vals = [r[key][name] for r in res]
+            vals = [v["median_ms"] if isinstance(v, dict) else v
+                    for v in vals]
+            log(f"[step wall] {name}: "
+                + " | ".join(f"{r['tree']} {v:.2f}"
+                             for r, v in zip(res, vals))
+                + (" us a call" if key == "host_us_per_call"
+                   else " ms a step"))
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "step_wall.json").write_text(json.dumps(res, indent=1))
+    return 0
 
 
 def time_packed_kernels(torch, gen, flush) -> list:

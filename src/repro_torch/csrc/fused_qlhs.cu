@@ -1,68 +1,53 @@
-// Fused quantize -> int8 GEMM -> affine epilogue, for Hopper: the forward.
+// Fused quantize -> int8 GEMM -> affine epilogue against bit-packed
+// weights, for Hopper: the packed forward.
 //
-// Replaces two Pallas TPU kernels of src/repro/kernels/fused_fqt.py:
-// fused_qlhs_matmul (body _qlhs_kernel) in its forward mode, and
-// fused_qlhs_packed_matmul (body _qlhs_packed_kernel).  out =
-// Q(xf) @ B-hat with the per-row quantize of the f32 LHS done on the fly,
-// so no int8 codes of the quantized operand ever reach device memory.
-// The FQT step's forward is Q_f(X) @ Q_theta(W), with B = the (K, N)
-// weight codes; the activation-grad mode of the same Pallas kernel
-// (trans_b, Q_b2(dY) @ Q_theta(W).T) is fused_qlhs_dx.cu, on the int8
-// tensor cores.
-// The packed entry (fused_qlhs_packed) is the forward against weights
-// bit-packed once at load (kernels/pack.py: 1, 2, 4 or 8 bits, ppb codes a
-// byte along K): every forward GEMM of a weight_bits serving engine, and
-// the training forward under the int4w/binary/ternary weight quantizers.
-// It differs from the forward only in its B-tile loader, which unpacks the
-// (64/ppb) x 64 byte tile in registers (gemm_tile.cuh load_b_packed: one
-// byte holds ppb consecutive K codes of a column, so no transpose is
-// needed below 8 bits) and masks rows >= K, the pack's padding, which
-// unpack to code 0 and not to the shifted zero.  The quantize and the
-// epilogue are the same code, so at 8 bits the packed result is
-// bit-identical to the forward on the same codes.
+// Replaces the Pallas TPU kernel src/repro/kernels/fused_fqt.py
+// fused_qlhs_packed_matmul (body _qlhs_packed_kernel): out = Q_f(xf) @
+// W-hat, with the per-row deterministic quantize of the f32 LHS done on
+// the fly, against weights bit-packed once at load (kernels/pack.py: 1, 2,
+// 4 or 8 bits, ppb codes a byte along K): every forward GEMM of a
+// weight_bits serving engine, and the training forward under the
+// int4w/binary/ternary weight quantizers.  The other modes of the Pallas
+// kernel fused_qlhs_matmul moved to the int8 tensor-core tile
+// (fused_qlhs_gemm.cuh): the int8 forward is fused_qlhs_fwd.cu, dX
+// fused_qlhs_dx.cu.  This kernel stays on gemm_tile.cuh's __dp4a tile for
+// now; its quantize and epilogue are the same arithmetic, so at 8 bits its
+// result is bit-identical to fused_qlhs_fwd.cu on the same codes (the sums
+// are exact either way).
 //
 // What it computes, per output (i, j):
 //   t_ik   = scale_i * (x_ik - zero_i)
-//   c_ik   = clip(rint(t_ik), 0, 2^b-1) - 2^(b-1)                 (det)
-//          = clip(floor(t_ik + float(rbits_ik) * 2^-32), 0, 2^b-1)
-//            - 2^(b-1)                                            (SR)
-//   acc_ij = sum_k c_ik * y8_kj                                (int32, exact)
-//   rsum_i = sum_k c_ik
+//   c_ik   = clip(rint(t_ik), 0, 2^b-1) - 2^(b-1)
+//   acc_ij = sum_k c_ik * w_kj,  w the unpacked codes minus 2^(wbits-1)
+//   rsum_i = sum_k c_ik                                        (int32, exact)
 //   out_ij = acc_ij*(alpha_a*alpha_b) + beta_a*u_j + (alpha_a*beta_b)*rsum_i
 //   alpha_a = 1/scale_i,  beta_a = 2^(b-1)*alpha_a + zero_i
 // evaluated with explicitly rounded float operations (__fmul_rn & co.), so
 // nvcc contracts nothing into an FMA and the result is bit-identical to the
 // plain PyTorch version in kernels/fused_fqt.py.  Deterministic rounding is
-// rintf (half to even, as jnp.round).  The SR bits convert to float with
-// round-to-nearest (__uint2float_rn), as the reference's integer-to-f32
-// cast does.  The bits arrive as prng.bits draws them, uint32 values held
-// in int64; the kernel reads each entry's low 32 bits as unsigned (modulo
-// 2^32, so values >= 2^31 never saturate), 8 bytes per bit.
+// rintf (half to even, as jnp.round).
 //
 // What bounds it on an H100: at decode (M = slot count, 1..16) the kernel
-// must stream the K x N int8 weight codes once, K*N bytes (17 MB for the
-// 2048 x 8192 MLP projection, 101 MB for lm_head), or K*N/ppb packed
-// bytes: it is bound by device memory.  At prefill the f32 LHS dominates
-// the bytes, and the int8 operations come close.  The design is
-// deliberately simple (first port; wgmma/TMA come later): the shared tile
-// of gemm_tile.cuh, one block owning a 32 x 64 output tile and sweeping K
-// in steps of 64.
-// Each step it
-//   * loads its 32 x 64 f32 LHS tile (and SR bits), quantizes it in
-//     registers, and stores the codes K-major in shared memory (4 codes per
-//     32-bit word), keeping each row's code sum in registers;
-//   * loads the 64 x 64 weight-code tile: N-major (the forward, and packed
-//     at 8 bits) it is transposed 4 x 4 bytes at a time in registers
-//     (__byte_perm) so it lands K-major in shared memory as well; packed
-//     below 8 bits it is unpacked into K-major words;
+// must stream the K*N/ppb packed weight bytes once (4.2 MB at 4 bits for
+// the 2048 x 8192 MLP projection): it is bound by device memory.  The
+// design is deliberately simple (first port): the shared tile of
+// gemm_tile.cuh, one block owning a 32 x 64 output tile and sweeping K in
+// steps of 64.  Each step it
+//   * loads its 32 x 64 f32 LHS tile, quantizes it in registers, and
+//     stores the codes K-major in shared memory (4 codes per 32-bit word),
+//     keeping each row's code sum in registers;
+//   * loads the packed weight tile: at 8 bits it is transposed 4 x 4 bytes
+//     at a time in registers (gemm_tile.cuh load_b_nmajor) so it lands
+//     K-major; below 8 bits one byte holds ppb consecutive K codes of a
+//     column (gemm_tile.cuh load_b_packed), unpacked into K-major words,
+//     rows >= K (the pack's padding) masked to code 0, not to the shifted
+//     zero;
 //   * accumulates with __dp4a, 2 x 4 outputs per thread.
-// Ragged M, N and K edges are masked in
-// the kernel (codes of padded K columns are zero, as the Pallas kernel's
-// col < kdim mask makes them), so the wrapper never pads or slices.
-// A quad of four LHS values (or SR bits, or weight codes) that lies whole
-// inside the matrix and aligned comes in one 16-byte load (two for the
-// bits, one 4-byte load for codes); quads on a ragged edge or in an
-// unaligned row load element by element.
+// Ragged M, N and K edges are masked in the kernel (codes of padded K
+// columns are zero, as the Pallas kernel's col < kdim mask makes them), so
+// the wrapper never pads or slices.  A quad of four LHS values that lies
+// whole inside the matrix and aligned comes in one 16-byte load; quads on
+// a ragged edge or in an unaligned row load element by element.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -73,55 +58,27 @@ namespace {
 
 using namespace gemm_tile;
 
-constexpr float U32_TO_UNIT = 2.3283064365386963e-10f;   // 2^-32, exact
-
-template <bool SR>
+// One shifted code of the deterministic per-row quantize.
 __device__ __forceinline__ int quantize_code(float x, float s, float z,
-                                             unsigned rb, float nbins,
-                                             float off) {
+                                             float nbins, float off) {
   const float t = __fmul_rn(s, __fsub_rn(x, z));
-  float q;
-  if (SR)
-    q = floorf(__fadd_rn(t, __fmul_rn(__uint2float_rn(rb), U32_TO_UNIT)));
-  else
-    q = rintf(t);
-  q = fminf(fmaxf(q, 0.0f), nbins);
+  const float q = fminf(fmaxf(rintf(t), 0.0f), nbins);
   return static_cast<int>(__fsub_rn(q, off));
 }
 
-// Four SR bits from their int64 storage, masked: each entry's low 32 bits
-// (the uint32 value drawn), 0 where ok is false.
-__device__ __forceinline__ void load_quad_bits(const long long* src,
-                                               const bool ok[4],
-                                               unsigned v[4]) {
-  if (ok[3] && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const longlong2 p0 = reinterpret_cast<const longlong2*>(src)[0];
-    const longlong2 p1 = reinterpret_cast<const longlong2*>(src)[1];
-    v[0] = static_cast<unsigned>(p0.x); v[1] = static_cast<unsigned>(p0.y);
-    v[2] = static_cast<unsigned>(p1.x); v[3] = static_cast<unsigned>(p1.y);
-  } else {
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      v[q] = ok[q] ? static_cast<unsigned>(src[q]) : 0u;
-  }
-}
-
-// WBITS = 0: B is int8 weight codes, (K, N) row-major.  WBITS in
-// {1, 2, 4, 8}: B is the (ceil(K/ppb), N) bit-packed unsigned codes of
-// kernels/pack.py (SR false); only the B-tile loader differs, so at
-// WBITS = 8 the result is bit-identical to WBITS = 0 on the same codes.
-template <int WBITS, bool SR>
+// B is the (ceil(K/ppb), N) bit-packed unsigned codes of kernels/pack.py
+// at WBITS in {1, 2, 4, 8}.
+template <int WBITS>
 __global__ void __launch_bounds__(THREADS)
-fused_qlhs_kernel(const float* __restrict__ xf,
-                  const float* __restrict__ sa,
-                  const float* __restrict__ za,
-                  const long long* __restrict__ rbits,
-                  const uint8_t* __restrict__ y8,
-                  const float* __restrict__ ab_ptr,
-                  const float* __restrict__ bb_ptr,
-                  const float* __restrict__ u,
-                  float* __restrict__ out,
-                  int M, int N, int K, float nbins, float off) {
+fused_qlhs_packed_kernel(const float* __restrict__ xf,
+                         const float* __restrict__ sa,
+                         const float* __restrict__ za,
+                         const uint8_t* __restrict__ y8,
+                         const float* __restrict__ ab_ptr,
+                         const float* __restrict__ bb_ptr,
+                         const float* __restrict__ u,
+                         float* __restrict__ out,
+                         int M, int N, int K, float nbins, float off) {
   __shared__ int As[BM * LDS];
   __shared__ int Bs[BN * LDS];
   __shared__ int rowsum_s[BM];
@@ -153,7 +110,6 @@ fused_qlhs_kernel(const float* __restrict__ xf,
       const int m = m0 + a_row[i];
       const int k = k0 + a_kq * 4;
       float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      unsigned rb[4] = {0u, 0u, 0u, 0u};
       bool ok[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) ok[j] = (m < M) && (k + j < K);
@@ -167,19 +123,14 @@ fused_qlhs_kernel(const float* __restrict__ xf,
         for (int j = 0; j < 4; ++j)
           if (ok[j]) v[j] = src[j];
       }
-      if (SR) load_quad_bits(rbits + off_mk, ok, rb);
       int c[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        c[j] = ok[j] ? quantize_code<SR>(v[j], a_s[i], a_z[i], rb[j], nbins,
-                                         off)
-                     : 0;
+        c[j] = ok[j] ? quantize_code(v[j], a_s[i], a_z[i], nbins, off) : 0;
       rsum[i] += c[0] + c[1] + c[2] + c[3];
       As[a_row[i] * LDS + a_kq] = static_cast<int>(pack4(c[0], c[1], c[2], c[3]));
     }
-    if constexpr (WBITS == 0) {
-      load_b_nmajor(Bs, y8, N, K, n0, k0, t, 0u);
-    } else if constexpr (WBITS == 8) {
+    if constexpr (WBITS == 8) {
       // the identity pack: unsigned codes u, u ^ 0x80 = u - 128 as int8
       load_b_nmajor(Bs, y8, N, K, n0, k0, t, 0x80808080u);
     } else {
@@ -227,40 +178,26 @@ fused_qlhs_kernel(const float* __restrict__ xf,
   }
 }
 
-template <int WBITS, bool SR>
+template <int WBITS>
 int launch(const float* xf, const float* sa, const float* za,
-           const long long* rbits, const void* y8, const float* ab,
-           const float* bb, const float* u, float* out, int M, int N, int K,
-           int bits, void* stream) {
+           const uint8_t* packed, const float* ab, const float* bb,
+           const float* u, float* out, int M, int N, int K, int bits,
+           void* stream) {
   const float nbins = static_cast<float>((1 << bits) - 1);
   const float off = static_cast<float>(1 << (bits - 1));
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  fused_qlhs_kernel<WBITS, SR>
+  fused_qlhs_packed_kernel<WBITS>
       <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-          xf, sa, za, rbits, static_cast<const uint8_t*>(y8), ab, bb, u, out,
-          M, N, K, nbins, off);
+          xf, sa, za, packed, ab, bb, u, out, M, N, K, nbins, off);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// C interface, loaded with ctypes.  rbits: (M, K) int64 SR bits, or
-// nullptr for deterministic rounding; y8 is (K, N) row-major.  Returns
-// cudaGetLastError() after the launch (0 = launched).
-extern "C" int fused_qlhs(const float* xf, const float* scale_a,
-                          const float* zero_a, const long long* rbits,
-                          const int8_t* y8, const float* alpha_b,
-                          const float* beta_b, const float* u, float* out,
-                          int M, int N, int K, int bits, void* stream) {
-  return rbits ? launch<0, true>(xf, scale_a, zero_a, rbits, y8, alpha_b,
-                                 beta_b, u, out, M, N, K, bits, stream)
-               : launch<0, false>(xf, scale_a, zero_a, rbits, y8, alpha_b,
-                                  beta_b, u, out, M, N, K, bits, stream);
-}
-
-// The packed-weight forward (deterministic LHS quantize): packed is the
-// (ceil(K/ppb), N) uint8 codes at wbits in {1, 2, 4, 8}.  Returns
-// cudaErrorInvalidValue for any other wbits, else as fused_qlhs.
+// C interface, loaded with ctypes: the packed-weight forward
+// (deterministic LHS quantize); packed is the (ceil(K/ppb), N) uint8 codes
+// at wbits in {1, 2, 4, 8}.  Returns cudaErrorInvalidValue for any other
+// wbits, else cudaGetLastError() after the launch (0 = launched).
 extern "C" int fused_qlhs_packed(const float* xf, const float* scale_a,
                                  const float* zero_a, const uint8_t* packed,
                                  const float* alpha_b, const float* beta_b,
@@ -268,17 +205,17 @@ extern "C" int fused_qlhs_packed(const float* xf, const float* scale_a,
                                  int K, int bits, int wbits, void* stream) {
   switch (wbits) {
     case 1:
-      return launch<1, false>(xf, scale_a, zero_a, nullptr, packed,
-                              alpha_b, beta_b, u, out, M, N, K, bits, stream);
+      return launch<1>(xf, scale_a, zero_a, packed, alpha_b, beta_b, u, out,
+                       M, N, K, bits, stream);
     case 2:
-      return launch<2, false>(xf, scale_a, zero_a, nullptr, packed,
-                              alpha_b, beta_b, u, out, M, N, K, bits, stream);
+      return launch<2>(xf, scale_a, zero_a, packed, alpha_b, beta_b, u, out,
+                       M, N, K, bits, stream);
     case 4:
-      return launch<4, false>(xf, scale_a, zero_a, nullptr, packed,
-                              alpha_b, beta_b, u, out, M, N, K, bits, stream);
+      return launch<4>(xf, scale_a, zero_a, packed, alpha_b, beta_b, u, out,
+                       M, N, K, bits, stream);
     case 8:
-      return launch<8, false>(xf, scale_a, zero_a, nullptr, packed,
-                              alpha_b, beta_b, u, out, M, N, K, bits, stream);
+      return launch<8>(xf, scale_a, zero_a, packed, alpha_b, beta_b, u, out,
+                       M, N, K, bits, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

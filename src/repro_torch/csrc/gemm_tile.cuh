@@ -1,14 +1,16 @@
-// The int8 GEMM tile shared by q8_matmul.cu, fused_qlhs.cu and
-// packed_matmul.cu: one block owns a BM x BN output tile and sweeps K in
-// steps of BK.  Each step both operands land K-major in shared memory, four
+// The __dp4a GEMM tile of the packed-weight kernels, fused_qlhs.cu (the
+// packed forward) and packed_matmul.cu: one block owns a BM x BN output
+// tile and sweeps K in steps of BK.  Each step both operands land K-major in shared memory, four
 // int8 codes to a 32-bit word, and __dp4a accumulates 2 x 4 outputs per
 // thread.  Shared-memory rows are padded to LDS = 17 words so the inner
 // loop's column reads hit 16 distinct banks.
 //
-// This header holds the pieces the three kernels have in common: the word
-// loaders, the three B-tile loaders (row-major int8 codes, K-major int8
-// codes, bit-packed sub-byte codes) and the __dp4a sweep of one K step.
-// Codes outside the matrix load as 0, so no wrapper pads or slices.
+// This header holds the pieces the two kernels have in common: the word
+// loaders, the two B-tile loaders (row-major 8-bit codes, bit-packed
+// sub-byte codes) and the __dp4a sweep of one K step.  Codes outside the
+// matrix load as 0, so no wrapper pads or slices.  The int8 kernels
+// (q8_matmul, the int8 forward, dX, dW) run on int8_mma.cuh's tensor-core
+// tile instead.
 
 #pragma once
 
@@ -84,22 +86,6 @@ __device__ __forceinline__ void load_b_nmajor(int* Bs, const uint8_t* y,
   Bs[(col + 1) * LDS + b_kq] = static_cast<int>(__byte_perm(lo01, lo23, 0x7632));
   Bs[(col + 2) * LDS + b_kq] = static_cast<int>(__byte_perm(hi01, hi23, 0x5410));
   Bs[(col + 3) * LDS + b_kq] = static_cast<int>(__byte_perm(hi01, hi23, 0x7632));
-}
-
-// B stored (N, K) row-major: each word already holds four K-consecutive
-// codes.
-__device__ __forceinline__ void load_b_kmajor(int* Bs, const uint8_t* y,
-                                              int N, int K, int n0, int k0,
-                                              int t) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int idx = t + THREADS * i;
-    const int col = idx >> 4;
-    const int kq = idx & 15;
-    const int n = n0 + col;
-    Bs[col * LDS + kq] = static_cast<int>(load_word(
-        y + static_cast<size_t>(n) * K, k0 + kq * 4, K, n < N));
-  }
 }
 
 // B bit-packed at WBITS in {1, 2, 4} (kernels/pack.py layout): logical row

@@ -1,7 +1,11 @@
-// The int8 tensor-core GEMM tile shared by q8_matmul.cu and
-// fused_qlhs_dx.cu: mma.sync m16n8k32 (s8 x s8 -> s32) on operands that sit
-// K-major in shared memory, a ring of cp.async stages, and split-K reduced
-// exactly inside a thread-block cluster.
+// The int8 tensor-core GEMM tile shared by q8_matmul.cu (q8_matmul, both B
+// layouts), fused_qlhs_gemm.cuh (the fused-quantize LHS GEMM: the dX
+// entry fused_qlhs_dx.cu and the int8 forward fused_qlhs_fwd.cu) and
+// fused_qboth_tn.cu (dW): mma.sync m16n8k32 (s8 x s8 -> s32) on operands
+// that sit K-major in shared memory, a ring of cp.async stages, and split-K
+// reduced exactly inside a thread-block cluster.  The packed forward
+// (fused_qlhs.cu fused_qlhs_packed) and packed_matmul.cu stay on
+// gemm_tile.cuh's __dp4a tile.
 //
 // Why mma.sync and not wgmma: at the training shapes (M = 512 tokens) the
 // bound is bytes and latency, not the tensor cores (lm_head's 5.4 GOP take
@@ -15,6 +19,9 @@
 // ldmatrix phase reads fall in eight distinct bank groups.  ldmatrix (.b16,
 // no .trans) then hands each lane exactly the fragment
 // mma.m16n8k32.row.col wants: four int8 K codes of one row a register.
+// An operand stored N-major (K rows of N codes: the weight codes of the
+// forward) lands as stored in a raw stage and is transposed 4 x 4 bytes at
+// a time in registers (transpose4x4, transpose_b) into that tile.
 //
 // Split-K: a block owns one (M tile, N tile, K slice), and the slices of a
 // tile are one cluster of 1 to 8 blocks (kernels/splitk.py picks the
@@ -22,9 +29,11 @@
 // its own shared memory as a row-major tile; the cluster meets at a
 // barrier, and each block sums its share of the rows over every block's
 // tile through distributed shared memory and runs the epilogue on them,
-// once, on the full sums.  Integer addition is exact and commutes, so the
-// result does not depend on the order in which the slices arrive; no
-// workspace, no atomics, no second launch, and no float is ever summed
+// once, on the full sums.  Per-row extras (the LHS row code sums) join
+// that pass (reduce_tile); per-column extras (dW's column code sums) are
+// summed beside it (reduce_cols).  Integer addition is exact and commutes,
+// so the result does not depend on the order in which the slices arrive;
+// no workspace, no atomics, no second launch, and no float is ever summed
 // across blocks.
 
 #pragma once
@@ -73,9 +82,11 @@ __device__ __forceinline__ void mma_s8(int c[4], const unsigned a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Four codes, one byte each (byte j = the low byte of cj): three
+// byte_perms.
 __device__ __forceinline__ unsigned pack4(int c0, int c1, int c2, int c3) {
-  return static_cast<unsigned>((c0 & 0xff) | ((c1 & 0xff) << 8) |
-                               ((c2 & 0xff) << 16) | ((c3 & 0xff) << 24));
+  return __byte_perm(__byte_perm(c0, c1, 0x0040), __byte_perm(c2, c3, 0x0040),
+                     0x5410);
 }
 
 // Byte offset of 16-byte chunk c of row r in a tile of CH chunks a row:
@@ -108,6 +119,113 @@ __device__ __forceinline__ void load_chunk(void* smem, const uint8_t* src,
     }
     *reinterpret_cast<uint4*>(smem) = make_uint4(w[0], w[1], w[2], w[3]);
   }
+}
+
+// The four words of a 4 x 4 byte block transposed: r[j] holds row j's
+// bytes for columns 0..3 (byte q = column q); w[q] holds column q's bytes
+// for rows 0..3 (byte j = row j).
+__device__ __forceinline__ void transpose4x4(const unsigned r[4],
+                                             unsigned w[4]) {
+  const unsigned lo01 = __byte_perm(r[0], r[1], 0x5140);
+  const unsigned hi01 = __byte_perm(r[0], r[1], 0x7362);
+  const unsigned lo23 = __byte_perm(r[2], r[3], 0x5140);
+  const unsigned hi23 = __byte_perm(r[2], r[3], 0x7362);
+  w[0] = __byte_perm(lo01, lo23, 0x5410);
+  w[1] = __byte_perm(lo01, lo23, 0x7632);
+  w[2] = __byte_perm(hi01, hi23, 0x5410);
+  w[3] = __byte_perm(hi01, hi23, 0x7632);
+}
+
+// Byte offset of 16-byte chunk c of row r in a raw stage of ROW_BYTES a
+// row (an N-major stage of int8 codes, or dW's f32 and int64 rows), the
+// chunk at c ^ ((r / 4) mod min(ROW_BYTES / 16, 8)): reads of four rows at
+// a time, with the 4-row group the lanes' fastest index (transpose_b, dW's
+// quantize), spread over the banks.
+template <int ROW_BYTES>
+__device__ __forceinline__ int raw_off(int r, int c) {
+  constexpr int KEY = (ROW_BYTES / 16 < 8 ? ROW_BYTES / 16 : 8) - 1;
+  return r * ROW_BYTES + ((c ^ ((r >> 2) & KEY)) << 4);
+}
+
+// B stored (K, N) row-major: rows k0 .. k0 + BK - 1, columns n0 ..
+// n0 + BN - 1 into a raw stage as stored (codes outside the matrix 0).
+template <int BK, int BN, int THREADS>
+__device__ __forceinline__ void load_b_raw(uint8_t* bs, const uint8_t* y,
+                                           int N, int K, int n0, int k0,
+                                           int t) {
+  static_assert(BK * (BN / 16) % THREADS == 0, "whole chunks a thread");
+#pragma unroll
+  for (int i = 0; i < BK * (BN / 16) / THREADS; ++i) {
+    const int id = t + THREADS * i;
+    const int r = id / (BN / 16), c = id % (BN / 16);
+    const int k = k0 + r, nn = n0 + 16 * c;
+    const int n = k < K ? min(max(N - nn, 0), 16) : 0;
+    load_chunk(bs + raw_off<BN>(r, c), y + static_cast<size_t>(k) * N + nn,
+               n);
+  }
+}
+
+// Raw N-major stage -> K-major swizzled tile of BN rows and BK codes: each
+// thread transposes BK * BN / 16 / THREADS blocks of 4 k x 4 n codes,
+// consecutive threads taking consecutive 4-row groups of k (so the stores
+// of one warp fill whole tile rows).
+template <int BK, int BN, int THREADS>
+__device__ __forceinline__ void transpose_b(uint8_t* bt, const uint8_t* raw,
+                                            int t) {
+  constexpr int CH = BK / 16;
+  static_assert(BK * BN / 16 % THREADS == 0, "whole blocks a thread");
+#pragma unroll
+  for (int i = 0; i < BK * BN / 16 / THREADS; ++i) {
+    const int id = t + THREADS * i;
+    const int kq = id % (BK / 4);              // 4-row group of k
+    const int nq = id / (BK / 4);              // 4-column group of n
+    unsigned r[4], w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      r[j] = *reinterpret_cast<const unsigned*>(
+          raw + raw_off<BN>(4 * kq + j, nq >> 2) + 4 * (nq & 3));
+    transpose4x4(r, w);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<unsigned*>(bt + swz<CH>(4 * nq + j, kq >> 2) +
+                                   4 * (kq & 3)) = w[j];
+  }
+}
+
+constexpr float U32_TO_UNIT = 2.3283064365386963e-10f;   // 2^-32, exact
+
+// 1.5 * 2^23: a float in [0, 2^22] plus this lands where the float grid's
+// step is 1, so the add rounds to an integer and the sum's bits are
+// MAGIC_BITS plus that integer
+constexpr float MAGIC = 12582912.0f;
+constexpr int MAGIC_BITS = 0x4B400000;
+
+// What quantize_code subtracts from the bits of its rounded sum for b-bit
+// codes: MAGIC_BITS and the shift 2^(b-1).
+__host__ __device__ constexpr int quant_sub(int bits) {
+  return MAGIC_BITS + (1 << (bits - 1));
+}
+
+// One shifted code of a quantize (the forward's and dX's per-row LHS, dW's
+// per-tensor X and dY), every float operation rounded as the reference
+// orders it:
+//   t = s * (x - z);  q = rint(t)  or  floor(t + float(rb) * 2^-32) (SR);
+//   clip to [0, top = 2^b - 1], minus 2^(b-1)  (sub = quant_sub(b)).
+// It keeps off the conversion pipe (a quarter of the arithmetic rate):
+// clamping to integer bounds commutes with rint and floor, so the value is
+// clamped in float and rounded by adding MAGIC (to nearest even for rint,
+// toward minus infinity for floor), whose bits then hold the integer.
+// rb * 2^-32 is exact, so the fma rounds as the reference's add does; only
+// SR's bits-to-float converts.
+template <bool SR>
+__device__ __forceinline__ int quantize_code(float x, float s, float z,
+                                             unsigned rb, float top,
+                                             int sub) {
+  float t = __fmul_rn(s, __fsub_rn(x, z));
+  if (SR) t = __fmaf_rn(__uint2float_rn(rb), U32_TO_UNIT, t);
+  const float y = fminf(fmaxf(t, 0.0f), top);
+  return __float_as_int(SR ? __fadd_rd(y, MAGIC) : __fadd_rn(y, MAGIC)) -
+         sub;
 }
 
 // One row of an operand whose chunks a thread loads at every K step: the
@@ -186,7 +304,8 @@ __device__ __forceinline__ void acc_to_tile(int* tile, const int* acc,
 
 // Split-K reduction and epilogue walk.  Every block has written its BM x BN
 // partial (acc_to_tile) into `tile`, its own shared memory, and its BM
-// row partials of some extra sum (the dX kernel's row code sums) into
+// row partials of some extra sum (the LHS row code sums of
+// fused_qlhs_gemm.cuh) into
 // extra_s, or extra_s is null.  With SPLITS > 1 the SPLITS blocks of the
 // tile's cluster (SPLITS K slices, at most 8: a portable cluster) meet at
 // the cluster barrier, and the block of rank r sums rows r * R ..
@@ -241,6 +360,35 @@ __device__ __forceinline__ void reduce_tile(const int* tile,
   }
   // no block leaves while a peer still reads its tile
   if constexpr (SPLITS > 1) cg::this_cluster().sync();
+}
+
+// Per-column extra sums across the K slices of a cluster (dW's column
+// code sums), beside reduce_tile: every block's BN partials in part_s
+// (written and made visible to the block before the call); with SPLITS > 1
+// the cluster meets at a barrier and each block sums every rank's part_s
+// into its own total_s, else part_s is the total.  Returns the totals, which are visible to the
+// whole block after reduce_tile's first barrier; reduce_tile's last
+// barrier keeps every peer's part_s alive until all have read it.
+template <int BN, int THREADS, int SPLITS>
+__device__ __forceinline__ const int* reduce_cols(const int* part_s,
+                                                  int* total_s) {
+  if constexpr (SPLITS > 1) {
+    namespace cg = cooperative_groups;
+    cg::this_cluster().sync();
+    for (int c = threadIdx.x; c < BN; c += THREADS) {
+      int v[SPLITS];
+#pragma unroll
+      for (int r = 0; r < SPLITS; ++r)
+        v[r] = cg::this_cluster().map_shared_rank(part_s, r)[c];
+      int sum = v[0];
+#pragma unroll
+      for (int r = 1; r < SPLITS; ++r) sum += v[r];
+      total_s[c] = sum;
+    }
+    return total_s;
+  } else {
+    return part_s;
+  }
 }
 
 // Four outputs of row m, columns n .. n + 3, of a row-major (M, N) f32

@@ -42,8 +42,9 @@
 //     floats took longer than the K sweep).
 // A K-major B tile goes straight from cp.async into its swizzled tile.  An
 // N-major B tile lands as it is stored (k rows of 128 n codes), and each
-// stage is transposed in registers, 4 x 4 bytes a thread with __byte_perm,
-// into the K-major tile (int8 ldmatrix has no transpose).  Ragged M, N
+// stage is transposed in registers, 4 x 4 bytes a thread with __byte_perm
+// (int8_mma.cuh transpose_b), into the K-major tile (int8 ldmatrix has no
+// transpose).  Ragged M, N
 // and K edges and unaligned rows are masked in the loaders (codes outside
 // the matrix are 0), so the wrapper never pads or slices.
 
@@ -69,7 +70,6 @@ constexpr int NACC = MI * NJ * 4;     // int32 accumulators a thread
 constexpr int A_BYTES = BM * BK;
 constexpr int B_BYTES = BN * BK;
 constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
-static_assert(BN >= 128, "raw_off keys 8 chunks of a raw B row");
 constexpr int LDT = BN + 8;           // int32 row of the accumulator tile
 static_assert(BM * LDT * 4 <= STAGES * STAGE_BYTES,
               "the accumulator tile reuses the ring");
@@ -80,18 +80,11 @@ constexpr int smem_bytes(bool b_kmajor) {
   return STAGES * STAGE_BYTES + (b_kmajor ? 0 : B_BYTES);
 }
 
-// The raw N-major B stage: BK rows (k) of BN codes (n), 16-byte chunk c of
-// row r at chunk c ^ ((r / 4) % 8), so the transpose's reads of four rows
-// spread over the banks.
-__device__ __forceinline__ int raw_off(int r, int c) {
-  return r * BN + ((c ^ ((r >> 2) & 7)) << 4);
-}
-
 // Chunks of 16 codes a thread loads each stage: A, and a K-major B.
 constexpr int AC = BM * CH / THREADS;
 constexpr int BC = BN * CH / THREADS;
-static_assert(AC * THREADS == BM * CH && BC * THREADS == BN * CH &&
-              BK * (BN / 16) % THREADS == 0, "whole chunks a thread");
+static_assert(AC * THREADS == BM * CH && BC * THREADS == BN * CH,
+              "whole chunks a thread");
 
 // The rows behind a thread's K-major chunks, fixed for the K sweep: chunk
 // i of a kind is id = t + THREADS * i, row id / CH, at byte 16 (id % CH)
@@ -138,44 +131,7 @@ __device__ __forceinline__ void load_stage(uint8_t* st, const Sources& s,
     }
   } else {
     // B stored (K, N): BK rows x BN / 16 chunks, as stored
-#pragma unroll
-    for (int i = 0; i < BK * (BN / 16) / THREADS; ++i) {
-      const int id = t + THREADS * i;
-      const int r = id / (BN / 16), c = id % (BN / 16);
-      const int k = k0 + r, nn = n0 + 16 * c;
-      const int n = k < K ? min(max(N - nn, 0), 16) : 0;
-      load_chunk(bs + raw_off(r, c), y + static_cast<size_t>(k) * N + nn, n);
-    }
-  }
-}
-
-// N-major raw stage -> K-major swizzled tile: each thread transposes
-// BK * BN / 16 / THREADS blocks of 4 k x 4 n codes.
-__device__ __forceinline__ void transpose_b(uint8_t* bt, const uint8_t* raw,
-                                            int t) {
-#pragma unroll
-  for (int i = 0; i < BK * BN / 16 / THREADS; ++i) {
-    const int id = t + THREADS * i;
-    const int kq = id % (BK / 4);              // 4-row group of k
-    const int nq = id / (BK / 4);              // 4-column group of n
-    unsigned r[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      r[j] = *reinterpret_cast<const unsigned*>(
-          raw + raw_off(4 * kq + j, nq >> 2) + 4 * (nq & 3));
-    // word i holds column n+i at rows k..k+3
-    const unsigned lo01 = __byte_perm(r[0], r[1], 0x5140);
-    const unsigned hi01 = __byte_perm(r[0], r[1], 0x7362);
-    const unsigned lo23 = __byte_perm(r[2], r[3], 0x5140);
-    const unsigned hi23 = __byte_perm(r[2], r[3], 0x7362);
-    const unsigned w[4] = {__byte_perm(lo01, lo23, 0x5410),
-                           __byte_perm(lo01, lo23, 0x7632),
-                           __byte_perm(hi01, hi23, 0x5410),
-                           __byte_perm(hi01, hi23, 0x7632)};
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<unsigned*>(bt + swz<CH>(4 * nq + j, kq >> 2) +
-                                   4 * (kq & 3)) = w[j];
+    load_b_raw<BK, BN, THREADS>(bs, y, N, K, n0, k0, t);
   }
 }
 
@@ -240,7 +196,7 @@ q8_matmul_kernel(const int8_t* __restrict__ x8,
     const uint8_t* bs = st + A_BYTES;
     if (!B_KMAJOR) {
       // bt's readers of the previous step all passed the barrier above
-      transpose_b(bt, bs, t);
+      transpose_b<BK, BN, THREADS>(bt, bs, t);
       __syncthreads();
       bs = bt;
     }

@@ -7,11 +7,13 @@ it, used on CPU tensors.
 ``fused_qlhs_matmul`` (Pallas ``_qlhs_kernel``)
     ``Q(xf) @ B-hat`` with the LHS quantized inside the GEMM, so no int8
     codes of it reach device memory.  ``trans_b=False`` is the forward
-    ``Q_f(X) @ Q_theta(W)`` (``csrc/fused_qlhs.cu``); ``trans_b=True``
-    reads the weight codes transposed for the activation grad
-    ``Q_b2(dY) @ Q_theta(W).T`` (PTQ or PSQ ``Q_b2``, per-row scale/zero as
-    (M, 1), stochastic rounding from ``rbits``): ``csrc/fused_qlhs_dx.cu``,
-    on the int8 tensor cores with K split by ``kernels/splitk.py``.
+    ``Q_f(X) @ Q_theta(W)`` (``csrc/fused_qlhs_fwd.cu``: a decode tile for
+    M <= 16, a wide one above); ``trans_b=True`` reads the weight codes
+    transposed for the activation grad ``Q_b2(dY) @ Q_theta(W).T`` (PTQ or
+    PSQ ``Q_b2``, per-row scale/zero as (M, 1), stochastic rounding from
+    ``rbits``): ``csrc/fused_qlhs_dx.cu``.  Both instantiate
+    ``csrc/fused_qlhs_gemm.cuh`` on the int8 tensor cores, with K split by
+    ``kernels/splitk.py``.
 ``fused_qlhs_packed_matmul`` (Pallas ``_qlhs_packed_kernel``, the
     ``fused_qlhs_packed`` entry of ``csrc/fused_qlhs.cu``)
     the forward ``Q_f(X) @ W-hat`` against weights bit-packed at 1, 2, 4
@@ -22,7 +24,8 @@ it, used on CPU tensors.
     ``csrc/fused_qboth_tn.cu``)
     the weight grad ``Q_f(X).T @ Q_b1(dY)``: both operands quantized in
     the K sweep (deterministic A, stochastic B, both per-tensor),
-    contracting over their storage rows.
+    contracting over their storage rows; int8 tensor cores, K split by
+    ``kernels/splitk.py``.
 
 Quantization uses the formulas of ``core/quantizers.py``: deterministic
 ``round(t)`` (half to even) or ``floor(t + rbits * 2^-32)``, clip to
@@ -49,16 +52,16 @@ from .checks import check_bits, check_tensor
 from .pack import codes_per_byte, max_safe_k_packed, unpack_tile
 
 __all__ = ["fused_qlhs_matmul", "fused_qlhs_matmul_plain", "qlhs_codes",
-           "qlhs_epilogue",
+           "qlhs_epilogue", "qboth_codes", "qboth_epilogue",
            "fused_qlhs_packed_matmul", "fused_qlhs_packed_matmul_plain",
            "fused_qboth_tn_matmul", "fused_qboth_tn_matmul_plain"]
 
 _U32_TO_UNIT = 1.0 / 4294967296.0          # bits * 2^-32, the one SR rule
 
 # xf, scale_a, zero_a, rbits, y8, alpha_b, beta_b, u, out, M, N, K, bits,
-# stream
-_QLHS_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 4
-                  + (ctypes.c_void_p,))
+# mode, splits, k_span, stream
+_QLHS_FWD_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 7
+                      + (ctypes.c_void_p,))
 # xf, scale_a, zero_a, rbits, y8, alpha_b, beta_b, u, out, M, N, K, bits,
 # splits, k_span, stream
 _QLHS_DX_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6
@@ -68,8 +71,8 @@ _QLHS_DX_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6
 _QLHS_PACKED_ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 5
                          + (ctypes.c_void_p,))
 # af, scale_a, zero_a, bf, scale_b, zero_b, rbits, a_vec, out, M, N, K,
-# bits_a, bits_b, stream
-_QBOTH_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 5
+# bits_a, bits_b, splits, k_span, stream
+_QBOTH_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 7
                    + (ctypes.c_void_p,))
 
 
@@ -146,8 +149,8 @@ def fused_qlhs_matmul(xf: torch.Tensor, scale_a: torch.Tensor,
     On a CUDA tensor this launches the kernel and counts the launch in
     ``fused_qlhs_matmul.launches`` (and, for ``trans_b=True``, in
     ``fused_qlhs_matmul.launches_dx`` too): one device launch in either
-    mode, whatever the split of K (``kernels/splitk.py``).  On a CPU tensor
-    it runs the plain version."""
+    mode, whatever the tile and split of K (``kernels/splitk.py``).  On a
+    CPU tensor it runs the plain version."""
     check_bits("fused_qlhs_matmul", bits)
     N, K = _shape_nk(xf, y8, trans_b, "fused_qlhs_matmul")
     if xf.device.type == "cpu":
@@ -174,13 +177,16 @@ def fused_qlhs_matmul(xf: torch.Tensor, scale_a: torch.Tensor,
             out.data_ptr(), M, N, K, bits)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if trans_b:
-        p = splitk.plan(splitk.DX_TILE, M, N, K)
+        p = splitk.plan(splitk.on_card(splitk.DX_TILE), M, N, K)
         fn = load_function("fused_qlhs_dx", "fused_qlhs_dx",
                            _QLHS_DX_ARGTYPES)
         err = fn(*args, p.splits, p.k_span, stream)
     else:
-        fn = load_function("fused_qlhs", "fused_qlhs", _QLHS_ARGTYPES)
-        err = fn(*args, stream)
+        p = splitk.plan(splitk.on_card(splitk.fwd_tile(M, rbits is not None)),
+                        M, N, K)
+        fn = load_function("fused_qlhs_fwd", "fused_qlhs_fwd",
+                           _QLHS_FWD_ARGTYPES)
+        err = fn(*args, p.tile.mode, p.splits, p.k_span, stream)
     if err != 0:
         raise RuntimeError(f"fused_qlhs_matmul: kernel launch failed with "
                            f"CUDA error {err} at (M, K, N) = ({M}, {K}, {N}), "
@@ -293,25 +299,47 @@ def fused_qboth_tn_matmul_plain(af: torch.Tensor, scale_a, zero_a,
     check_bits("fused_qboth_tn_matmul_plain", bits_a)
     check_bits("fused_qboth_tn_matmul_plain", bits_b)
     K, _, _ = _qboth_shapes(af, bf, "fused_qboth_tn_matmul_plain")
-    nbins_a = float((1 << bits_a) - 1)
-    off_a = float(1 << (bits_a - 1))
-    nbins_b = float((1 << bits_b) - 1)
-    off_b = float(1 << (bits_b - 1))
+    ca, cb = qboth_codes(af, scale_a, zero_a, bf, scale_b, zero_b, rbits,
+                         bits_a=bits_a, bits_b=bits_b)
+    cb64 = cb.to(torch.float64)
+    return qboth_epilogue(ca.to(torch.float64).T @ cb64, cb64.sum(dim=0), K,
+                          scale_a, zero_a, scale_b, zero_b, a_vec,
+                          bits_a=bits_a, bits_b=bits_b)
+
+
+def qboth_codes(af: torch.Tensor, scale_a, zero_a, bf: torch.Tensor,
+                scale_b, zero_b, rbits: torch.Tensor, *, bits_a: int,
+                bits_b: int):
+    """The shifted codes of dW's operands as float32: ``Q_det(af)`` (K, M),
+    round half to even, and ``Q_sr(bf)`` (K, N) from ``rbits``, both
+    per-tensor, clipped to ``[0, 2^b-1]`` and shifted by ``-2^(b-1)``."""
     f32 = dict(dtype=torch.float32, device=af.device)
     sa, za = torch.as_tensor(scale_a, **f32), torch.as_tensor(zero_a, **f32)
     sb, zb = torch.as_tensor(scale_b, **f32), torch.as_tensor(zero_b, **f32)
     ca = torch.clamp(torch.round(sa * (af.to(torch.float32) - za)),
-                     0.0, nbins_a) - off_a
+                     0.0, float((1 << bits_a) - 1)) - float(1 << (bits_a - 1))
     cb = torch.clamp(torch.floor(sb * (bf.to(torch.float32) - zb)
-                                 + _sr_unit(rbits)), 0.0, nbins_b) - off_b
-    cb64 = cb.to(torch.float64)
-    acc = (ca.to(torch.float64).T @ cb64).to(torch.float32)
+                                 + _sr_unit(rbits)),
+                     0.0, float((1 << bits_b) - 1)) - float(1 << (bits_b - 1))
+    return ca, cb
+
+
+def qboth_epilogue(acc: torch.Tensor, csum: torch.Tensor, K: int, scale_a,
+                   zero_a, scale_b, zero_b, a_vec: torch.Tensor, *,
+                   bits_a: int, bits_b: int) -> torch.Tensor:
+    """dW's epilogue on the exact integer sums: ``acc`` (M, N) and B's
+    column code sums ``csum`` (N,), in any dtype that holds them exactly,
+    over K contracted rows."""
+    f32 = dict(dtype=torch.float32, device=acc.device)
+    sa, za = torch.as_tensor(scale_a, **f32), torch.as_tensor(zero_a, **f32)
+    sb, zb = torch.as_tensor(scale_b, **f32), torch.as_tensor(zero_b, **f32)
     alpha_a = 1.0 / sa
-    beta_a = off_a * alpha_a + za
+    beta_a = float(1 << (bits_a - 1)) * alpha_a + za
     alpha_b = 1.0 / sb
-    beta_b = off_b * alpha_b + zb
-    u_j = alpha_b * cb64.sum(dim=0).to(torch.float32) + float(K) * beta_b
-    return acc * (alpha_a * alpha_b) + beta_a * u_j[None, :] + a_vec[:, None]
+    beta_b = float(1 << (bits_b - 1)) * alpha_b + zb
+    u_j = alpha_b * csum.to(torch.float32) + float(K) * beta_b
+    return (acc.to(torch.float32) * (alpha_a * alpha_b)
+            + beta_a * u_j[None, :] + a_vec[:, None])
 
 
 def fused_qboth_tn_matmul(af: torch.Tensor, scale_a, zero_a,
@@ -327,7 +355,8 @@ def fused_qboth_tn_matmul(af: torch.Tensor, scale_a, zero_a,
     kernel's A tile never holds a whole column).  Returns (M, N) f32.
 
     On a CUDA tensor this launches the kernel (counted in
-    ``fused_qboth_tn_matmul.launches``); on a CPU tensor it runs the plain
+    ``fused_qboth_tn_matmul.launches``): one device launch, whatever the
+    split of K (``kernels/splitk.py``).  On a CPU tensor it runs the plain
     version."""
     check_bits("fused_qboth_tn_matmul", bits_a)
     check_bits("fused_qboth_tn_matmul", bits_b)
@@ -346,11 +375,13 @@ def fused_qboth_tn_matmul(af: torch.Tensor, scale_a, zero_a,
     check_tensor(name, "rbits", rbits, torch.int64, (K, N), dev)
     check_tensor(name, "a_vec", a_vec, torch.float32, (M,), dev)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    p = splitk.plan(splitk.on_card(splitk.DW_TILE), M, N, K)
     fn = load_function("fused_qboth_tn", "fused_qboth_tn", _QBOTH_ARGTYPES)
     err = fn(af.data_ptr(), scale_a.data_ptr(), zero_a.data_ptr(),
              bf.data_ptr(), scale_b.data_ptr(), zero_b.data_ptr(),
              rbits.data_ptr(), a_vec.data_ptr(), out.data_ptr(), M, N, K,
-             bits_a, bits_b, torch.cuda.current_stream(dev).cuda_stream)
+             bits_a, bits_b, p.splits, p.k_span,
+             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_qboth_tn_matmul: kernel launch failed "
                            f"with CUDA error {err} at (K, M, N) = "

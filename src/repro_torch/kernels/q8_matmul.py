@@ -84,7 +84,7 @@ def q8_matmul(x8: torch.Tensor, y8: torch.Tensor, rs: torch.Tensor,
                         ("u", u, N), ("a", a, M), ("b", b, N)):
         check_tensor(name, vname, v, torch.float32, (n,), dev)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
-    p = splitk.plan(splitk.Q8_TILE, M, N, K)
+    p = splitk.plan(splitk.on_card(splitk.Q8_TILE), M, N, K)
     fn = load_function("q8_matmul", "q8_matmul", _ARGTYPES)
     err = fn(x8.data_ptr(), y8.data_ptr(), rs.data_ptr(), cs.data_ptr(),
              r2.data_ptr(), u.data_ptr(), a.data_ptr(), b.data_ptr(),

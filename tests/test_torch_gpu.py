@@ -1,8 +1,7 @@
 """The port's CUDA kernels on the card, each against its plain PyTorch
-version on the same inputs: the forward mode of ``fused_qlhs_matmul`` to
-float32 round-off (max|d| <= 1e-6 * max|plain|; the kernel rounds every
-operation explicitly, so it is expected to be exact), its dX/SR mode,
-``fused_qboth_tn_matmul``, ``q8_matmul``, ``kv_dequant_rows``,
+version on the same inputs, bit for bit: ``fused_qlhs_matmul`` (the int8
+forward, deterministic and SR, and its dX mode), ``fused_qboth_tn_matmul``,
+``q8_matmul``, ``kv_dequant_rows``,
 ``kv_gather_pages``, ``quantize_sr_rows``/``_tensor``,
 ``fused_qlhs_packed_matmul`` and ``packed_matmul`` bit for bit (page-0
 tables, zero scales, SR bits across all 32 bits, 1/2/4/8-bit packed
@@ -53,11 +52,21 @@ def _qlhs_operands(gen, M, K, N):
             wq.int8_codes, ab, bb, u)
 
 
-@pytest.mark.parametrize("mkn", [(1, 2048, 2048), (8, 2048, 512),
-                                 (128, 8192, 2048), (8, 2048, 49408),
-                                 (37, 130, 67), (37, 67, 130), (3, 5, 3)])
+# (M, K, N) of the int8 forward: granite-3-2b's decode GEMMs at 1, 8 and
+# 16 slots (the decode tile), prefill and the training forward at 128,
+# 512 and 2048 rows (the wide tile), a K off the 16-code grid, and ragged
+FWD_SHAPES = [(1, 2048, 2048), (8, 2048, 512), (16, 2048, 8192),
+              (8, 8192, 2048), (8, 2048, 49408), (128, 8192, 2048),
+              (512, 512, 10240), (2048, 2048, 2048), (8, 1030, 200),
+              (128, 1030, 200), (37, 130, 67), (37, 67, 130), (3, 5, 3)]
+
+
+@pytest.mark.parametrize("mkn", FWD_SHAPES)
 def test_fused_qlhs_matmul_vs_plain(cuda, mkn):
+    """The int8 forward equals its plain version bit for bit,
+    deterministic and with SR bits, and a second call the first."""
     from repro_torch.kernels import fused_qlhs_matmul, fused_qlhs_matmul_plain
+    M, K, N = mkn
     gen = torch.Generator(device=cuda).manual_seed(sum(mkn))
     ops = _qlhs_operands(gen, *mkn)
     before = fused_qlhs_matmul.launches
@@ -65,7 +74,43 @@ def test_fused_qlhs_matmul_vs_plain(cuda, mkn):
     assert fused_qlhs_matmul.launches == before + 1
     want = fused_qlhs_matmul_plain(*ops, bits=8)
     torch.cuda.synchronize()
-    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    assert torch.equal(got, want)
+    assert torch.equal(fused_qlhs_matmul(*ops, bits=8), got)
+    rb = torch.randint(0, 2 ** 32, (M, K), generator=gen, device=cuda,
+                       dtype=torch.int64)
+    sr = ops[:3] + (rb,) + ops[4:]
+    assert torch.equal(fused_qlhs_matmul(*sr, bits=8),
+                       fused_qlhs_matmul_plain(*sr, bits=8))
+
+
+@pytest.mark.parametrize("M", [8, 128])
+def test_fused_qlhs_fwd_unaligned_rows_and_full_range_codes(cuda, M):
+    """The int8 forward on LHS rows off the 16-byte grid (row views with K
+    = 67 and 130), and at K = 8192 with weight codes over all of
+    -128..127 (rows at the extremes) against LHS rows clipped to each end
+    of the code range: the int32 accumulator's worst case, across the
+    split-K reduction."""
+    from repro_torch.kernels import fused_qlhs_matmul, fused_qlhs_matmul_plain
+    gen = torch.Generator(device=cuda).manual_seed(M)
+    for K, N in ((67, 130), (130, 72)):
+        x, s, z, _, w8, ab, bb, u = _qlhs_operands(gen, M + 1, K, N)
+        ops = (x[1:], s[1:].contiguous(), z[1:].contiguous(), None, w8, ab,
+               bb, u)
+        assert ops[0].data_ptr() % 16 != 0
+        assert torch.equal(fused_qlhs_matmul(*ops, bits=8),
+                           fused_qlhs_matmul_plain(*ops, bits=8))
+    K, N = 8192, 512
+    x, s, z, _, _, ab, bb, _ = _qlhs_operands(gen, M, K, N)
+    s, z = s.clone(), z.clone()
+    s[0], z[0] = 1e3, x[0].max() + 1.0        # every code clips to -128
+    s[1], z[1] = 1e3, x[1].min() - 1.0        # every code clips to 127
+    w8 = _extreme_codes(torch.randint(-128, 128, (N, K), generator=gen,
+                                      device=cuda, dtype=torch.int8))
+    w8 = w8.T.contiguous()
+    u = ab * w8.to(torch.int32).sum(0).to(torch.float32) + float(K) * bb
+    ops = (x, s, z, None, w8, ab, bb, u)
+    assert torch.equal(fused_qlhs_matmul(*ops, bits=8),
+                       fused_qlhs_matmul_plain(*ops, bits=8))
 
 
 def _dx_operands(gen, M, K, N, bits):
@@ -194,17 +239,77 @@ def test_split_k_calls_repeat_bit_for_bit(cuda, mkn):
     assert torch.equal(first, q8_matmul(x8, y8, *vec))
 
 
+def _forced_splits(tile, M, N, K):
+    """Every split of K the kernels take at (M, N, K): (slices, k_span)."""
+    steps = -(-K // tile.bk)
+    for s in range(1, 9):
+        per = -(-steps // s)
+        if -(-steps // per) == s:
+            yield s, per * tile.bk
+
+
+def test_every_forced_split_is_bit_identical(cuda):
+    """dW at lm_head (K 512, M 512, N 10240) and the int8 forward at the
+    decode MLP up-projection (8, 2048, 8192), deterministic and SR,
+    through their C entries with every split of K forced: each equals the
+    planned call bit for bit."""
+    from repro_torch.kernels import (fused_qboth_tn_matmul,
+                                     fused_qlhs_matmul, splitk)
+    from repro_torch.kernels.build import load_function
+    from repro_torch.kernels.fused_fqt import (_QBOTH_ARGTYPES,
+                                               _QLHS_FWD_ARGTYPES)
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    K, M, N = 512, 512, 10240
+    dw = _qboth_operands(gen, K, M, N, 8, 8)
+    ref = fused_qboth_tn_matmul(*dw, bits_a=8, bits_b=8)
+    fn = load_function("fused_qboth_tn", "fused_qboth_tn", _QBOTH_ARGTYPES)
+    for s, span in _forced_splits(splitk.DW_TILE, M, N, K):
+        out = torch.empty_like(ref)
+        assert fn(*[t.data_ptr() for t in dw], out.data_ptr(), M, N, K, 8,
+                  8, s, span, stream) == 0
+        assert torch.equal(out, ref), s
+    M, K, N = 8, 2048, 8192
+    fn = load_function("fused_qlhs_fwd", "fused_qlhs_fwd", _QLHS_FWD_ARGTYPES)
+    for sr in (False, True):
+        fwd = list(_qlhs_operands(gen, M, K, N))
+        if sr:
+            fwd[3] = torch.randint(0, 2 ** 32, (M, K), generator=gen,
+                                   device=cuda, dtype=torch.int64)
+        ref = fused_qlhs_matmul(*fwd, bits=8)
+        tile = splitk.fwd_tile(M, sr)
+        for s, span in _forced_splits(tile, M, N, K):
+            out = torch.empty_like(ref)
+            assert fn(*[0 if t is None else t.data_ptr() for t in fwd],
+                      out.data_ptr(), M, N, K, 8, tile.mode, s, span,
+                      stream) == 0
+            assert torch.equal(out, ref), (tile.name, s)
+        # a mode whose SR bit disagrees with the bits given is refused
+        assert fn(*[0 if t is None else t.data_ptr() for t in fwd],
+                  out.data_ptr(), M, N, K, 8, tile.mode ^ 1, 1, K,
+                  stream) != 0
+
+
 def test_split_plan_tiles_match_the_built_kernels(cuda):
-    """kernels/splitk.py's tiles are the ones the CUDA sources build."""
+    """kernels/splitk.py's tiles are the ones the CUDA sources build, and
+    the card reports a capacity for each."""
     import ctypes
     from repro_torch.kernels import splitk
     from repro_torch.kernels.build import load_library
-    for lib, tile in (("q8_matmul", splitk.Q8_TILE),
-                      ("fused_qlhs_dx", splitk.DX_TILE)):
+    tiles = (splitk.Q8_TILE, splitk.DX_TILE, splitk.DW_TILE,
+             splitk.FWD_DECODE_TILE, splitk.FWD_DECODE_SR_TILE,
+             splitk.FWD_WIDE_TILE, splitk.FWD_WIDE_SR_TILE)
+    for tile in tiles:
         cfg = (ctypes.c_int * 8)()
-        getattr(load_library(lib), lib + "_tile")(cfg)
+        lib = load_library(tile.lib)
+        if tile.lib == "fused_qlhs_fwd":
+            lib.fused_qlhs_fwd_tile(tile.mode, cfg)
+        else:
+            getattr(lib, tile.lib + "_tile")(cfg)
         assert list(cfg)[:5] == [tile.bm, tile.bn, tile.bk, tile.threads,
-                                 tile.nacc], lib
+                                 tile.nacc], tile.name
+        card = splitk.on_card(tile)
+        assert len(card.capacity) == 8 and min(card.capacity) > 0
 
 
 def test_sr_bits_reach_the_kernel_unsaturated(cuda):
@@ -235,11 +340,19 @@ def _qboth_operands(gen, K, M, N, bits_a, bits_b):
     return dw_operands(x, sx, zx, bits_a, g, rbits, bits_b)
 
 
-@pytest.mark.parametrize("kmn", [(512, 512, 512), (512, 1024, 512),
-                                 (512, 512, 10240), (130, 33, 67),
-                                 (64, 1, 49), (5, 3, 3)])
+# (K, M, N) of the dW GEMMs: statquant-tx's (512 tokens; d_in, d_out),
+# granite-3-2b's with 2048 tokens, and ragged
+DW_SHAPES = [(512, 512, 512), (512, 512, 1024), (512, 1024, 512),
+             (512, 512, 10240), (2048, 2048, 2048), (2048, 2048, 512),
+             (2048, 2048, 8192), (2048, 8192, 2048), (2048, 2048, 49408),
+             (33, 67, 130), (1, 64, 49), (37, 130, 67), (130, 33, 67),
+             (64, 1, 49), (5, 3, 3)]
+
+
+@pytest.mark.parametrize("kmn", DW_SHAPES)
 @pytest.mark.parametrize("bits_b", [5, 8])
 def test_fused_qboth_tn_matmul_vs_plain(cuda, kmn, bits_b):
+    """dW bit for bit, and a second call bit-identical to the first."""
     from repro_torch.kernels import (fused_qboth_tn_matmul,
                                      fused_qboth_tn_matmul_plain)
     gen = torch.Generator(device=cuda).manual_seed(sum(kmn) + bits_b)
@@ -250,6 +363,42 @@ def test_fused_qboth_tn_matmul_vs_plain(cuda, kmn, bits_b):
     want = fused_qboth_tn_matmul_plain(*ops, bits_a=8, bits_b=bits_b)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+    assert torch.equal(fused_qboth_tn_matmul(*ops, bits_a=8, bits_b=bits_b),
+                       got)
+
+
+@pytest.mark.parametrize("bits_b", [5, 8])
+def test_fused_qboth_tn_full_range_codes(cuda, bits_b):
+    """dW at K = 8192 tokens with columns of X and dY at the ends of their
+    ranges (every code -2^(b-1) or 2^(b-1) - 1) beside random ones; then
+    at widths of 67 and 130 on tensors whose first element is off the
+    16-byte grid, so that no row is aligned."""
+    from repro_torch.kernels import (fused_qboth_tn_matmul,
+                                     fused_qboth_tn_matmul_plain)
+    from repro_torch.core.backend import dw_operands
+    gen = torch.Generator(device=cuda).manual_seed(20 + bits_b)
+    K, M, N = 8192, 512, 512
+    x = torch.randn(K, M, generator=gen, device=cuda)
+    g = torch.randn(K, N, generator=gen, device=cuda) * 1e-3
+    x[:, 0], x[:, 1] = x.min(), x.max()
+    g[:, 0], g[:, 1] = g.min(), g.max()
+    rb = torch.randint(0, 2 ** 32, (K, N), generator=gen, device=cuda,
+                       dtype=torch.int64)
+
+    def shifted(t):
+        """A contiguous copy of t one element past an aligned start."""
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        return buf[1:].view(t.shape).copy_(t)
+
+    for xs, gs, rs in ((x, g, rb),
+                       (shifted(x[:, :67]), shifted(g[:, :130]),
+                        shifted(rb[:, :130]))):
+        zx, hx = torch.aminmax(xs)
+        sx = 255.0 / torch.clamp_min(hx - zx, 1e-12)
+        ops = dw_operands(xs, sx, zx, 8, gs, rs, bits_b)
+        got = fused_qboth_tn_matmul(*ops, bits_a=8, bits_b=bits_b)
+        assert torch.equal(got, fused_qboth_tn_matmul_plain(
+            *ops, bits_a=8, bits_b=bits_b))
 
 
 @pytest.mark.parametrize("mkn", DX_SHAPES + [(512, 512, 10240),

@@ -1,5 +1,6 @@
 """The split-K plans of the int8 tensor-core kernels (kernels/splitk.py),
-on the CPU.
+on the CPU: q8_matmul, the dX and int8-forward entries of
+fused_qlhs_matmul, and dW (fused_qboth_tn_matmul).
 
 The plan is what the CUDA kernels run: its K slices must tile [0, K)
 exactly, and the exact int32 sums the kernels reduce across a cluster must
@@ -21,15 +22,21 @@ import numpy as np  # noqa: E402
 
 from repro.core import backend as jbackend  # noqa: E402
 from repro.kernels.fused_fqt import (  # noqa: E402
+    fused_qboth_tn_matmul as pallas_qboth, fused_qboth_tn_matmul_xla,
     fused_qlhs_matmul as pallas_qlhs, fused_qlhs_matmul_xla)
 from repro.kernels.q8_matmul import q8_matmul as pallas_q8  # noqa: E402
-from repro_torch.kernels import (fused_qlhs_matmul_plain,  # noqa: E402
-                                 q8_matmul_plain, splitk)
-from repro_torch.kernels.fused_fqt import (qlhs_codes,  # noqa: E402
+from repro_torch.core import backend as tbackend  # noqa: E402
+from repro_torch.kernels import (fused_qboth_tn_matmul_plain,  # noqa: E402
+                                 fused_qlhs_matmul_plain, q8_matmul_plain,
+                                 splitk)
+from repro_torch.kernels.fused_fqt import (qboth_codes,  # noqa: E402
+                                           qboth_epilogue, qlhs_codes,
                                            qlhs_epilogue)
 from repro_torch.kernels.q8_matmul import q8_epilogue  # noqa: E402
 
-TILES = [splitk.Q8_TILE, splitk.DX_TILE]
+TILES = [splitk.Q8_TILE, splitk.DX_TILE, splitk.DW_TILE,
+         splitk.FWD_DECODE_TILE, splitk.FWD_DECODE_SR_TILE,
+         splitk.FWD_WIDE_TILE, splitk.FWD_WIDE_SR_TILE]
 # (M, K, N): statquant-tx's training GEMMs (512 tokens; dX and BHQ dX
 # (tokens, d_out, d_in), the unfused forward and dW), granite-3-2b's dX
 # with 2048 tokens, a K off the 16-code grid, and ragged
@@ -38,13 +45,17 @@ SHAPES = [(512, 512, 512), (512, 1024, 512), (512, 512, 1024),
           (2048, 512, 2048), (2048, 8192, 2048), (2048, 2048, 8192),
           (2048, 49408, 2048), (256, 1030, 200), (33, 67, 130),
           (37, 130, 67), (1, 64, 49), (3, 5, 3), (1, 1, 1)]
+# (M, K, N) of granite-3-2b's decode GEMMs at 8 slots (the forward's
+# decode tile)
+DECODE = [(8, 2048, 2048), (8, 2048, 512), (8, 2048, 8192), (8, 8192, 2048),
+          (8, 2048, 49408)]
 
 
 def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-@pytest.mark.parametrize("mkn", SHAPES)
+@pytest.mark.parametrize("mkn", SHAPES + DECODE)
 @pytest.mark.parametrize("tile", TILES, ids=lambda t: t.name)
 def test_plan_slices_tile_k_exactly(tile, mkn):
     """Disjoint, consecutive, non-empty, covering [0, K); every slice but
@@ -78,6 +89,69 @@ def test_lm_head_grid_fills_the_card():
     assert 0.9 * slots <= dx.blocks <= slots
     for p in (q8, dx):
         assert p.splits >= 6 and p.k_span <= 10240 // 6 + p.tile.bk
+
+
+def test_forward_tile_follows_m():
+    """The int8 forward takes the decode tile up to 16 rows (a serving
+    step's slots) and the wide tile above, each planned with the capacity
+    of its rounding: with SR bits in its ring the decode tile fits one
+    block an SM, not two."""
+    for sr, decode, wide in (
+            (False, splitk.FWD_DECODE_TILE, splitk.FWD_WIDE_TILE),
+            (True, splitk.FWD_DECODE_SR_TILE, splitk.FWD_WIDE_SR_TILE)):
+        assert splitk.fwd_tile(1, sr) is decode
+        assert splitk.fwd_tile(16, sr) is decode
+        assert splitk.fwd_tile(17, sr) is wide
+        assert splitk.fwd_tile(2048, sr) is wide
+        assert (decode.mode, wide.mode) == (sr, 2 + sr)
+        assert decode.bm == 16 and wide.bm == 64
+
+
+@pytest.mark.parametrize("mkn", DECODE)
+def test_decode_grids_fill_the_card(mkn):
+    """The forward's decode tile at granite's decode GEMMs (8 slots): the
+    MLP up-projection and lm_head put a block on each of the 132 SMs (the
+    old grid ran 128 blocks at (8, 2048, 8192), one K step at a time); the
+    narrower outputs, 8 or 2 tiles of 256 columns, take 8 slices, the
+    largest portable cluster."""
+    M, K, N = mkn
+    p = splitk.plan(splitk.fwd_tile(M, False), M, N, K)
+    assert p.tile is splitk.FWD_DECODE_TILE
+    if N >= 8192:
+        assert p.blocks >= splitk.SMS
+    else:
+        assert p.splits == 8
+
+
+def test_dw_lm_head_grid_fills_the_card():
+    """dW at lm_head (K 512 tokens, M 512, N 10240): 160 tiles of 256 x
+    128 would leave a second wave of 28 blocks; the plan cuts K in two,
+    320 blocks.  At the 512-wide shapes, a few tiles, the 16-step sweep is
+    cut at least four ways."""
+    p = splitk.plan(splitk.DW_TILE, 512, 10240, 512)
+    assert p.tiles == 160 and p.splits == 2 and p.blocks >= splitk.SMS
+    for mn in ((512, 512), (1024, 512), (512, 1024)):
+        q = splitk.plan(splitk.DW_TILE, *mn, 512)
+        assert q.splits >= 4 and q.slices[-1][1] == 512
+
+
+# (tile, (M, K, N), splits): the split each plan takes where the card's
+# split sweeps timed every split (PERF.md), the fastest or within 1.5 us
+SWEPT = [(splitk.Q8_TILE, (512, 10240, 512), 8),
+         (splitk.Q8_TILE, (512, 512, 512), 4),
+         (splitk.DX_TILE, (512, 10240, 512), 6),
+         (splitk.DW_TILE, (512, 512, 10240), 2),
+         (splitk.FWD_DECODE_TILE, (8, 2048, 8192), 7)]
+
+
+@pytest.mark.parametrize("tile,mkn,splits", SWEPT,
+                         ids=lambda v: getattr(v, "name", None))
+def test_one_reduction_model_takes_the_swept_split(tile, mkn, splits):
+    """Every tile prices its cluster reduction at half a K step a slice;
+    at the shapes the card swept, the plan takes the split the sweep
+    found fastest (or within 1.5 us of it)."""
+    M, K, N = mkn
+    assert splitk.plan(tile, M, N, K).splits == splits
 
 
 @pytest.mark.parametrize("mkn", [(512, 10240, 512), (256, 1030, 200),
@@ -137,7 +211,7 @@ def test_plain_versions_match_the_jax_kernels_across_a_slice_boundary():
     against the Pallas fused_qlhs_matmul in interpret mode and its XLA
     twin, on the same numpy inputs and SR bits."""
     M, K, N = 40, 200, 72
-    for tile in TILES:
+    for tile in (splitk.Q8_TILE, splitk.DX_TILE):
         p = splitk.plan(tile, M, N, K)
         assert p.splits > 1 and p.slices[0][1] < K
     rng = np.random.RandomState(7)
@@ -174,3 +248,113 @@ def test_plain_versions_match_the_jax_kernels_across_a_slice_boundary():
         trans_b=True).numpy()
     _close(got, want_pl)
     _close(got, want_xla)
+
+
+def _dw_inputs(rng, K, M, N, bits_b):
+    x = rng.randn(K, M).astype(np.float32)
+    g = (rng.randn(K, N) * 1e-2).astype(np.float32)
+    zx = np.float32(x.min())
+    sx = np.float32(255.0 / (x.max() - x.min()))
+    rb = rng.randint(0, 2 ** 32, (K, N), dtype=np.uint64).astype(np.uint32)
+    ops = tbackend.dw_operands(_t(x), torch.tensor(sx), torch.tensor(zx), 8,
+                               _t(g), _t(rb.astype(np.int64)), bits_b)
+    return ops, rb
+
+
+@pytest.mark.parametrize("kmn", [(512, 512, 512), (512, 512, 1024),
+                                 (130, 33, 67)])
+@pytest.mark.parametrize("bits_b", [5, 8])
+def test_dw_plain_summed_over_the_plan_equals_one_shot(kmn, bits_b):
+    """dW: the code products and B's column code sums summed slice by
+    slice in int64 over the dW kernel's plan, through the epilogue, equal
+    the one-shot plain version."""
+    K, M, N = kmn
+    rng = np.random.RandomState(K + M + N + bits_b)
+    ops, _ = _dw_inputs(rng, K, M, N, bits_b)
+    p = splitk.plan(splitk.DW_TILE, M, N, K)
+    assert p.splits > 1
+    ca, cb = qboth_codes(*ops[:7], bits_a=8, bits_b=bits_b)
+    ca, cb = ca.long(), cb.long()
+    acc = sum(ca[k0:k1].T @ cb[k0:k1] for k0, k1 in p.slices)
+    csum = sum(cb[k0:k1].sum(dim=0) for k0, k1 in p.slices)
+    got = qboth_epilogue(acc, csum, K, *ops[1:3], *ops[4:6], ops[7],
+                         bits_a=8, bits_b=bits_b)
+    want = fused_qboth_tn_matmul_plain(*ops, bits_a=8, bits_b=bits_b)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mkn", [(8, 2048, 8192), (8, 1030, 200)])
+@pytest.mark.parametrize("sr", [False, True])
+def test_forward_plain_summed_over_the_plan_equals_one_shot(mkn, sr):
+    """The int8 forward at M = 8 (the decode tile): the codes' products and
+    row sums summed slice by slice in int64 over the plan, through the
+    epilogue, equal the one-shot plain version, deterministic and SR."""
+    M, K, N = mkn
+    rng = np.random.RandomState(M + K + N + sr)
+    x = _t(rng.randn(M, K).astype(np.float32))
+    zero = torch.full((M, 1), float(x.min()))
+    scale = torch.full((M, 1), 255.0) / (x.max() - x.min())
+    rb = (_t(rng.randint(0, 2 ** 32, (M, K), dtype=np.uint64)
+             .astype(np.int64)) if sr else None)
+    w8 = _t(rng.randint(-128, 128, (K, N)).astype(np.int8))
+    u = _t(rng.randn(N).astype(np.float32))
+    ab, bb = torch.tensor(0.013), torch.tensor(-0.7)
+    p = splitk.plan(splitk.fwd_tile(M, sr), M, N, K)
+    assert p.splits > 1
+    c = qlhs_codes(x, scale, zero, rb, bits=8).long()
+    acc = sum(c[:, k0:k1] @ w8[k0:k1].long() for k0, k1 in p.slices)
+    rsum = sum(c[:, k0:k1].sum(dim=1) for k0, k1 in p.slices)
+    got = qlhs_epilogue(acc, rsum, scale, zero, ab, bb, u, bits=8)
+    want = fused_qlhs_matmul_plain(x, scale, zero, rb, w8, ab, bb, u, bits=8)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bits_b", [5, 8])
+def test_dw_plain_matches_the_jax_kernels_across_slice_boundaries(bits_b):
+    """At (K, M, N) = (200, 40, 72) the dW plan cuts K into seven slices
+    of 32 rows: fused_qboth_tn_matmul_plain against the Pallas kernel in
+    interpret mode and its XLA twin, on the same numpy inputs and SR
+    bits."""
+    K, M, N = 200, 40, 72
+    p = splitk.plan(splitk.DW_TILE, M, N, K)
+    assert p.splits > 1 and p.slices[0][1] < K
+    rng = np.random.RandomState(11 + bits_b)
+    ops, rb = _dw_inputs(rng, K, M, N, bits_b)
+    j = [jnp.asarray(o.numpy()) for o in ops]
+    j[6] = jnp.asarray(rb)                        # uint32 for JAX
+    got = fused_qboth_tn_matmul_plain(*ops, bits_a=8, bits_b=bits_b).numpy()
+    _close(got, np.asarray(pallas_qboth(*j, bits_a=8, bits_b=bits_b,
+                                        interpret=True)))
+    _close(got, np.asarray(fused_qboth_tn_matmul_xla(*j, bits_a=8,
+                                                     bits_b=bits_b)))
+
+
+@pytest.mark.parametrize("sr", [False, True])
+def test_forward_plain_matches_the_jax_kernels_across_slice_boundaries(sr):
+    """At (M, K, N) = (8, 300, 72) the decode tile's plan cuts K into
+    five slices of 64 codes: the forward's plain version (per-row scale,
+    deterministic or SR) against the Pallas kernel in interpret mode and
+    its XLA twin."""
+    M, K, N = 8, 300, 72
+    p = splitk.plan(splitk.fwd_tile(M, sr), M, N, K)
+    assert p.splits == 5 and p.slices[0][1] < K
+    rng = np.random.RandomState(13 + sr)
+    x = rng.randn(M, K).astype(np.float32)
+    zero = x.min(axis=1, keepdims=True)
+    scale = (255.0 / (x.max(axis=1, keepdims=True) - zero)).astype(np.float32)
+    w8 = rng.randint(-128, 128, (K, N)).astype(np.int8)
+    ab, bb = np.float32(0.013), np.float32(-0.7)
+    u = (ab * w8.astype(np.int64).sum(axis=0).astype(np.float32)
+         + np.float32(K) * bb).astype(np.float32)
+    rb = (rng.randint(0, 2 ** 32, (M, K), dtype=np.uint64).astype(np.uint32)
+          if sr else None)
+    j = [jnp.asarray(x), jnp.asarray(scale), jnp.asarray(zero),
+         None if rb is None else jnp.asarray(rb), jnp.asarray(w8)]
+    got = fused_qlhs_matmul_plain(
+        _t(x), _t(scale), _t(zero),
+        None if rb is None else _t(rb.astype(np.int64)), _t(w8),
+        torch.tensor(ab), torch.tensor(bb), _t(u), bits=8).numpy()
+    _close(got, np.asarray(pallas_qlhs(*j, ab, bb, jnp.asarray(u), bits=8,
+                                       interpret=True)))
+    _close(got, np.asarray(fused_qlhs_matmul_xla(*j, ab, bb, jnp.asarray(u),
+                                                 bits=8)))
