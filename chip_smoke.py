@@ -4,9 +4,10 @@
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --step-wall TREE [TREE ...]
 
-The second form only times the GEMM wrappers' host cost a call and the
-training step's wall for the package of each checkout TREE, one process
-each, in the order given (``step_wall_trees``).
+The second form only times the GEMM wrappers' host cost a call, the
+training step's wall and the packed forward's share of a packed decode
+step for the package of each checkout TREE, one process each, in the
+order given (``step_wall_trees``).
 
 From the root of a checkout, on a machine with one CUDA card and the CUDA
 toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
@@ -18,8 +19,10 @@ toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
      ``build/repro_torch`` (one nvcc per source, in parallel) and times it;
      prints ``-Xptxas -v``'s registers, shared memory and spills, and for
      each tile of the int8 tensor-core kernels (``q8_matmul``, the dX
-     entry ``fused_qlhs_dx``, dW ``fused_qboth_tn`` and the int8 forward
-     ``fused_qlhs_fwd``'s decode and wide tiles, deterministic and SR) one
+     entry ``fused_qlhs_dx``, dW ``fused_qboth_tn``, the int8 forward
+     ``fused_qlhs_fwd``'s decode and wide tiles, deterministic and SR, and
+     the packed GEMMs' ``fused_qlhs_packed`` and ``packed_matmul`` decode
+     and wide tiles at 1, 2, 4 and 8 bits) one
      line with its shape and dynamic shared memory and one with the
      blocks the card runs at once in clusters of 1..8 as the library
      reports it (what the wrappers plan with) beside
@@ -94,7 +97,9 @@ toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
      their plain versions bit for bit at every (K, N) of granite's path
      for M in {8, 128}, at 1, 2, 4 and 8 bits, and ragged, and at 8 bits
      ``fused_qlhs_packed_matmul`` against ``fused_qlhs_matmul`` on the
-     same codes.
+     same codes; and every split of K, forced through the C entries, at
+     (8, 2048, 8192) (the decode tile) and (40, 1001, 300) (the wide tile,
+     K ragged at every width), at each width.
   7. A short statquant-tx full-width serving run (layernorm, gelu, qkv
      bias), with the checks of 4.
   8. Trains statquant-tx at full width and depth (6 layers, d=512,
@@ -135,13 +140,17 @@ toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
      unfused step's lm_head forward and dW (512, 512, 10240), the int8
      forward at the fused step's lm_head (512, 512, 10240), and dX,
      ``q8_matmul`` and dW at lm_head, ``q8_matmul`` at (512, 512, 512)
-     and the int8 forward at (8, 2048, 8192) at every split of K
+     and the int8 forward and both packed kernels (4 bits) at (8, 2048,
+     8192), the packed ones at decode lm_head too, at every split of K
      (bit-identical to the planned call); the packed kernels at the
-     decode up-projection at 8, 4, 2 and 1 bits and lm_head at 4 bits, with ``torch._int_mm`` on
-     the unpacked codes.  Then profiles one granite decode step (dense,
-     paged, and from 8- and 4-bit packed weights) and one training step under each policy (fused and unfused):
-     wall time, device busy time and idle share, device time by op and by
-     kernel.
+     decode up-projection at 8, 4, 2 and 1 bits (at 8 bits also at every
+     other decode GEMM of granite), and at lm_head, (128, 2048, 8192) and
+     (512, 512, 10240) at 4 bits, with ``torch._int_mm`` on the unpacked
+     codes.  Then profiles one granite decode step
+     (dense, paged, and from 8- and 4-bit packed weights, with the packed
+     forward's share) and one training step under each policy (fused and
+     unfused): wall time, device busy time and idle share, device time by
+     op and by kernel.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -257,8 +266,10 @@ def main(argv=None) -> int:
     serve["profile_decode_step"] = _profile_decode(torch, granite_engine)
     paged["profile_decode_step"] = _profile_paged_decode(torch, paged_engine)
     for bits, eng in packed_engines.items():
+        # the packed forward's kernels: a packed engine runs no other
+        # fused-quantize kernel
         packed[f"w{bits}"]["profile_decode_step"] = _profile_decode(
-            torch, eng, f"w{bits} packed")
+            torch, eng, f"w{bits} packed", share="qlhs")
 
     def entry(name, key, source, replaces, launches):
         return dict(name=name, route="cuda", source=source,
@@ -292,7 +303,8 @@ def main(argv=None) -> int:
               csrc + "quantize_sr.cu", "src/repro/kernels/quantize_sr.py:98",
               unfused["launches"]["quantize_sr_tensor"]),
         entry("fused_qlhs_packed_matmul", "fused_qlhs_packed_matmul",
-              csrc + "fused_qlhs.cu", "src/repro/kernels/fused_fqt.py:328",
+              csrc + "fused_qlhs_packed.cu",
+              "src/repro/kernels/fused_fqt.py:328",
               packed["launches"]["fused_qlhs_packed_matmul"]
               + packed_train["launches"]["fused_qlhs_packed_matmul"]),
         entry("packed_matmul", "packed_matmul", csrc + "packed_matmul.cu",
@@ -313,11 +325,12 @@ def main(argv=None) -> int:
 
 
 def int8_mma_build(built) -> dict:
-    """One line for each tile of the int8 tensor-core kernels: its shape
-    (the library's ``*_tile``), the dynamic shared memory it asks for,
-    and ``-Xptxas -v``'s registers, static shared memory and spills over
-    its library's instantiations (one per cluster size and layout, SR
-    mode or tile); and one with the blocks the card runs at once in
+    """One line for each tile of the int8 tensor-core kernels (the packed
+    GEMMs' at each width too): its shape (the library's ``*_tile``), the
+    dynamic shared memory it asks for, and ``-Xptxas -v``'s registers,
+    static shared memory and spills over its library's instantiations (one
+    per cluster size and layout, SR mode, width or tile); and one with the
+    blocks the card runs at once in
     clusters of 1..8 (the library's ``*_capacity``,
     cudaOccupancyMaxActiveClusters, which the wrappers plan with through
     ``splitk.on_card``) beside the table ``kernels/splitk.py`` keeps as
@@ -334,7 +347,8 @@ def int8_mma_build(built) -> dict:
             (splitk.FWD_DECODE_TILE, ("SR", "deterministic")),
             (splitk.FWD_DECODE_SR_TILE, ("SR", "deterministic")),
             (splitk.FWD_WIDE_TILE, ("SR", "deterministic")),
-            (splitk.FWD_WIDE_SR_TILE, ("SR", "deterministic"))):
+            (splitk.FWD_WIDE_SR_TILE, ("SR", "deterministic")),
+            *((t, ("", "")) for t in splitk.PACKED_TILES.values())):
         lib = tile.lib
         log_text = built.get(lib, {}).get("log", "")
         regs = [int(x) for x in re.findall(r"Used (\d+) registers",
@@ -343,8 +357,8 @@ def int8_mma_build(built) -> dict:
         spill = [int(x) for x in re.findall(r"(\d+) bytes spill stores",
                                             log_text)]
         cfg = (ctypes.c_int * 8)()
-        if lib == "fused_qlhs_fwd":
-            load_library(lib).fused_qlhs_fwd_tile(tile.mode, cfg)
+        if lib in ("fused_qlhs_fwd",) + splitk.PACKED_LIBS:
+            getattr(load_library(lib), lib + "_tile")(tile.mode, cfg)
         else:
             getattr(load_library(lib), lib + "_tile")(cfg)
         bm, bn, bk, threads, nacc, stages, dyn0, dyn1 = list(cfg)
@@ -911,7 +925,8 @@ def packed_kernel_vs_plain(torch, report) -> dict:
     """Both packed kernels against their plain versions on the card, bit
     for bit, at every (K, N) of granite's serving path for M in {8, 128}
     and ragged, at 1, 2, 4 and 8 bits; at 8 bits the packed forward also
-    against ``fused_qlhs_matmul`` on the same codes."""
+    against ``fused_qlhs_matmul`` on the same codes; and at every split of
+    K each tile takes, at each width."""
     from repro_torch.kernels import (fused_qlhs_matmul,
                                      fused_qlhs_packed_matmul,
                                      fused_qlhs_packed_matmul_plain,
@@ -958,6 +973,32 @@ def packed_kernel_vs_plain(torch, report) -> dict:
                 rows[-2]["equals_fused_qlhs_matmul"] = same8
                 line += "; w8 fused == fused_qlhs_matmul"
             log(line)
+    # every split of K each tile takes, forced through the C entries, at
+    # the decode tile's MLP up-projection and a wide tile's ragged shape
+    from repro_torch.kernels import splitk
+    from repro_torch.kernels.build import load_function
+    stream = torch.cuda.current_stream().cuda_stream
+    for wbits in (1, 2, 4, 8):
+        for (M, K, N) in ((8, 2048, 8192), (40, 1001, 300)):
+            for name, lib, ref, call in _packed_calls(torch, gen, M, K, N,
+                                                      wbits, stream):
+                tile = splitk.packed_tile(lib, M, wbits)
+                fn = load_function(lib, lib, _packed_argtypes(lib))
+                steps = -(-K // tile.bk)
+                splits = []
+                for s in range(1, 9):
+                    per = -(-steps // s)
+                    if -(-steps // per) != s:
+                        continue
+                    out = torch.full_like(ref, float("nan"))
+                    check(call(fn, out, tile.mode, s, per * tile.bk) == 0,
+                          f"{tile.name} split {s}: launch failed")
+                    torch.cuda.synchronize()
+                    check(torch.equal(out, ref), f"{tile.name} {(M, K, N)} "
+                                                 f"split {s}: differs")
+                    splits.append(s)
+                log(f"[kernel] {tile.name} {(M, K, N)}: splits {splits} "
+                    f"each bit-identical to plain")
     report["packed_kernel_vs_plain"] = rows
     return worst
 
@@ -1171,7 +1212,7 @@ def _vs_plain(torch, cfg, params, prompts, tag):
     return err
 
 
-def _profile_decode(torch, eng, what="dense"):
+def _profile_decode(torch, eng, what="dense", share=None):
     """One full-batch granite decode step, profiled by ``_profile``."""
     B = eng.slots
     cache = eng.model.init_cache_quant(eng.cfg, B, eng.max_seq, device="cuda")
@@ -1179,14 +1220,17 @@ def _profile_decode(torch, eng, what="dense"):
     pos = torch.full((B,), eng.max_seq // 2, dtype=torch.int64, device="cuda")
     step = lambda: eng.model.decode(eng.params, cache, {"tokens": tok},  # noqa: E731
                                     eng.policy, positions=pos, kv_quant=True)
-    return _profile(torch, step, f"one decode step ({B} slots, {what})")
+    return _profile(torch, step, f"one decode step ({B} slots, {what})",
+                    share)
 
 
-def _profile(torch, step, label):
+def _profile(torch, step, label, share=None):
     """``step``'s wall time (median of 5 runs without the profiler), and
     from one profiled run (torch.profiler) the device's busy time (the sum
     over kernels and copies on the card), the idle share, and the device
-    time by kernel and by the PyTorch op that launched it."""
+    time by kernel and by the PyTorch op that launched it; with ``share``,
+    also the device time and launches of every kernel whose name holds
+    it."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1220,7 +1264,14 @@ def _profile(torch, step, label):
         log(f"[profile]   op     {ms:9.3f} ms {n:6d}x {name[:80]}")
     for ms, n, name in kernels[:10]:
         log(f"[profile]   kernel {ms:9.3f} ms {n:6d}x {name[:80]}")
-    return dict(wall_ms=wall, walls_ms=walls, device_busy_ms=busy,
+    res = {}
+    if share:
+        mine = [r for r in kernels if share in r[2]]
+        res = dict(share_key=share, share_ms=sum(r[0] for r in mine),
+                   share_launches=sum(r[1] for r in mine))
+        log(f"[profile]   kernels named *{share}*: {res['share_ms']:.3f} ms "
+            f"({res['share_launches']} launches) of {busy:.2f} ms busy")
+    return dict(res, wall_ms=wall, walls_ms=walls, device_busy_ms=busy,
                 device_kernels=sum(r[1] for r in kernels),
                 ops=[dict(ms=ms, count=n, name=name) for ms, n, name
                      in ops[:25]],
@@ -2465,8 +2516,10 @@ def split_sweep(torch, gen, flush) -> list:
     slices, one cluster a tile), through their C entries with the split
     forced: dX and ``q8_matmul`` (K-major B) at lm_head (512, 10240, 512),
     ``q8_matmul`` at the unfused step's (512, 512, 512), dW at lm_head (K
-    512, M 512, N 10240), and the int8 forward's decode tile at the decode
-    MLP up-projection (8, 2048, 8192).  Each split's time and blocks, and
+    512, M 512, N 10240), the int8 forward's decode tile at the decode
+    MLP up-projection (8, 2048, 8192), and both packed GEMMs' decode tile
+    at 4 bits there and at lm_head (8, 2048, 49408).  Each split's time
+    and blocks, and
     each result bit-identical to the planned call's (the int32 sums do not
     depend on the split)."""
     from repro_torch.kernels import (fused_qboth_tn_matmul,
@@ -2514,6 +2567,17 @@ def split_sweep(torch, gen, flush) -> list:
              "fused_qlhs_fwd", "fused_qlhs_fwd", _QLHS_FWD_ARGTYPES)(
              *ptrs(fwd), out.data_ptr(), 8, 8192, 2048, 8,
              splitk.FWD_DECODE_TILE.mode, s, span, stream))]
+    # both packed GEMMs' decode tile at 4 bits, at the decode MLP
+    # up-projection and lm_head
+    # (their own names: the cases above read M, K and N when called)
+    for pk, pn in ((2048, 8192), (2048, 49408)):
+        for name, lib, ref, call in _packed_calls(torch, gen, 8, pk, pn, 4,
+                                                  stream):
+            tile = splitk.packed_tile(lib, 8, 4)
+            fn = load_function(lib, lib, _packed_argtypes(lib))
+            cases.append((name, tile, (8, pk, pn), ref,
+                          lambda out, s, span, fn=fn, call=call, tile=tile:
+                          call(fn, out, tile.mode, s, span)))
     rows = []
     for name, tile, shape, ref, call in cases:
         # (M, K, N) of the GEMM; dW's shape is (K, M, N), its grid M x N
@@ -2561,15 +2625,20 @@ def _host_us(torch, fn, calls: int = 200) -> float:
 def step_wall(torch, seed) -> dict:
     """For the ``repro_torch`` on ``sys.path``: each FQT GEMM wrapper's
     host time a call (``_host_us``) at the statquant-tx step's (512, 512,
-    512) and the forward at the decode (8, 2048, 8192), and the training
-    step's wall (statquant-tx full width, 8 x 64 tokens, median of 10
-    steps after 2, no profiler) under the four policies the smoke run
-    profiles.  It uses only wrapper signatures and engine options that
+    512) and the forward at the decode (8, 2048, 8192), both packed GEMMs'
+    device time at 4 bits (``_time_ms``) at the decode (8, 2048, 8192),
+    (128, 2048, 8192) and (512, 512, 10240), the packed forward's share of
+    a packed decode step (``packed_decode_share``), and
+    the training step's wall (statquant-tx full width, 8 x 64 tokens,
+    median of 10 steps after 2, no profiler) under the four policies the
+    smoke run profiles.  It uses only wrapper signatures and engine options that
     older checkouts of the package share, so two compare in one call."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import (build, fused_qboth_tn_matmul,
-                                     fused_qlhs_matmul, q8_matmul)
+                                     fused_qlhs_matmul,
+                                     fused_qlhs_packed_matmul, packed_matmul,
+                                     q8_matmul)
     build.build_all()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     fwd = qlhs_operands(torch, gen, 512, 512, 512)
@@ -2590,6 +2659,17 @@ def step_wall(torch, seed) -> dict:
                                                           bits_b=8)),
         "q8_matmul (512, 512, 512)": _host_us(torch, lambda: q8_matmul(*q8)),
     }
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    packed_us = {}
+    for (M, K, N) in ((8, 2048, 8192), (128, 2048, 8192), (512, 512, 10240)):
+        fused, unfused, _ = packed_operands(torch, gen, M, K, N, 4)
+        packed_us[f"fused_qlhs_packed_matmul {(M, K, N)} w4"] = 1e3 * _time_ms(
+            torch, lambda: fused_qlhs_packed_matmul(*fused, bits=8, wbits=4),
+            flush, 20)
+        packed_us[f"packed_matmul {(M, K, N)} w4"] = 1e3 * _time_ms(
+            torch, lambda: packed_matmul(*unfused, wbits=4, kdim=K), flush,
+            20)
+    decode = packed_decode_share(torch, seed)
     cfg = get_config("statquant-tx")
     walls = {}
     for tag, quant, bits, fused in (("psq8", "psq", 8, None),
@@ -2606,7 +2686,35 @@ def step_wall(torch, seed) -> dict:
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
         walls[tag] = dict(median_ms=float(np.median(ms[2:])), ms=ms[2:])
-    return dict(host_us_per_call=host, step_wall=walls)
+    return dict(host_us_per_call=host, packed_us=packed_us, step_wall=walls,
+                packed_decode=decode)
+
+
+def packed_decode_share(torch, seed) -> dict:
+    """One full-batch granite-3-2b decode step from weights packed at 8
+    and at 4 bits (8 slots, full width and depth), profiled
+    (``_profile_decode``): its device busy time and the part of it in the
+    packed forward's kernels (names holding "qlhs": a packed engine runs no
+    other fused-quantize kernel)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import QuantPolicy
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine
+    cfg = get_config("granite-3-2b")
+    params = build_model(cfg).init(seed, device="cuda")
+    res = {}
+    for bits in (8, 4):
+        eng = ServeEngine(cfg, params, policy=QuantPolicy.qat(
+            backend="kernel"), slots=8, max_seq=256, kv_quant=True,
+            seed=seed, weight_bits=bits, device="cuda")
+        prof = _profile_decode(torch, eng, f"w{bits} packed", share="qlhs")
+        res[f"w{bits}"] = dict(
+            busy_ms=prof["device_busy_ms"], wall_ms=prof["wall_ms"],
+            forward_ms=prof["share_ms"],
+            forward_launches=prof["share_launches"])
+        del eng
+        torch.cuda.empty_cache()
+    return res
 
 
 def step_wall_trees(trees, seed) -> int:
@@ -2628,16 +2736,22 @@ def step_wall_trees(trees, seed) -> int:
         out = json.loads(r.stdout.strip().splitlines()[-1])
         res.append(dict(tree=str(tree), **out))
         log(f"[step wall] {tree}: " + json.dumps(out))
-    for key in ("host_us_per_call", "step_wall"):
+    for name in res[0]["packed_decode"]:
+        log(f"[step wall] packed decode {name}: " + " | ".join(
+            f"{r['tree']} busy {r['packed_decode'][name]['busy_ms']:.2f} ms, "
+            f"packed forward {r['packed_decode'][name]['forward_ms']:.2f} ms "
+            f"({r['packed_decode'][name]['forward_launches']} launches)"
+            for r in res))
+    for key, unit in (("host_us_per_call", " us a call (host)"),
+                      ("packed_us", " us a call (device)"),
+                      ("step_wall", " ms a step")):
         for name in res[0][key]:
             vals = [r[key][name] for r in res]
             vals = [v["median_ms"] if isinstance(v, dict) else v
                     for v in vals]
             log(f"[step wall] {name}: "
                 + " | ".join(f"{r['tree']} {v:.2f}"
-                             for r, v in zip(res, vals))
-                + (" us a call" if key == "host_us_per_call"
-                   else " ms a step"))
+                             for r, v in zip(res, vals)) + unit)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "step_wall.json").write_text(json.dumps(res, indent=1))
@@ -2645,22 +2759,28 @@ def step_wall_trees(trees, seed) -> int:
 
 
 def time_packed_kernels(torch, gen, flush) -> list:
-    """Both packed kernels at the decode MLP up-projection (8, 2048, 8192)
-    at 8, 4, 2 and 1 bits and at lm_head (8, 2048, 49408) at 4 bits,
-    beside the plain version, ``torch._int_mm`` on the unpacked int8 codes
-    (M padded to 32; the bare product) and the bound: bytes over 3.35
-    TB/s, each input read once (the f32 LHS or its int8 codes, the packed
-    bytes, the vectors) and the f32 output written once."""
+    """Both packed kernels at 8 bits at every decode GEMM of granite (M =
+    8, ``GRANITE_KN``: beside the int8 forward's times at the same shapes),
+    at the decode MLP up-projection (8, 2048, 8192) at 4, 2 and 1 bits,
+    and at lm_head (8, 2048, 49408), at prefill's
+    (128, 2048, 8192) and at the int4w training step's lm_head forward
+    (512, 512, 10240), these three at 4 bits, beside the plain version,
+    ``torch._int_mm`` on the unpacked int8 codes (M padded to 32; the bare
+    product) and the bound: bytes over 3.35 TB/s or int8 operations over
+    1,979 TOP/s, each input read once (the f32 LHS or its int8 codes, the
+    packed bytes, the vectors) and the f32 output written once."""
     from repro_torch.kernels import (fused_qlhs_packed_matmul,
                                      fused_qlhs_packed_matmul_plain,
                                      packed_matmul, packed_matmul_plain)
     rows = []
-    M = 8
-    for (K, N, wbits) in [(2048, 8192, w) for w in (8, 4, 2, 1)] + [
-            (2048, 49408, 4)]:
+    for (M, K, N, wbits) in (
+            [(8, K, N, 8) for (K, N) in GRANITE_KN]
+            + [(8, 2048, 8192, w) for w in (4, 2, 1)]
+            + [(8, 2048, 49408, 4), (128, 2048, 8192, 4),
+               (512, 512, 10240, 4)]):
         fused, unfused, pt = packed_operands(torch, gen, M, K, N, wbits)
         kp = fused[3].shape[0]
-        a8 = torch.zeros((32, K), dtype=torch.int8, device="cuda")
+        a8 = torch.zeros((max(M, 32), K), dtype=torch.int8, device="cuda")
         w8 = pt.int8_codes
         lib = _time_ms(torch, lambda: torch._int_mm(a8, w8), flush, 20)
         for name, kern, plain, args, kw, nbytes in (
@@ -2678,9 +2798,46 @@ def time_packed_kernels(torch, gen, flush) -> list:
                              ms=ms, plain_ms=plain_ms, library_ms=lib,
                              bound_ms=bound, bound_by=by))
             log(f"[time] {name} {(M, K, N)} w{wbits}: kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, _int_mm(M=32, int8 codes) "
-                f"{lib:.4f} ms, bound {bound:.5f} ms ({by})")
+                f"plain {plain_ms:.4f} ms, _int_mm(M={max(M, 32)}, int8 "
+                f"codes) {lib:.4f} ms, bound {bound:.5f} ms ({by})")
     return rows
+
+
+def _packed_calls(torch, gen, M, K, N, wbits, stream):
+    """For each packed GEMM at (M, K, N) and ``wbits``: its name, library,
+    planned result through the wrapper (checked bit for bit against the
+    plain version), and ``call(fn, out, mode, splits, k_span)``, which
+    runs C entry ``fn`` on the same operands with the split forced (what
+    ``split_sweep`` times)."""
+    from repro_torch.kernels import (fused_qlhs_packed_matmul,
+                                     fused_qlhs_packed_matmul_plain,
+                                     packed_matmul, packed_matmul_plain)
+    fused, unfused, _ = packed_operands(torch, gen, M, K, N, wbits)
+
+    def caller(ops, extra):
+        # the closure holds the tensors, so their memory stays theirs
+        return lambda fn, out, mode, s, span: fn(
+            *[t.data_ptr() for t in ops], out.data_ptr(), M, N, K, *extra,
+            mode, s, span, stream)
+    rows = []
+    for name, lib, kern, plain, ops, kw, extra in (
+            ("fused_qlhs_packed_matmul", "fused_qlhs_packed",
+             fused_qlhs_packed_matmul, fused_qlhs_packed_matmul_plain, fused,
+             dict(bits=8, wbits=wbits), (8,)),
+            ("packed_matmul", "packed_matmul", packed_matmul,
+             packed_matmul_plain, unfused, dict(wbits=wbits, kdim=K), ())):
+        ref = kern(*ops, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(ref, plain(*ops, **kw)),
+              f"{name} {(M, K, N)} w{wbits}: differs from plain")
+        rows.append((name, lib, ref, caller(ops, extra)))
+    return rows
+
+
+def _packed_argtypes(lib):
+    from repro_torch.kernels.fused_fqt import _QLHS_PACKED_ARGTYPES
+    from repro_torch.kernels.q4_matmul import _ARGTYPES
+    return _QLHS_PACKED_ARGTYPES if lib == "fused_qlhs_packed" else _ARGTYPES
 
 
 if __name__ == "__main__":

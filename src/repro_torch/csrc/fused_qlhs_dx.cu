@@ -7,7 +7,7 @@
 // fused_fqt_dx.  The kernel is fused_qlhs_gemm.cuh's, with B K-major; the
 // int8 forward of the same Pallas kernel is fused_qlhs_fwd.cu (the same
 // template, B N-major), and the packed forward (fused_qlhs_packed_matmul)
-// stays in fused_qlhs.cu.
+// fused_qlhs_packed.cu (B bit-packed).
 //
 // What it computes, per output (i, j), with B the (N, K) = (d_in, d_out)
 // weight codes read as their transpose (K is the contiguous axis):
@@ -67,7 +67,7 @@ using namespace fused_qlhs_gemm;
 
 // 32 x 512 outputs, 16 warps of 32 x 32, 3 stages of 64 codes, B K-major,
 // mma.sync, one block an SM
-struct DxTile : Tile<32, 512, 64, 1, 16, 3, true, 1> {};
+struct DxTile : Tile<32, 512, 64, 1, 16, 3, BKMajor, 1> {};
 
 }  // namespace
 
@@ -80,7 +80,8 @@ extern "C" void fused_qlhs_dx_tile(int* cfg) { tile_config<DxTile>(cfg); }
 // bits or deterministic (minus the CUDA error on failure): what
 // kernels/splitk.py plans with.
 extern "C" int fused_qlhs_dx_capacity(int sr, int cluster) {
-  return capacity<DxTile>(sr, cluster);
+  return sr ? capacity<DxTile, true>(cluster)
+            : capacity<DxTile, false>(cluster);
 }
 
 // C interface, loaded with ctypes.  rbits: (M, K) int64 SR bits, or
@@ -96,7 +97,11 @@ extern "C" int fused_qlhs_dx(const float* xf, const float* scale_a,
                              int k_span, void* stream) {
   if (!valid_split<DxTile>(K, splits, k_span))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch<DxTile>(xf, scale_a, zero_a, rbits, y8, alpha_b, beta_b, u,
-                        out, M, N, K, bits, splits, k_span,
-                        static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return rbits ? launch<DxTile, true>(xf, scale_a, zero_a, rbits, y8,
+                                      alpha_b, beta_b, u, out, M, N, K, bits,
+                                      splits, k_span, s)
+               : launch<DxTile, false>(xf, scale_a, zero_a, rbits, y8,
+                                       alpha_b, beta_b, u, out, M, N, K,
+                                       bits, splits, k_span, s);
 }

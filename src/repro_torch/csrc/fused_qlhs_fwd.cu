@@ -11,8 +11,9 @@
 // template with B K-major), with B N-major: each stage of weight codes
 // lands as stored and is transposed in shared memory 4 x 4 bytes a thread
 // (int8_mma.cuh transpose_b), as q8_matmul.cu's N-major B is.  The packed
-// forward (fused_qlhs_packed_matmul) stays in fused_qlhs.cu; at 8 bits it
-// equals this kernel bit for bit (the sums are exact either way).
+// forward (fused_qlhs_packed_matmul) is the same template with B packed
+// (fused_qlhs_packed.cu); at 8 bits it equals this kernel bit for bit (the
+// sums are exact either way).
 //
 // What bounds it on an H100: at decode (M = 1..16 slots) the K x N weight
 // bytes, read once: 16.8 MB at the MLP up-projection (2048, 8192), 5.0 us
@@ -48,8 +49,8 @@ namespace {
 
 using namespace fused_qlhs_gemm;
 
-struct DecodeTile : Tile<16, 256, 64, 1, 8, 4, false, 2> {};   // tile 0
-struct WideTile : Tile<64, 256, 64, 2, 8, 3, false, 1> {};     // tile 1
+struct DecodeTile : Tile<16, 256, 64, 1, 8, 4, BNMajor, 2> {};   // tile 0
+struct WideTile : Tile<64, 256, 64, 2, 8, 3, BNMajor, 1> {};     // tile 1
 
 }  // namespace
 
@@ -72,9 +73,14 @@ extern "C" void fused_qlhs_fwd_tile(int mode, int* cfg) {
 // `cluster` (1..8), with that mode's rounding (minus the CUDA error on
 // failure): what kernels/splitk.py plans with.
 extern "C" int fused_qlhs_fwd_capacity(int mode, int cluster) {
+  const bool sr = mode & 1;
   switch (mode >> 1) {
-    case 0: return capacity<DecodeTile>(mode & 1, cluster);
-    case 1: return capacity<WideTile>(mode & 1, cluster);
+    case 0:
+      return sr ? capacity<DecodeTile, true>(cluster)
+                : capacity<DecodeTile, false>(cluster);
+    case 1:
+      return sr ? capacity<WideTile, true>(cluster)
+                : capacity<WideTile, false>(cluster);
   }
   return -static_cast<int>(cudaErrorInvalidValue);
 }
@@ -95,17 +101,18 @@ extern "C" int fused_qlhs_fwd(const float* xf, const float* scale_a,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((mode & 1) != (rbits != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+#define FWD_LAUNCH(T)                                                       \
+  if (!valid_split<T>(K, splits, k_span)) break;                            \
+  return rbits ? launch<T, true>(xf, scale_a, zero_a, rbits, y8, alpha_b,   \
+                                 beta_b, u, out, M, N, K, bits, splits,     \
+                                 k_span, s)                                 \
+               : launch<T, false>(xf, scale_a, zero_a, rbits, y8, alpha_b,  \
+                                  beta_b, u, out, M, N, K, bits, splits,    \
+                                  k_span, s);
   switch (mode >> 1) {
-    case 0:
-      if (!valid_split<DecodeTile>(K, splits, k_span)) break;
-      return launch<DecodeTile>(xf, scale_a, zero_a, rbits, y8, alpha_b,
-                                beta_b, u, out, M, N, K, bits, splits,
-                                k_span, s);
-    case 1:
-      if (!valid_split<WideTile>(K, splits, k_span)) break;
-      return launch<WideTile>(xf, scale_a, zero_a, rbits, y8, alpha_b,
-                              beta_b, u, out, M, N, K, bits, splits, k_span,
-                              s);
+    case 0: FWD_LAUNCH(DecodeTile)
+    case 1: FWD_LAUNCH(WideTile)
   }
+#undef FWD_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,14 +1,21 @@
 // The fused-quantize LHS GEMM on the int8 tensor-core tile (int8_mma.cuh):
 // out = Q(xf) @ B-hat, with the per-row quantize of the f32 LHS done in
-// the K sweep, so no int8 codes of it reach device memory.  Two entries
-// instantiate it:
-//   fused_qlhs_dx.cu   dX = Q_b2(dY) @ Q_theta(W).T: B the (N, K) =
-//                      (d_in, d_out) weight codes read as their transpose,
-//                      K-major, straight from cp.async into the tile;
-//   fused_qlhs_fwd.cu  the int8 forward Q_f(X) @ Q_theta(W): B the (K, N)
-//                      weight codes, N-major, landing as stored in a raw
-//                      stage and transposed in shared memory
-//                      (int8_mma.cuh transpose_b).
+// the K sweep, so no int8 codes of it reach device memory.  Three entries
+// instantiate it, one B layout each:
+//   fused_qlhs_dx.cu      dX = Q_b2(dY) @ Q_theta(W).T: B the (N, K) =
+//                         (d_in, d_out) weight codes read as their
+//                         transpose, K-major, straight from cp.async into
+//                         the tile;
+//   fused_qlhs_fwd.cu     the int8 forward Q_f(X) @ Q_theta(W): B the
+//                         (K, N) weight codes, N-major, landing as stored
+//                         in a raw stage and transposed in shared memory
+//                         (int8_mma.cuh transpose_b);
+//   fused_qlhs_packed.cu  the packed forward Q_f(X) @ W-hat: B the weight
+//                         codes bit-packed at 1, 2, 4 or 8 bits along K,
+//                         landing as stored and unpacked in shared memory
+//                         (int8_mma.cuh unpack_b).
+// packed_matmul.cu runs the same tiles and B stages with an int8 LHS
+// (load_b, b_tile).
 //
 // What it computes, per output (i, j):
 //   t_ik   = scale_i * (x_ik - zero_i)
@@ -28,11 +35,13 @@
 //
 // A block owns one (M tile, N tile, K slice).  Each step of BK codes:
 //   * a ring of STAGES cp.async stages brings the f32 LHS rows, their SR
-//     bits and the B codes; each thread's source rows are resolved once;
+//     bits and the B codes (packed B: its bytes); each thread's source
+//     rows are resolved once;
 //   * the block quantizes its BM x BK LHS tile from shared memory, one
 //     quad a thread, always the same rows, so each thread keeps its rows'
 //     code sums in registers, into a K-major code tile;
-//   * the warps run mma.sync on it;
+//   * an N-major or packed B stage becomes the K-major B tile;
+//   * the warps run mma.sync on them;
 // then split-K in clusters (kernels/splitk.py) sums the slices' int32
 // tiles and row code sums exactly, and the epilogue's vectors, read into
 // shared memory while the first stages are in flight, turn them into
@@ -52,21 +61,47 @@ namespace fused_qlhs_gemm {
 
 using namespace int8_mma;
 
+// How B lies in device memory:
+//   BKMajor     int8 codes stored (N, K) row-major: a stage's chunks go
+//               straight into the swizzled tile;
+//   BNMajor     int8 codes stored (K, N) row-major: a raw stage as stored,
+//               transposed into the tile (transpose_b);
+//   BPacked<W>  unsigned codes bit-packed at W in {1, 2, 4, 8} bits along
+//               K (kernels/pack.py: (ceil(K / ppb), N) bytes, ppb = 8 / W):
+//               a raw stage of BK / ppb byte rows as stored, unpacked into
+//               the tile (unpack_b).
+// Elem is the type of B's elements as the C entry receives them.
+struct BKMajor {
+  using Elem = int8_t;
+  static constexpr bool KMAJOR = true;
+  static constexpr int WBITS = 0, PPB = 1;
+};
+struct BNMajor {
+  using Elem = int8_t;
+  static constexpr bool KMAJOR = false;
+  static constexpr int WBITS = 0, PPB = 1;
+};
+template <int W>
+struct BPacked {
+  using Elem = uint8_t;
+  static constexpr bool KMAJOR = false;
+  static constexpr int WBITS = W, PPB = 8 / W;
+};
+
 // A block tile: BM x BN outputs, K steps of BK codes, WARPS_M x WARPS_N
-// warps, STAGES cp.async stages; B K-major (stored (N, K)) or N-major
-// (stored (K, N)); MIN_BLOCKS blocks an SM for __launch_bounds__.  A
-// library declares each of its tiles as its own struct deriving from Tile
-// in an anonymous namespace, so that the kernels and launch_clustered's
-// statics it instantiates stay its own (the dynamic linker unifies those
-// of a shared Tile<...> across libraries).
+// warps, STAGES cp.async stages; B laid out as B_ says; MIN_BLOCKS blocks
+// an SM for __launch_bounds__.  A library declares each of its tiles as
+// its own struct deriving from Tile in an anonymous namespace, so that the
+// kernels and launch_clustered's statics it instantiates stay its own (the
+// dynamic linker unifies those of a shared Tile<...> across libraries).
 template <int BM_, int BN_, int BK_, int WARPS_M_, int WARPS_N_,
-          int STAGES_, bool B_KMAJOR_, int MIN_BLOCKS_>
+          int STAGES_, class B_, int MIN_BLOCKS_>
 struct Tile {
+  using B = B_;
   static constexpr int BM = BM_, BN = BN_, BK = BK_;
   static constexpr int WARPS_M = WARPS_M_, WARPS_N = WARPS_N_;
   static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
   static constexpr int STAGES = STAGES_;
-  static constexpr bool B_KMAJOR = B_KMAJOR_;
   static constexpr int MIN_BLOCKS = MIN_BLOCKS_;
   static constexpr int CH = BK / 16;       // 16-byte chunks a code-tile row
   static constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;   // warp tile
@@ -76,21 +111,28 @@ struct Tile {
   static constexpr int QPT = BM * KQ / THREADS;   // quads a thread a step
   static constexpr int X_BYTES = BM * BK * 4;     // f32 LHS, [BM][BK]
   static constexpr int R_BYTES = BM * BK * 8;     // int64 SR bits, [BM][BK]
-  static constexpr int B_BYTES = BN * BK;         // B codes (swizzled or raw)
-  static constexpr int A_BYTES = BM * BK;         // the quantized codes
+  static constexpr int A_BYTES = BM * BK;         // the LHS codes
+  // B a stage (swizzled K-major codes, or raw rows as stored) and the
+  // K-major B tile an N-major or packed stage becomes
+  static constexpr int B_BYTES = BN * BK / B::PPB;
+  static constexpr int BT_BYTES = B::KMAJOR ? 0 : BN * BK;
   static constexpr int LDT = BN + 8;              // accumulator tile row
   static constexpr int PART_BYTES = BM * LDT * 4;
   // chunks a thread loads each stage: LHS (4 floats), SR bits (2 int64)
   // and K-major B codes (16) a chunk
   static constexpr int XC = BM * BK / 4 / THREADS;
   static constexpr int RC = BM * BK / 2 / THREADS;
-  static constexpr int BC = B_KMAJOR ? BN * CH / THREADS : 1;
-  static_assert(QPT >= 1 && BM * KQ % THREADS == 0 && THREADS % KQ == 0,
+  static constexpr int BC = B::KMAJOR ? BN * CH / THREADS : 1;
+  // a row's quads lie in one warp, whose lanes reduce its code sums
+  static_assert(QPT >= 1 && BM * KQ % THREADS == 0 && THREADS % KQ == 0 &&
+                    KQ <= 32,
                 "quantize mapping");
   static_assert(XC >= 1 && XC * THREADS == BM * BK / 4 &&
                 RC * THREADS == BM * BK / 2 &&
-                (!B_KMAJOR || BC * THREADS == BN * CH),
+                (!B::KMAJOR || BC * THREADS == BN * CH),
                 "whole chunks a thread");
+  // a packed stage holds whole bytes of every column
+  static_assert(BK % 32 == 0 && BK % (4 * B::PPB) == 0, "BK");
 
   __host__ __device__ static constexpr int stage_bytes(bool sr) {
     return X_BYTES + (sr ? R_BYTES : 0) + B_BYTES;
@@ -100,9 +142,9 @@ struct Tile {
     return STAGES * stage_bytes(sr) > PART_BYTES ? STAGES * stage_bytes(sr)
                                                  : PART_BYTES;
   }
-  // the ring, the quantized code tile and, N-major, the transposed B
+  // the ring, the quantized code tile and the K-major B tile
   __host__ __device__ static constexpr int smem_bytes(bool sr) {
-    return ring_bytes(sr) + A_BYTES + (B_KMAJOR ? 0 : B_BYTES);
+    return ring_bytes(sr) + A_BYTES + BT_BYTES;
   }
 };
 
@@ -131,7 +173,7 @@ __device__ __forceinline__ Sources<T> sources(const float* xf,
     const int m = m0 + (t + T::THREADS * i) / (T::BK / 2);
     s.r[i] = row_src(rbits, m, SR ? 8 * K : 0, SR && m < M);
   }
-  if constexpr (T::B_KMAJOR) {
+  if constexpr (T::B::KMAJOR) {
 #pragma unroll
     for (int i = 0; i < T::BC; ++i) {
       const int n = n0 + (t + T::THREADS * i) / T::CH;
@@ -139,6 +181,45 @@ __device__ __forceinline__ Sources<T> sources(const float* xf,
     }
   }
   return s;
+}
+
+// B's part of the stage of K codes k0 .. k0 + BK - 1 into bs.
+template <class T>
+__device__ __forceinline__ void load_b(uint8_t* bs, const RowSrc* sb,
+                                       const uint8_t* y8, int N, int K,
+                                       int n0, int k0, int t) {
+  if constexpr (T::B::KMAJOR) {
+    // B stored (N, K): BN rows x CH chunks, into the swizzled tile
+#pragma unroll
+    for (int i = 0; i < T::BC; ++i) {
+      const int id = t + T::THREADS * i, r = id / T::CH, c = id % T::CH;
+      load_row_chunk(bs + swz<T::CH>(r, c), sb[i], k0 + 16 * c);
+    }
+  } else {
+    // B stored (K, N), or its (ceil(K / ppb), N) packed bytes: BK / ppb
+    // rows of BN bytes, as stored
+    constexpr int PPB = T::B::PPB;
+    load_b_raw<T::BK / PPB, T::BN, T::THREADS>(bs, y8, N, (K + PPB - 1) / PPB,
+                                              n0, k0 / PPB, t);
+  }
+}
+
+// The K-major B tile of the stage of K codes from k0 whose B part is bs:
+// bs itself (K-major), or bt after transposing (N-major) or unpacking
+// (packed) bs into it.  The caller's barrier comes after.
+template <class T>
+__device__ __forceinline__ const uint8_t* b_tile(uint8_t* bt,
+                                                 const uint8_t* bs, int k0,
+                                                 int K, int t) {
+  if constexpr (T::B::KMAJOR) {
+    return bs;
+  } else if constexpr (T::B::WBITS == 0) {
+    transpose_b<T::BK, T::BN, T::THREADS>(bt, bs, t);
+    return bt;
+  } else {
+    unpack_b<T::B::WBITS, T::BK, T::BN, T::THREADS>(bt, bs, k0, K, t);
+    return bt;
+  }
 }
 
 template <class T, bool SR>
@@ -162,18 +243,7 @@ __device__ __forceinline__ void load_stage(uint8_t* st, const Sources<T>& s,
                      8 * (k0 + 2 * c));
     }
   }
-  uint8_t* bs = st + T::stage_bytes(SR) - T::B_BYTES;
-  if constexpr (T::B_KMAJOR) {
-    // B stored (N, K): BN rows x CH chunks, into the swizzled tile
-#pragma unroll
-    for (int i = 0; i < T::BC; ++i) {
-      const int id = t + T::THREADS * i, r = id / T::CH, c = id % T::CH;
-      load_row_chunk(bs + swz<T::CH>(r, c), s.b[i], k0 + 16 * c);
-    }
-  } else {
-    // B stored (K, N): BK rows of BN codes, as stored
-    load_b_raw<BK, T::BN, T::THREADS>(bs, y8, N, K, n0, k0, t);
-  }
+  load_b<T>(st + T::stage_bytes(SR) - T::B_BYTES, s.b, y8, N, K, n0, k0, t);
 }
 
 template <class T, bool SR, int SPLITS>
@@ -203,7 +273,7 @@ qlhs_kernel(const float* __restrict__ xf, const float* __restrict__ sa,
   const float off = static_cast<float>(1 << (bits - 1));
   const int sub = quant_sub(bits);
   uint8_t* ac = smem + T::ring_bytes(SR);      // the quantized code tile
-  uint8_t* bt = ac + T::A_BYTES;               // N-major: transposed B
+  uint8_t* bt = ac + T::A_BYTES;               // the K-major B tile
   const int wm = warp / T::WARPS_N, wn = warp % T::WARPS_N;
 
   int acc[T::NACC];
@@ -284,11 +354,8 @@ qlhs_kernel(const float* __restrict__ xf, const float* __restrict__ sa,
       *reinterpret_cast<unsigned*>(ac + swz<CH>(r, kq >> 2) + 4 * (kq & 3)) =
           pack4(c[0], c[1], c[2], c[3]);
     }
-    const uint8_t* bs = st + SB - T::B_BYTES;
-    if constexpr (!T::B_KMAJOR) {
-      transpose_b<BK, BN, THREADS>(bt, bs, t);
-      bs = bt;
-    }
+    const uint8_t* bs =
+        b_tile<T>(bt, st + SB - T::B_BYTES, k_beg + kk * BK, K, t);
     __syncthreads();
 #pragma unroll
     for (int kc = 0; kc < BK / 32; ++kc)
@@ -329,10 +396,10 @@ qlhs_kernel(const float* __restrict__ xf, const float* __restrict__ sa,
 }
 
 template <class T, bool SR, int SPLITS>
-int launch(const float* xf, const float* sa, const float* za,
-           const long long* rbits, const int8_t* y8, const float* ab,
-           const float* bb, const float* u, float* out, int M, int N, int K,
-           int bits, int k_span, cudaStream_t s) {
+int launch_split(const float* xf, const float* sa, const float* za,
+                 const long long* rbits, const typename T::B::Elem* y8,
+                 const float* ab, const float* bb, const float* u, float* out,
+                 int M, int N, int K, int bits, int k_span, cudaStream_t s) {
   const int tiles = ((M + T::BM - 1) / T::BM) * ((N + T::BN - 1) / T::BN);
   return launch_clustered<qlhs_kernel<T, SR, SPLITS>>(
       tiles * SPLITS, T::THREADS, T::smem_bytes(SR), SPLITS, s, xf, sa, za,
@@ -341,18 +408,18 @@ int launch(const float* xf, const float* sa, const float* za,
 }
 
 // One launch of tile T with `splits` K slices of k_span codes (the C
-// entries check both), SR when rbits is not null; returns the CUDA error.
-template <class T>
+// entries check both), with SR bits (rbits) or deterministic (rbits
+// ignored); returns the CUDA error.
+template <class T, bool SR>
 int launch(const float* xf, const float* sa, const float* za,
-           const long long* rbits, const int8_t* y8, const float* ab,
-           const float* bb, const float* u, float* out, int M, int N, int K,
-           int bits, int splits, int k_span, cudaStream_t s) {
+           const long long* rbits, const typename T::B::Elem* y8,
+           const float* ab, const float* bb, const float* u, float* out,
+           int M, int N, int K, int bits, int splits, int k_span,
+           cudaStream_t s) {
 #define QLHS_SPLIT(S)                                                       \
   case S:                                                                   \
-    return rbits ? launch<T, true, S>(xf, sa, za, rbits, y8, ab, bb, u, out, \
-                                      M, N, K, bits, k_span, s)             \
-                 : launch<T, false, S>(xf, sa, za, rbits, y8, ab, bb, u,    \
-                                       out, M, N, K, bits, k_span, s);
+    return launch_split<T, SR, S>(xf, sa, za, rbits, y8, ab, bb, u, out,   \
+                                  M, N, K, bits, k_span, s);
   switch (splits) {
     QLHS_SPLIT(1) QLHS_SPLIT(2) QLHS_SPLIT(3) QLHS_SPLIT(4)
     QLHS_SPLIT(5) QLHS_SPLIT(6) QLHS_SPLIT(7) QLHS_SPLIT(8)
@@ -372,12 +439,10 @@ void tile_config(int* cfg) {
 
 // Blocks of tile T the card runs at once in clusters of `cluster` (1..8),
 // with SR bits or deterministic (minus the CUDA error on failure).
-template <class T>
-int capacity(int sr, int cluster) {
-  return sr ? cluster_capacity<qlhs_kernel<T, true, 8>>(
-                  T::THREADS, T::smem_bytes(true), cluster)
-            : cluster_capacity<qlhs_kernel<T, false, 8>>(
-                  T::THREADS, T::smem_bytes(false), cluster);
+template <class T, bool SR>
+int capacity(int cluster) {
+  return cluster_capacity<qlhs_kernel<T, SR, 8>>(
+      T::THREADS, T::smem_bytes(SR), cluster);
 }
 
 // The checks of a C entry's split: 1..8 slices of k_span codes, a
@@ -389,3 +454,39 @@ bool valid_split(int K, int splits, int k_span) {
 }
 
 }  // namespace fused_qlhs_gemm
+
+// The packed GEMMs' tiles (fused_qlhs_packed.cu, packed_matmul.cu): the
+// int8 forward's two with B bit-packed at W bits.  Decode (M <= 16):
+// 16 x 256 outputs, 8 warps, a 4-stage ring of 64 codes; wide: 64 x 256,
+// 16 warps, 3 stages of 64 codes.  A decode K step that grows with ppb, so
+// that a stage moves as many packed bytes as at 8 bits, was no faster on
+// the card (PERF.md).  In an anonymous namespace, so each library gets its
+// own (see Tile).
+namespace {
+
+template <int W>
+struct PackedDecodeTile
+    : fused_qlhs_gemm::Tile<16, 256, 64, 1, 8, 4,
+                            fused_qlhs_gemm::BPacked<W>, 2> {};
+template <int W>
+struct PackedWideTile
+    : fused_qlhs_gemm::Tile<64, 256, 64, 2, 8, 3,
+                            fused_qlhs_gemm::BPacked<W>, 1> {};
+
+}  // namespace
+
+// A packed GEMM's mode names its tile and width, as kernels/splitk.py
+// does: 4 * tile + log2(wbits) (tile 0 decode, 1 wide; wbits 1, 2, 4, 8
+// -> 0..3).  PACKED_TILE_CASES(F) runs F(T) for the tile of `mode`; F
+// returns or breaks.
+#define PACKED_TILE_CASES(F)                                              \
+  switch (mode) {                                                         \
+    case 0: F(PackedDecodeTile<1>)                                        \
+    case 1: F(PackedDecodeTile<2>)                                        \
+    case 2: F(PackedDecodeTile<4>)                                        \
+    case 3: F(PackedDecodeTile<8>)                                        \
+    case 4: F(PackedWideTile<1>)                                          \
+    case 5: F(PackedWideTile<2>)                                          \
+    case 6: F(PackedWideTile<4>)                                          \
+    case 7: F(PackedWideTile<8>)                                          \
+  }

@@ -1,11 +1,10 @@
 // The int8 tensor-core GEMM tile shared by q8_matmul.cu (q8_matmul, both B
 // layouts), fused_qlhs_gemm.cuh (the fused-quantize LHS GEMM: the dX
-// entry fused_qlhs_dx.cu and the int8 forward fused_qlhs_fwd.cu) and
+// entry fused_qlhs_dx.cu, the int8 forward fused_qlhs_fwd.cu and the
+// packed forward fused_qlhs_packed.cu), packed_matmul.cu and
 // fused_qboth_tn.cu (dW): mma.sync m16n8k32 (s8 x s8 -> s32) on operands
 // that sit K-major in shared memory, a ring of cp.async stages, and split-K
-// reduced exactly inside a thread-block cluster.  The packed forward
-// (fused_qlhs.cu fused_qlhs_packed) and packed_matmul.cu stay on
-// gemm_tile.cuh's __dp4a tile.
+// reduced exactly inside a thread-block cluster.
 //
 // Why mma.sync and not wgmma: at the training shapes (M = 512 tokens) the
 // bound is bytes and latency, not the tensor cores (lm_head's 5.4 GOP take
@@ -21,7 +20,9 @@
 // mma.m16n8k32.row.col wants: four int8 K codes of one row a register.
 // An operand stored N-major (K rows of N codes: the weight codes of the
 // forward) lands as stored in a raw stage and is transposed 4 x 4 bytes at
-// a time in registers (transpose4x4, transpose_b) into that tile.
+// a time in registers (transpose4x4, transpose_b) into that tile; weights
+// bit-packed along K (kernels/pack.py) land as stored too, and unpack_b
+// turns each raw stage into the same tile.
 //
 // Split-K: a block owns one (M tile, N tile, K slice), and the slices of a
 // tile are one cluster of 1 to 8 blocks (kernels/splitk.py picks the
@@ -148,15 +149,21 @@ __device__ __forceinline__ int raw_off(int r, int c) {
 }
 
 // B stored (K, N) row-major: rows k0 .. k0 + BK - 1, columns n0 ..
-// n0 + BN - 1 into a raw stage as stored (codes outside the matrix 0).
+// n0 + BN - 1 into a raw stage as stored (bytes outside the matrix 0).
+// Packed weights ((ceil(K / ppb), N) bytes) load the same way, BK / ppb
+// byte rows a stage; a stage of fewer chunks than threads leaves the
+// last threads idle.
 template <int BK, int BN, int THREADS>
 __device__ __forceinline__ void load_b_raw(uint8_t* bs, const uint8_t* y,
                                            int N, int K, int n0, int k0,
                                            int t) {
-  static_assert(BK * (BN / 16) % THREADS == 0, "whole chunks a thread");
+  constexpr int CHUNKS = BK * (BN / 16);
+  static_assert(CHUNKS % THREADS == 0 || CHUNKS < THREADS,
+                "whole chunks a thread");
 #pragma unroll
-  for (int i = 0; i < BK * (BN / 16) / THREADS; ++i) {
+  for (int i = 0; i < (CHUNKS + THREADS - 1) / THREADS; ++i) {
     const int id = t + THREADS * i;
+    if (CHUNKS < THREADS && id >= CHUNKS) break;
     const int r = id / (BN / 16), c = id % (BN / 16);
     const int k = k0 + r, nn = n0 + 16 * c;
     const int n = k < K ? min(max(N - nn, 0), 16) : 0;
@@ -189,6 +196,78 @@ __device__ __forceinline__ void transpose_b(uint8_t* bt, const uint8_t* raw,
     for (int j = 0; j < 4; ++j)
       *reinterpret_cast<unsigned*>(bt + swz<CH>(4 * nq + j, kq >> 2) +
                                    4 * (kq & 3)) = w[j];
+  }
+}
+
+// A raw stage of weights bit-packed at WBITS in {1, 2, 4, 8}
+// (kernels/pack.py: unsigned code k of column n is bitfield WBITS * (k %
+// ppb) of byte (k / ppb, n), ppb = 8 / WBITS; 8 bits is the identity
+// pack), BK / ppb byte rows of BN columns as load_b_raw lands them, ->
+// the K-major swizzled tile of BN rows and BK shifted codes (code minus
+// 2^(WBITS-1), int8) that warp_mma_k32 reads.  A byte already holds ppb
+// consecutive K codes of one column, so a thread takes 4 columns x R byte
+// rows (R = 4 / ppb, at least 1): one word a row, whose bytes are the 4
+// columns; shifts and masks split each word into ppb words of one code
+// a column (byte q = column q), transpose4x4 turns each 4 of them into 4
+// K-major words (one a column), and a per-byte subtract shifts the codes
+// ((c | 0x80) - 2^(WBITS-1), then ^ 0x80: no borrow crosses a byte; at 8
+// bits the ^ 0x80 alone, u ^ 0x80 = u - 128 as int8).  Codes at k >= K
+// (the pack's padding, and rows past the matrix, which load as 0) become
+// 0, not the shifted zero, as the Pallas kernels mask them.  k0 is the
+// stage's first K index.  Consecutive threads take consecutive K groups
+// of one 4-column group, as transpose_b does.
+template <int WBITS, int BK, int BN, int THREADS>
+__device__ __forceinline__ void unpack_b(uint8_t* bt, const uint8_t* raw,
+                                         int k0, int K, int t) {
+  static_assert(WBITS == 1 || WBITS == 2 || WBITS == 4 || WBITS == 8,
+                "WBITS");
+  constexpr int PPB = 8 / WBITS;
+  constexpr int CH = BK / 16;
+  constexpr int R = PPB >= 4 ? 1 : 4 / PPB;   // byte rows a unit
+  constexpr int KW = R * PPB / 4;             // K words a column a unit
+  constexpr int UK = BK / (4 * KW);           // units along K
+  constexpr int UNITS = UK * (BN / 4);
+  constexpr unsigned FIELD = ((1u << WBITS) - 1u) * 0x01010101u;
+  constexpr unsigned SHIFT = (1u << (WBITS - 1)) * 0x01010101u;
+  static_assert(BK % (4 * KW) == 0 && UNITS % THREADS == 0,
+                "whole units a thread");
+#pragma unroll
+  for (int i = 0; i < UNITS / THREADS; ++i) {
+    const int id = t + THREADS * i;
+    const int uk = id % UK;                   // unit along K
+    const int nq = id / UK;                   // 4-column group of n
+    unsigned r[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      r[j] = *reinterpret_cast<const unsigned*>(
+          raw + raw_off<BN>(R * uk + j, nq >> 2) + 4 * (nq & 3));
+    // f[q]: the code of K index 4 KW uk + q of each of the 4 columns
+    unsigned f[4 * KW];
+#pragma unroll
+    for (int q = 0; q < 4 * KW; ++q) {
+      if constexpr (WBITS == 8)
+        f[q] = r[q];
+      else
+        f[q] = (r[q / PPB] >> (WBITS * (q % PPB))) & FIELD;
+    }
+#pragma unroll
+    for (int g = 0; g < KW; ++g) {
+      unsigned w[4];
+      transpose4x4(f + 4 * g, w);
+      const int kw = KW * uk + g;             // word of 4 codes along K
+      const int kk = k0 + 4 * kw;
+      const unsigned keep =
+          kk + 4 <= K ? 0xffffffffu
+                      : (kk >= K ? 0u : (1u << (8 * (K - kk))) - 1u);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const unsigned c =
+            WBITS == 8 ? w[j] ^ 0x80808080u
+                       : ((w[j] | 0x80808080u) - SHIFT) ^ 0x80808080u;
+        *reinterpret_cast<unsigned*>(bt + swz<CH>(4 * nq + j, kw >> 2) +
+                                     4 * (kw & 3)) = c & keep;
+      }
+    }
   }
 }
 

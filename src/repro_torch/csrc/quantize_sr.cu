@@ -18,7 +18,8 @@
 // draws them, uint32 values held in int64; the kernels read each entry's
 // low 32 bits as unsigned (modulo 2^32: values >= 2^31 never saturate) and
 // convert with round-to-nearest (__uint2float_rn), as the plain cast does,
-// the same rule as csrc/fused_qlhs.cu.
+// the same rule as the fused kernels' quantize (int8_mma.cuh
+// quantize_code, which dX and dW run).
 //
 // What bounds them on an H100: device memory.  Each element reads 4 bytes
 // of x and 8 of SR bits and writes 1 code byte; the statquant-tx lm_head

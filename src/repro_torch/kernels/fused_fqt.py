@@ -14,11 +14,13 @@ it, used on CPU tensors.
     ``rbits``): ``csrc/fused_qlhs_dx.cu``.  Both instantiate
     ``csrc/fused_qlhs_gemm.cuh`` on the int8 tensor cores, with K split by
     ``kernels/splitk.py``.
-``fused_qlhs_packed_matmul`` (Pallas ``_qlhs_packed_kernel``, the
-    ``fused_qlhs_packed`` entry of ``csrc/fused_qlhs.cu``)
+``fused_qlhs_packed_matmul`` (Pallas ``_qlhs_packed_kernel``,
+    ``csrc/fused_qlhs_packed.cu``)
     the forward ``Q_f(X) @ W-hat`` against weights bit-packed at 1, 2, 4
-    or 8 bits (``kernels/pack.py``), unpacked in the K sweep; the
-    quantize and epilogue are the forward's, so at 8 bits it equals
+    or 8 bits (``kernels/pack.py``), unpacked into the tensor-core tile in
+    the K sweep: ``csrc/fused_qlhs_gemm.cuh`` with B packed, on the
+    forward's decode and wide tiles, K split by ``kernels/splitk.py``.
+    The quantize and epilogue are the forward's, so at 8 bits it equals
     ``fused_qlhs_matmul`` on the same codes bit for bit.
 ``fused_qboth_tn_matmul`` (Pallas ``_qboth_tn_kernel``,
     ``csrc/fused_qboth_tn.cu``)
@@ -67,8 +69,8 @@ _QLHS_FWD_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 7
 _QLHS_DX_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6
                      + (ctypes.c_void_p,))
 # xf, scale_a, zero_a, packed, alpha_b, beta_b, u, out, M, N, K, bits,
-# wbits, stream
-_QLHS_PACKED_ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 5
+# mode, splits, k_span, stream
+_QLHS_PACKED_ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 7
                          + (ctypes.c_void_p,))
 # af, scale_a, zero_a, bf, scale_b, zero_b, rbits, a_vec, out, M, N, K,
 # bits_a, bits_b, splits, k_span, stream
@@ -247,8 +249,9 @@ def fused_qlhs_packed_matmul(xf: torch.Tensor, scale_a: torch.Tensor,
     Raises above ``max_safe_k_packed(bits, wbits)``.  Returns (M, N) f32.
 
     On a CUDA tensor this launches the kernel (counted in
-    ``fused_qlhs_packed_matmul.launches``); on a CPU tensor it runs the
-    plain version."""
+    ``fused_qlhs_packed_matmul.launches``): one device launch, whatever the
+    tile and split of K (``kernels/splitk.py``).  On a CPU tensor it runs
+    the plain version."""
     name = "fused_qlhs_packed_matmul"
     _check_qlhs_packed(name, xf, packed, bits, wbits)
     if xf.device.type == "cpu":
@@ -266,12 +269,14 @@ def fused_qlhs_packed_matmul(xf: torch.Tensor, scale_a: torch.Tensor,
     check_tensor(name, "beta_b", beta_b, torch.float32, (), dev)
     check_tensor(name, "u_vec", u_vec, torch.float32, (N,), dev)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
-    fn = load_function("fused_qlhs", "fused_qlhs_packed",
-                       _QLHS_PACKED_ARGTYPES)
+    lib = "fused_qlhs_packed"
+    p = splitk.plan(splitk.on_card(splitk.packed_tile(lib, M, wbits)), M, N,
+                    K)
+    fn = load_function(lib, lib, _QLHS_PACKED_ARGTYPES)
     err = fn(xf.data_ptr(), scale_a.data_ptr(), zero_a.data_ptr(),
              packed.data_ptr(), alpha_b.data_ptr(), beta_b.data_ptr(),
-             u_vec.data_ptr(), out.data_ptr(), M, N, K, bits, wbits,
-             torch.cuda.current_stream(dev).cuda_stream)
+             u_vec.data_ptr(), out.data_ptr(), M, N, K, bits, p.tile.mode,
+             p.splits, p.k_span, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err} at (M, K, N) = ({M}, {K}, {N}), "

@@ -4,8 +4,10 @@ Port of ``repro.kernels.q4_matmul``: ``q8_matmul`` with the weight operand
 kept bit-packed (``kernels/pack.py`` layout, ``ppb = 8 // wbits`` codes a
 byte along K) and unpacked inside the kernel's K sweep, so the packed bytes
 are all a GEMM streams.  The hand-written CUDA kernel
-``csrc/packed_matmul.cu`` runs on the card and :func:`packed_matmul_plain`,
-the same arithmetic in PyTorch, on the CPU.  The epilogue is ``q8_matmul``'s
+``csrc/packed_matmul.cu`` runs on the card (the int8 tensor-core tile of
+``csrc/int8_mma.cuh`` with the packed forward's tiles and packed-B stage,
+K split by ``kernels/splitk.py``) and :func:`packed_matmul_plain`, the
+same arithmetic in PyTorch, on the CPU.  The epilogue is ``q8_matmul``'s
 term for term,
 
     out[i,j] = acc[i,j]*(rs_i*cs_j) + r2_i*u_j + a_i + b_j
@@ -24,14 +26,17 @@ import ctypes
 
 import torch
 
+from . import splitk
 from .build import load_function
 from .checks import check_bits, check_tensor
 from .pack import codes_per_byte, max_safe_k_packed, unpack_tile
+from .q8_matmul import q8_epilogue
 
 __all__ = ["packed_matmul", "packed_matmul_plain"]
 
-# x8, packed, rs, cs, r2, u, a, b, out, M, N, K, wbits, stream
-_ARGTYPES = (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
+# x8, packed, rs, cs, r2, u, a, b, out, M, N, K, mode, splits, k_span,
+# stream
+_ARGTYPES = (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
 
 
 def _check_packed_gemm(name: str, x8, packed, wbits: int, kdim: int) -> int:
@@ -59,9 +64,8 @@ def packed_matmul_plain(x8, packed, rs, cs, r2, u, a, b, *, wbits: int,
     """Plain PyTorch version of :func:`packed_matmul`."""
     _check_packed_gemm("packed_matmul_plain", x8, packed, wbits, kdim)
     w = unpack_tile(packed, wbits)[:kdim] - (1 << (wbits - 1))
-    acc = (x8.to(torch.float64) @ w.to(torch.float64)).to(torch.float32)
-    return (acc * (rs[:, None] * cs[None, :]) + r2[:, None] * u[None, :]
-            + a[:, None] + b[None, :])
+    return q8_epilogue(x8.to(torch.float64) @ w.to(torch.float64), rs, cs,
+                       r2, u, a, b)
 
 
 def packed_matmul(x8: torch.Tensor, packed: torch.Tensor, rs: torch.Tensor,
@@ -75,7 +79,8 @@ def packed_matmul(x8: torch.Tensor, packed: torch.Tensor, rs: torch.Tensor,
     contiguous.  Raises above ``max_safe_k_packed(8, wbits)``.
 
     On a CUDA tensor this launches the kernel (counted in
-    ``packed_matmul.launches``); on a CPU tensor it runs the plain
+    ``packed_matmul.launches``): one device launch, whatever the tile and
+    split of K (``kernels/splitk.py``).  On a CPU tensor it runs the plain
     version."""
     _check_packed_gemm("packed_matmul", x8, packed, wbits, kdim)
     if x8.device.type == "cpu":
@@ -91,10 +96,12 @@ def packed_matmul(x8: torch.Tensor, packed: torch.Tensor, rs: torch.Tensor,
                         ("u", u, N), ("a", a, M), ("b", b, N)):
         check_tensor(name, vname, v, torch.float32, (n,), dev)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
-    fn = load_function("packed_matmul", "packed_matmul", _ARGTYPES)
+    p = splitk.plan(splitk.on_card(splitk.packed_tile(name, M, wbits)), M,
+                    N, kdim)
+    fn = load_function(name, name, _ARGTYPES)
     err = fn(x8.data_ptr(), packed.data_ptr(), rs.data_ptr(), cs.data_ptr(),
              r2.data_ptr(), u.data_ptr(), a.data_ptr(), b.data_ptr(),
-             out.data_ptr(), M, N, kdim, wbits,
+             out.data_ptr(), M, N, kdim, p.tile.mode, p.splits, p.k_span,
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"packed_matmul: kernel launch failed with CUDA "

@@ -1,17 +1,19 @@
 """Split-K plans for the int8 tensor-core kernels (``csrc/int8_mma.cuh``).
 
 ``q8_matmul``, both entries of ``fused_qlhs_matmul`` (the forward
-``csrc/fused_qlhs_fwd.cu`` and dX ``csrc/fused_qlhs_dx.cu``) and
-``fused_qboth_tn_matmul`` (dW) give each block one (M tile, N tile, K
-slice).  Where there are too few output tiles to fill the H100's 132 SMs
-(lm_head's (512, 10240, 512) has 16 to 32; a decode GEMM at 8 slots has
-one row of tiles), K is cut into slices.  The slices of one tile run as
-one thread-block cluster, which sums their int32 partials exactly in
-distributed shared memory and applies the epilogue once: so a tile has 1
-to 8 slices (8 is the largest portable cluster), and no workspace is
-needed.  The plan is a pure function of the kernel's tile and (M, N, K),
-cached per shape, so the CPU tests can check it and the wrappers hand it
-to the kernel as ``(splits, k_span)``.
+``csrc/fused_qlhs_fwd.cu`` and dX ``csrc/fused_qlhs_dx.cu``),
+``fused_qboth_tn_matmul`` (dW) and the two packed-weight GEMMs
+(``fused_qlhs_packed_matmul``, ``csrc/fused_qlhs_packed.cu``, and
+``packed_matmul``, ``csrc/packed_matmul.cu``) give each block one (M
+tile, N tile, K slice).  Where there are too few output tiles to fill the
+H100's 132 SMs (lm_head's (512, 10240, 512) has 16 to 32; a decode GEMM at
+8 slots has one row of tiles), K is cut into slices.  The slices of one
+tile run as one thread-block cluster, which sums their int32 partials
+exactly in distributed shared memory and applies the epilogue once: so a
+tile has 1 to 8 slices (8 is the largest portable cluster), and no
+workspace is needed.  The plan is a pure function of the kernel's tile
+and (M, N, K), cached per shape, so the CPU tests can check it and the
+wrappers hand it to the kernel as ``(splits, k_span)``.
 
 A plan's slices are consecutive, non-empty, and ``k_span`` long (a
 multiple of the tile's K step ``bk``) except the last, which ends at K.
@@ -39,7 +41,8 @@ import math
 
 __all__ = ["SMS", "Tile", "SplitPlan", "Q8_TILE", "DX_TILE", "DW_TILE",
            "FWD_DECODE_TILE", "FWD_DECODE_SR_TILE", "FWD_WIDE_TILE",
-           "FWD_WIDE_SR_TILE", "fwd_tile", "on_card", "plan"]
+           "FWD_WIDE_SR_TILE", "PACKED_LIBS", "PACKED_TILES", "fwd_tile",
+           "packed_tile", "on_card", "plan"]
 
 SMS = 132                       # streaming multiprocessors of an H100 SXM
 
@@ -51,7 +54,8 @@ class Tile:
     name: str
     lib: str                    # the library (csrc/<lib>.cu) that runs it
     mode: int                   # first argument of <lib>_capacity (and of
-    #                             fused_qlhs_fwd: 2 * tile id + SR)
+    #                             fused_qlhs_fwd: 2 * tile id + SR; of the
+    #                             packed GEMMs: 4 * tile id + log2(wbits))
     bm: int                     # output rows a block
     bn: int                     # output columns a block
     bk: int                     # K codes a pipeline stage
@@ -88,6 +92,31 @@ FWD_WIDE_TILE = Tile("fused_qlhs_fwd wide", "fused_qlhs_fwd", 2, bm=64,
                      capacity=(132, 132, 117, 120, 110, 102, 105, 120))
 FWD_WIDE_SR_TILE = dataclasses.replace(
     FWD_WIDE_TILE, name="fused_qlhs_fwd wide SR", mode=3)
+
+
+# csrc/fused_qlhs_packed.cu and csrc/packed_matmul.cu (tiles in
+# csrc/fused_qlhs_gemm.cuh): the int8 forward's two tiles with B bit-packed
+# at wbits, one tile per width: decode (M <= 16) 16 x 256, 8 warps, 4
+# stages of 64 codes (steps of 128 and 256 were swept on the card and were
+# no faster), wide 64 x 256, 16 warps, 3 stages of 64 codes.  The card
+# reported the same capacity at every width and in both libraries: two
+# blocks an SM for the decode tile (registers), one for the wide tile.
+PACKED_LIBS = ("fused_qlhs_packed", "packed_matmul")
+PACKED_TILES = {
+    (lib, tile, w): Tile(
+        f"{lib} {('decode', 'wide')[tile]} w{w}", lib,
+        4 * tile + (1, 2, 4, 8).index(w), bm=(16, 64)[tile], bn=256, bk=64,
+        threads=(256, 512)[tile], nacc=(16, 32)[tile],
+        capacity=((264, 264, 237, 248, 235, 234, 224, 240),
+                  (132, 132, 117, 120, 110, 102, 105, 120))[tile])
+    for lib in PACKED_LIBS for tile in (0, 1) for w in (1, 2, 4, 8)}
+
+
+def packed_tile(lib: str, M: int, wbits: int) -> Tile:
+    """The tile of packed-weight GEMM ``lib`` (``fused_qlhs_packed`` or
+    ``packed_matmul``) for M LHS rows at ``wbits``: decode up to 16 rows,
+    wide above, as the int8 forward picks them (:func:`fwd_tile`)."""
+    return PACKED_TILES[lib, 0 if M <= 16 else 1, wbits]
 
 
 def fwd_tile(M: int, sr: bool) -> Tile:
@@ -158,4 +187,7 @@ def plan(tile: Tile, M: int, N: int, K: int) -> SplitPlan:
         if best is None or cost <= best[0]:     # a tie takes more slices
             best = (cost, s, per)
     _, splits, per = best
-    return SplitPlan(tile, M, N, K, m_tiles, n_tiles, splits, per * tile.bk)
+    k_span = per * tile.bk
+    # a slice starts on a whole byte of weights packed at any width
+    assert k_span % 8 == 0, (tile.name, k_span)
+    return SplitPlan(tile, M, N, K, m_tiles, n_tiles, splits, k_span)

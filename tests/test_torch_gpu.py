@@ -5,7 +5,8 @@ forward, deterministic and SR, and its dX mode), ``fused_qboth_tn_matmul``,
 ``kv_gather_pages``, ``quantize_sr_rows``/``_tensor``,
 ``fused_qlhs_packed_matmul`` and ``packed_matmul`` bit for bit (page-0
 tables, zero scales, SR bits across all 32 bits, 1/2/4/8-bit packed
-weights with ragged K), short serving runs (dense, paged and from packed
+weights with ragged K, odd N, unaligned rows, full-range codes and every
+split of K), short serving runs (dense, paged and from packed
 weights) that must go through the serving kernels, and short training runs
 (fused and unfused) that must go through the training kernels.
 
@@ -298,12 +299,13 @@ def test_split_plan_tiles_match_the_built_kernels(cuda):
     from repro_torch.kernels.build import load_library
     tiles = (splitk.Q8_TILE, splitk.DX_TILE, splitk.DW_TILE,
              splitk.FWD_DECODE_TILE, splitk.FWD_DECODE_SR_TILE,
-             splitk.FWD_WIDE_TILE, splitk.FWD_WIDE_SR_TILE)
+             splitk.FWD_WIDE_TILE, splitk.FWD_WIDE_SR_TILE,
+             *splitk.PACKED_TILES.values())
     for tile in tiles:
         cfg = (ctypes.c_int * 8)()
         lib = load_library(tile.lib)
-        if tile.lib == "fused_qlhs_fwd":
-            lib.fused_qlhs_fwd_tile(tile.mode, cfg)
+        if tile.lib in ("fused_qlhs_fwd",) + splitk.PACKED_LIBS:
+            getattr(lib, tile.lib + "_tile")(tile.mode, cfg)
         else:
             getattr(lib, tile.lib + "_tile")(cfg)
         assert list(cfg)[:5] == [tile.bm, tile.bn, tile.bk, tile.threads,
@@ -756,3 +758,147 @@ def test_packed_serving_runs_through_packed_kernels(cuda, bits, fused):
     assert want.launches == calls and other.launches == 0
     assert fused_qlhs_matmul.launches == 0
     assert out["cuda"] == out["cpu"]
+
+
+def _packed_operands(gen, M, K, N, wbits, codes=None):
+    """Both packed GEMMs' arguments on random (or the given) unsigned
+    codes packed at ``wbits``: the packed forward's (x, scale, zero,
+    packed, alpha_b, beta_b, u), then packed_matmul's (x8, packed and its
+    six epilogue vectors), then the PackedTensor."""
+    from repro_torch.core import affine_factors, epilogue_coeffs
+    from repro_torch.core import quantize_ptq_det
+    from repro_torch.core.backend import _ptq_range
+    from repro_torch.kernels import PackedTensor, pack_codes
+    dev = gen.device
+    if codes is None:
+        codes = torch.randint(0, 1 << wbits, (K, N), generator=gen,
+                              device=dev, dtype=torch.int32).to(torch.uint8)
+    pt = PackedTensor(pack_codes(codes, wbits), torch.tensor(7.0, device=dev),
+                      torch.tensor(-0.3, device=dev), wbits, K)
+    x = torch.randn(M, K, generator=gen, device=dev)
+    ab, bb = affine_factors(pt.scale, pt.zero, wbits)
+    u = ab * pt.colsum.to(torch.float32) + float(K) * bb
+    zero, scale = _ptq_range(x, 8)
+    sa = scale.reshape(1, 1).expand(M, 1).contiguous()
+    za = zero.reshape(1, 1).expand(M, 1).contiguous()
+    aq = quantize_ptq_det(x, 8)
+    aa, ba = affine_factors(aq.scale, aq.zero, 8)
+    co = [c.contiguous() for c in epilogue_coeffs(
+        aq.int8_codes, aa, ba, None, ab, bb, colsum=pt.colsum)]
+    return ((x, sa, za, pt.packed, ab, bb, u),
+            (aq.int8_codes, pt.packed, *co), pt)
+
+
+# (M, K, N) of the forced-split sweep: the decode tile at granite's MLP
+# up-projection, the wide tile at a K ragged at every ppb
+PACKED_SPLIT_SHAPES = [(8, 2048, 8192), (128, 1001, 300)]
+
+
+@pytest.mark.parametrize("wbits", [1, 2, 4, 8])
+def test_every_forced_split_of_the_packed_kernels(cuda, wbits):
+    """Both packed GEMMs through their C entries with every split of K
+    forced, decode and wide tile: each equals the plain version bit for
+    bit (the int32 sums do not depend on the split)."""
+    from repro_torch.kernels import (fused_qlhs_packed_matmul_plain,
+                                     packed_matmul_plain, splitk)
+    from repro_torch.kernels.build import load_function
+    from repro_torch.kernels.fused_fqt import _QLHS_PACKED_ARGTYPES
+    from repro_torch.kernels.q4_matmul import _ARGTYPES
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device=cuda).manual_seed(17 + wbits)
+    for M, K, N in PACKED_SPLIT_SHAPES:
+        fused, unfused, _ = _packed_operands(gen, M, K, N, wbits)
+        for lib, args, want, argtypes, extra in (
+                ("fused_qlhs_packed", fused,
+                 fused_qlhs_packed_matmul_plain(*fused, bits=8, wbits=wbits),
+                 _QLHS_PACKED_ARGTYPES, (8,)),
+                ("packed_matmul", unfused,
+                 packed_matmul_plain(*unfused, wbits=wbits, kdim=K),
+                 _ARGTYPES, ())):
+            tile = splitk.packed_tile(lib, M, wbits)
+            fn = load_function(lib, lib, argtypes)
+            for s, span in _forced_splits(tile, M, N, K):
+                out = torch.full_like(want, float("nan"))
+                assert fn(*[t.data_ptr() for t in args], out.data_ptr(), M,
+                          N, K, *extra, tile.mode, s, span, stream) == 0
+                assert torch.equal(out, want), (tile.name, s)
+            # a split that does not cover K is refused
+            assert fn(*[t.data_ptr() for t in args], out.data_ptr(), M, N,
+                      K, *extra, tile.mode, 1, tile.bk, stream) != 0
+
+
+def test_packed_forward_at_8_bits_equals_the_int8_forward(cuda):
+    """At 8 bits (the identity pack) the packed forward equals
+    ``fused_qlhs_matmul`` on the same codes, bit for bit, at every decode
+    GEMM of granite-3-2b (8 slots)."""
+    from repro_torch.kernels import fused_qlhs_matmul, fused_qlhs_packed_matmul
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    for K, N in ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048),
+                 (2048, 49408)):
+        fused, _, pt = _packed_operands(gen, 8, K, N, 8)
+        x, sa, za, _, ab, bb, u = fused
+        got = fused_qlhs_packed_matmul(*fused, bits=8, wbits=8)
+        want = fused_qlhs_matmul(x, sa, za, None, pt.int8_codes, ab, bb, u,
+                                 bits=8)
+        assert torch.equal(got, want), (K, N)
+
+
+@pytest.mark.parametrize("M", [8, 128])
+@pytest.mark.parametrize("wbits", [1, 2, 4, 8])
+def test_packed_kernels_full_range_codes(cuda, M, wbits):
+    """K = 8192, weight codes over the whole range (half the columns at
+    0 or 2^w - 1 alone), LHS rows clipped to each end of the int8 range:
+    the int32 accumulators' worst case, across the split-K reduction."""
+    from repro_torch.kernels import (fused_qlhs_packed_matmul,
+                                     fused_qlhs_packed_matmul_plain,
+                                     packed_matmul, packed_matmul_plain)
+    K, N = 8192, 512
+    gen = torch.Generator(device=cuda).manual_seed(M + wbits)
+    top = (1 << wbits) - 1
+    codes = torch.randint(0, top + 1, (K, N), generator=gen, device=cuda,
+                          dtype=torch.int32).to(torch.uint8)
+    codes[:, : N // 4] = 0
+    codes[:, N // 4: N // 2] = top
+    fused, unfused, _ = _packed_operands(gen, M, K, N, wbits, codes)
+    x, sa, za = fused[:3]
+    sa, za = sa.clone(), za.clone()
+    sa[0], za[0] = 1e3, x[0].max() + 1.0      # every code clips to -128
+    sa[1], za[1] = 1e3, x[1].min() - 1.0      # every code clips to 127
+    fused = (x, sa, za) + fused[3:]
+    assert torch.equal(fused_qlhs_packed_matmul(*fused, bits=8, wbits=wbits),
+                       fused_qlhs_packed_matmul_plain(*fused, bits=8,
+                                                      wbits=wbits))
+    x8 = unfused[0].clone()
+    x8[0], x8[1] = -128, 127
+    unfused = (x8,) + unfused[1:]
+    assert torch.equal(packed_matmul(*unfused, wbits=wbits, kdim=K),
+                       packed_matmul_plain(*unfused, wbits=wbits, kdim=K))
+
+
+@pytest.mark.parametrize("wbits", [1, 2, 4, 8])
+def test_packed_kernels_odd_n_and_unaligned_rows(cuda, wbits):
+    """Odd N (packed rows off the 16-byte grid), K ragged at every ppb
+    (LHS rows off it too), and operands whose first row starts one byte
+    (packed, int8 codes) or one float (f32 LHS) past an aligned address."""
+    from repro_torch.kernels import (fused_qlhs_packed_matmul,
+                                     fused_qlhs_packed_matmul_plain,
+                                     packed_matmul, packed_matmul_plain)
+    gen = torch.Generator(device=cuda).manual_seed(wbits)
+    for M, K, N in ((8, 1001, 131), (37, 515, 257), (130, 67, 17)):
+        fused, unfused, _ = _packed_operands(gen, M, K, N, wbits)
+
+        def shifted(t):
+            buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+            v = buf[1:].view(t.shape)
+            v.copy_(t)
+            assert v.is_contiguous() and v.data_ptr() % 16 != 0
+            return v
+        fused = (shifted(fused[0]),) + fused[1:3] + (shifted(fused[3]),) \
+            + fused[4:]
+        unfused = (shifted(unfused[0]), shifted(unfused[1])) + unfused[2:]
+        assert torch.equal(
+            fused_qlhs_packed_matmul(*fused, bits=8, wbits=wbits),
+            fused_qlhs_packed_matmul_plain(*fused, bits=8, wbits=wbits))
+        assert torch.equal(packed_matmul(*unfused, wbits=wbits, kdim=K),
+                           packed_matmul_plain(*unfused, wbits=wbits,
+                                               kdim=K))

@@ -42,7 +42,7 @@ from repro_torch.core import fqt_matmul, quantize_ptq_det  # noqa: E402
 from repro_torch.core.registry import (GemmQuantConfig,  # noqa: E402
                                        QuantizerSpec, get_quantizer)
 from repro_torch.interop import packed_from_jax  # noqa: E402
-from repro_torch.kernels import pack  # noqa: E402
+from repro_torch.kernels import pack, splitk  # noqa: E402
 from repro_torch.kernels import (fused_qlhs_packed_matmul,  # noqa: E402
                                  fused_qlhs_packed_matmul_plain,
                                  packed_matmul, packed_matmul_plain)
@@ -192,6 +192,10 @@ def _packed_gemm_case(M, K, N, wbits, seed):
 @pytest.mark.parametrize("wbits", BITS)
 @pytest.mark.parametrize("mkn", GEMMS)
 def test_packed_matmul_plain_vs_pallas_and_xla(wbits, mkn):
+    _packed_matmul_vs_jax(wbits, mkn)
+
+
+def _packed_matmul_vs_jax(wbits, mkn):
     M, K, N = mkn
     _, a8, jpt, coeffs = _packed_gemm_case(M, K, N, wbits, M + K + wbits)
     kw = dict(wbits=wbits, kdim=K)
@@ -213,6 +217,10 @@ def test_packed_matmul_plain_vs_pallas_and_xla(wbits, mkn):
 def test_fused_qlhs_packed_plain_vs_pallas_and_xla(wbits, mkn):
     """The operands as JAX ``fused_fqt_fwd`` builds them; ``u`` from the
     port's stored column sums equals JAX's from the unpacked codes."""
+    _fused_qlhs_packed_vs_jax(wbits, mkn)
+
+
+def _fused_qlhs_packed_vs_jax(wbits, mkn):
     M, K, N = mkn
     x, _, jpt, _ = _packed_gemm_case(M, K, N, wbits, 3 * M + K + wbits)
     zero, scale = jbackend._ptq_range(x, 8)
@@ -238,6 +246,20 @@ def test_fused_qlhs_packed_plain_vs_pallas_and_xla(wbits, mkn):
     np.testing.assert_array_equal(
         fused_qlhs_packed_matmul_plain(*targs, bits=8, wbits=wbits).numpy(),
         got)
+
+
+@pytest.mark.parametrize("wbits", BITS)
+def test_packed_plain_versions_match_jax_across_a_slice_boundary(wbits):
+    """At (8, 300, 72) both packed kernels' decode-tile plans cut K into
+    slices (kernels/splitk.py): the plain versions against the Pallas
+    kernels in interpret mode and their XLA twins there, at every width
+    (the kernels are held to the plain versions on the card)."""
+    M, K, N = 8, 300, 72
+    for lib in splitk.PACKED_LIBS:
+        p = splitk.plan(splitk.packed_tile(lib, M, wbits), M, N, K)
+        assert p.splits > 1 and p.slices[0][1] < K
+    _packed_matmul_vs_jax(wbits, (M, K, N))
+    _fused_qlhs_packed_vs_jax(wbits, (M, K, N))
 
 
 def test_packed_wrappers_refuse_bad_operands():

@@ -1,6 +1,7 @@
 """The split-K plans of the int8 tensor-core kernels (kernels/splitk.py),
 on the CPU: q8_matmul, the dX and int8-forward entries of
-fused_qlhs_matmul, and dW (fused_qboth_tn_matmul).
+fused_qlhs_matmul, dW (fused_qboth_tn_matmul), and the packed-weight
+GEMMs (fused_qlhs_packed_matmul, packed_matmul) at every width.
 
 The plan is what the CUDA kernels run: its K slices must tile [0, K)
 exactly, and the exact int32 sums the kernels reduce across a cluster must
@@ -27,16 +28,20 @@ from repro.kernels.fused_fqt import (  # noqa: E402
 from repro.kernels.q8_matmul import q8_matmul as pallas_q8  # noqa: E402
 from repro_torch.core import backend as tbackend  # noqa: E402
 from repro_torch.kernels import (fused_qboth_tn_matmul_plain,  # noqa: E402
-                                 fused_qlhs_matmul_plain, q8_matmul_plain,
+                                 fused_qlhs_matmul_plain,
+                                 fused_qlhs_packed_matmul_plain, pack_codes,
+                                 packed_matmul_plain, q8_matmul_plain,
                                  splitk)
 from repro_torch.kernels.fused_fqt import (qboth_codes,  # noqa: E402
                                            qboth_epilogue, qlhs_codes,
                                            qlhs_epilogue)
+from repro_torch.kernels.pack import unpack_tile  # noqa: E402
 from repro_torch.kernels.q8_matmul import q8_epilogue  # noqa: E402
 
 TILES = [splitk.Q8_TILE, splitk.DX_TILE, splitk.DW_TILE,
          splitk.FWD_DECODE_TILE, splitk.FWD_DECODE_SR_TILE,
-         splitk.FWD_WIDE_TILE, splitk.FWD_WIDE_SR_TILE]
+         splitk.FWD_WIDE_TILE, splitk.FWD_WIDE_SR_TILE,
+         *splitk.PACKED_TILES.values()]
 # (M, K, N): statquant-tx's training GEMMs (512 tokens; dX and BHQ dX
 # (tokens, d_out, d_in), the unfused forward and dW), granite-3-2b's dX
 # with 2048 tokens, a K off the 16-code grid, and ragged
@@ -358,3 +363,92 @@ def test_forward_plain_matches_the_jax_kernels_across_slice_boundaries(sr):
                                        interpret=True)))
     _close(got, np.asarray(fused_qlhs_matmul_xla(*j, ab, bb, jnp.asarray(u),
                                                  bits=8)))
+
+
+def test_packed_tiles_follow_m_and_width():
+    """Each packed GEMM takes the decode tile up to 16 rows and the wide
+    tile above, one tile per width; its mode (the C entries' first
+    argument) names both, 4 * tile + log2(wbits), and its K step, 64
+    codes, holds whole bytes at every width."""
+    for lib in splitk.PACKED_LIBS:
+        for w in (1, 2, 4, 8):
+            dec, wide = (splitk.packed_tile(lib, M, w) for M in (16, 17))
+            assert splitk.packed_tile(lib, 1, w) is dec
+            assert splitk.packed_tile(lib, 2048, w) is wide
+            assert (dec.bm, wide.bm) == (16, 64) and dec.lib == lib
+            assert (dec.mode, wide.mode) == ((w.bit_length() - 1),
+                                             4 + (w.bit_length() - 1))
+            assert dec.bk == wide.bk == 64
+
+
+@pytest.mark.parametrize("mkn", [(8, 1001, 300), (40, 1001, 300),
+                                 (8, 2048, 8192), (512, 512, 10240)])
+@pytest.mark.parametrize("lib", splitk.PACKED_LIBS)
+def test_packed_plans_cut_k_on_whole_bytes(lib, mkn):
+    """At every width the packed tiles' slices start on a multiple of the
+    tile's K step and of 8 codes: no packed byte straddles two slices."""
+    M, K, N = mkn
+    for w in (1, 2, 4, 8):
+        p = splitk.plan(splitk.packed_tile(lib, M, w), M, N, K)
+        for k0, _ in p.slices:
+            assert k0 % p.tile.bk == 0 and k0 % 8 == 0 and k0 % (8 // w) == 0
+
+
+@pytest.mark.parametrize("mkn", DECODE)
+@pytest.mark.parametrize("lib", splitk.PACKED_LIBS)
+def test_packed_decode_grids_fill_the_card(lib, mkn):
+    """The packed GEMMs' decode tile at granite's decode GEMMs (8 slots),
+    at the serving widths (8 and 4 bits): the MLP up-projection and
+    lm_head put at least a block on each of the 132 SMs; the narrower
+    outputs, 8 or 2 tiles of 256 columns, take 8 slices, the largest
+    portable cluster."""
+    M, K, N = mkn
+    for w in (8, 4):
+        p = splitk.plan(splitk.packed_tile(lib, M, w), M, N, K)
+        if N >= 8192:
+            assert p.blocks >= splitk.SMS
+        else:
+            assert p.splits == 8
+
+
+def _packed_case(rng, M, K, N, wbits):
+    codes = _t(rng.randint(0, 1 << wbits, (K, N)).astype(np.uint8))
+    packed = pack_codes(codes, wbits)
+    w8 = unpack_tile(packed, wbits)[:K].long() - (1 << (wbits - 1))
+    return packed, w8
+
+
+@pytest.mark.parametrize("M", [8, 40])
+@pytest.mark.parametrize("wbits", [1, 2, 4, 8])
+def test_packed_plain_summed_over_the_plan_equals_one_shot(wbits, M):
+    """K = 1001, ragged at every ppb: both packed GEMMs' code products
+    (and the packed forward's row code sums) summed slice by slice in
+    int64 over their plans, through the epilogues, equal the one-shot
+    plain versions, decode and wide tile."""
+    K, N = 1001, 300
+    rng = np.random.RandomState(M + wbits)
+    packed, w8 = _packed_case(rng, M, K, N, wbits)
+    x = _t(rng.randn(M, K).astype(np.float32))
+    zero = torch.full((M, 1), float(x.min()))
+    scale = torch.full((M, 1), 255.0) / (x.max() - x.min())
+    u = _t(rng.randn(N).astype(np.float32))
+    ab, bb = torch.tensor(0.013), torch.tensor(-0.7)
+    p = splitk.plan(splitk.packed_tile("fused_qlhs_packed", M, wbits), M, N,
+                    K)
+    assert p.splits > 1
+    c = qlhs_codes(x, scale, zero, None, bits=8).long()
+    acc = sum(c[:, k0:k1] @ w8[k0:k1] for k0, k1 in p.slices)
+    rsum = sum(c[:, k0:k1].sum(dim=1) for k0, k1 in p.slices)
+    got = qlhs_epilogue(acc, rsum, scale, zero, ab, bb, u, bits=8)
+    want = fused_qlhs_packed_matmul_plain(x, scale, zero, packed, ab, bb, u,
+                                          bits=8, wbits=wbits)
+    assert torch.equal(got, want)
+
+    x8 = _t(rng.randint(-128, 128, (M, K)).astype(np.int8))
+    vec = [_t(rng.randn(n).astype(np.float32)) for n in (M, N, M, N, M, N)]
+    p = splitk.plan(splitk.packed_tile("packed_matmul", M, wbits), M, N, K)
+    assert p.splits > 1
+    acc = sum(x8[:, k0:k1].long() @ w8[k0:k1] for k0, k1 in p.slices)
+    assert torch.equal(q8_epilogue(acc, *vec),
+                       packed_matmul_plain(x8, packed, *vec, wbits=wbits,
+                                           kdim=K))
