@@ -4,10 +4,11 @@
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --step-wall TREE [TREE ...]
 
-The second form only times the GEMM wrappers' host cost a call, the
-training step's wall and the packed forward's share of a packed decode
-step for the package of each checkout TREE, one process each, in the
-order given (``step_wall_trees``).
+The second form only times the GEMM wrappers' host cost a call, the KV
+reads' device time, the training step's wall and profiles granite's
+decode step (dense, paged, from packed weights) for the package of each
+checkout TREE, one process each, in the order given
+(``step_wall_trees``).
 
 From the root of a checkout, on a machine with one CUDA card and the CUDA
 toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
@@ -39,7 +40,11 @@ toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
      ``kv_dequant_rows`` bit for bit;
      ``kv_gather_pages`` at granite-3-2b's paged shapes (8 lanes, D = 512,
      P = 8 and 16, nb*P = 256) and ragged ones (P = 3, D = 40; tables that
-     repeat pages and point at page 0; zero scales), and
+     repeat pages and point at page 0; zero scales); their K-and-V pairs
+     ``kv_dequant_rows_kv`` and ``kv_gather_pages_kv`` (one launch, scales
+     clamped) at the same shapes, rows off the 16-byte grid, and 8 slots
+     or lanes at a 4,096-token context ((32768, 512) a side; pages of 16
+     from 1 + 2,048), every kernel body forced through the C entry; and
      ``quantize_sr_rows``/``quantize_sr_tensor`` at every backward shape
      of the statquant-tx step, at granite's (2048, N) and ragged, with SR
      bits spanning all 32 bits, all bit for bit; ``q8_matmul`` also at the
@@ -65,10 +70,10 @@ toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
      ``ServeEngine(paged=True, page_size=16)`` with the same 8 slots,
      ``max_seq``, warm-up and 16 requests as 4, whole-prompt prefill, spec
      decode off.  Its tokens must equal the dense engine's (a one-token
-     paged step is the dense step, arithmetically); ``kv_gather_pages``
-     launches exactly 2 x 40 times per paged forward and
-     ``kv_dequant_rows`` never; a replay through ``kv_gather_pages``'s
-     plain version gives the same tokens and logits.  Then the paged
+     paged step is the dense step, arithmetically); ``kv_gather_pages_kv``
+     launches exactly 40 times per paged forward (K and V of a layer in
+     one launch) and the single-side KV kernels never; a replay through
+     its plain version gives the same tokens and logits.  Then the paged
      features at full width: requests sharing a 64-token system prompt and
      extensions of earlier prompts (copy-on-write), ``prefill_chunk=32``, a
      pool small enough to preempt, ``spec_decode=True, spec_k=3``;
@@ -128,7 +133,13 @@ toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
      ``fused_qlhs_packed_matmul``, 37 dX, 37 dW) and unfused (37
      ``packed_matmul``, 74 ``q8_matmul``, 37 of each ``quantize_sr``):
      finite loss and gradient norm, identical through the plain versions.
-  9. Times each kernel at its path shapes (the serving kernels at the
+  9. Prints the timing harness's per-call floor first (``time_floor``:
+     the events alone, and the KV read at (1, 16) after the ``zero_()``
+     flush and after a read flush), then the KV reads one side and as the
+     pair at 8 slots or lanes x 256 and x 4,096 positions, beside two
+     single calls, the plain pair, every body, the floor and the bound
+     (``time_kv``).  Times each kernel at its path shapes (the serving
+     kernels at the
      decode and prefill shapes, the training kernels at the statquant-tx
      step's) with CUDA events after warm-up, an L2 flush before every
      launch and every launch queued behind a spin kernel (device time,
@@ -263,13 +274,18 @@ def main(argv=None) -> int:
     unfused = train_unfused(torch, args.seed, report)
     packed_train = train_packed(torch, args.seed, report)
     timings = time_kernels(torch, report)
-    serve["profile_decode_step"] = _profile_decode(torch, granite_engine)
+    serve["profile_decode_step"] = _profile_decode(torch, granite_engine,
+                                                   share=KV_SHARE)
     paged["profile_decode_step"] = _profile_paged_decode(torch, paged_engine)
     for bits, eng in packed_engines.items():
         # the packed forward's kernels: a packed engine runs no other
         # fused-quantize kernel
         packed[f"w{bits}"]["profile_decode_step"] = _profile_decode(
-            torch, eng, f"w{bits} packed", share="qlhs")
+            torch, eng, f"w{bits} packed", share=("qlhs",) + KV_SHARE)
+    # each KV kernel serves its single-side and its pair wrapper; the main
+    # paths launch the pair (timed at the decode shape as the line's row)
+    for name in ("kv_dequant_rows", "kv_gather_pages"):
+        errs[name] = max(errs[name], errs.pop(name + "_kv"))
 
     def entry(name, key, source, replaces, launches):
         return dict(name=name, route="cuda", source=source,
@@ -282,7 +298,8 @@ def main(argv=None) -> int:
               serve["launches"]["fused_qlhs_matmul"]),
         entry("kv_dequant_rows", "kv_dequant_rows", csrc + "kv_dequant.cu",
               "src/repro/kernels/kv_dequant.py:31",
-              serve["launches"]["kv_dequant_rows"]),
+              serve["launches"]["kv_dequant_rows"]
+              + serve["launches"]["kv_dequant_rows_kv"]),
         entry("fused_qlhs_matmul (dX, SR)", "fused_qlhs_matmul_dx",
               csrc + "fused_qlhs_dx.cu", "src/repro/kernels/fused_fqt.py:93",
               train["launches"]["fused_qlhs_matmul_dx"]),
@@ -295,7 +312,8 @@ def main(argv=None) -> int:
               train["launches"]["fused_qboth_tn_matmul"]),
         entry("kv_gather_pages", "kv_gather_pages", csrc + "kv_gather.cu",
               "src/repro/kernels/kv_gather.py:43",
-              paged["launches"]["kv_gather_pages"]),
+              paged["launches"]["kv_gather_pages"]
+              + paged["launches"]["kv_gather_pages_kv"]),
         entry("quantize_sr_rows", "quantize_sr_rows", csrc + "quantize_sr.cu",
               "src/repro/kernels/quantize_sr.py:34",
               unfused["launches"]["quantize_sr_rows"]),
@@ -434,14 +452,14 @@ def kv_operands(torch, gen, M, N):
     return c, s[:, None].contiguous(), z[:, None].contiguous()
 
 
-def pool_operands(torch, gen, B, P, D, ragged=False):
+def pool_operands(torch, gen, B, P, D, ragged=False, S=256):
     """kv_gather_pages's arguments as the paged engine holds them: a pool
-    of ``1 + B * nb`` pages (nb * P = 256, or 5 blocks when ragged) of
+    of ``1 + B * nb`` pages (nb * P = S, or 5 blocks when ragged) of
     quantized random rows, page 0 the garbage page, and block tables that
     give each lane its own pages, point its tail blocks at page 0 and, when
     ragged, repeat a page and zero some scales."""
     from repro_torch.core import kv_fresh_code, quantize_kv_rows
-    nb = 5 if ragged else 256 // P
+    nb = 5 if ragged else S // P
     n_pages = 1 + B * nb
     x = torch.randn(n_pages, P, D, generator=gen, device=gen.device) * 3
     codes, scale, zero = quantize_kv_rows(x)
@@ -543,8 +561,96 @@ def kernel_vs_plain(torch, report) -> dict:
         check(same, f"kv_gather_pages {shape} P={P} differs from plain by "
                     f"{err}")
         worst["kv_gather_pages"] = max(worst["kv_gather_pages"], err)
+    kv_pairs_vs_plain(torch, gen, rows, worst)
     report["kernel_vs_plain"] = rows
     return worst
+
+
+def kv_pair_operands(torch, gen, M, N, unaligned=False):
+    """K and V of one dense cache layer, ``(codes, scale (M, 1), zero (M,
+    1))`` each, a zero scale every 97th row; ``unaligned``: rows 1.. of
+    M + 1, codes off the 16-byte grid."""
+    sides = []
+    for _ in range(2):
+        c, s, z = kv_operands(torch, gen, M + unaligned, N)
+        s[::97] = 0.0
+        sides.append((c[unaligned:], s[unaligned:], z[unaligned:]))
+    return sides
+
+
+def pool_pair_operands(torch, gen, B, P, D, ragged=False, S=256):
+    """K and V pools of one layer and their block table
+    (``pool_operands``), ``S = nb * P`` positions a lane."""
+    k = pool_operands(torch, gen, B, P, D, ragged, S)
+    v = pool_operands(torch, gen, B, P, D, ragged, S)
+    return k[:3], v[:3], k[3]
+
+
+# the pair kernels' shapes: dense (M, N, codes off the 16-byte grid) and
+# paged (B, P, D, ragged, positions a lane): the single kernels' shapes
+# and 8 slots or lanes at granite's 4,096-token context
+KV_PAIR_DENSE = [(2048, 512, False), (33, 130, False), (8, 40, True),
+                 (32768, 512, False)]
+KV_PAIR_PAGED = [(8, 16, 512, False, 256), (8, 8, 512, False, 256),
+                 (8, 3, 40, True, 256), (3, 16, 512, True, 256),
+                 (8, 16, 512, False, 4096)]
+# the bodies of csrc/kv_dequant.cu and csrc/kv_gather.cu
+KV_BODIES = {"bulk": 1, "element": 2}
+
+
+def kv_pairs_vs_plain(torch, gen, rows, worst):
+    """``kv_dequant_rows_kv`` and ``kv_gather_pages_kv`` (K and V in one
+    launch, scales clamped) against their plain pairs, bit for bit and
+    finite, at ``KV_PAIR_DENSE`` and ``KV_PAIR_PAGED``, each body the
+    operands allow forced through the C entry too; a second call equals
+    the first."""
+    from repro_torch.kernels import (kv_dequant, kv_dequant_rows_kv,
+                                     kv_dequant_rows_kv_plain, kv_gather,
+                                     kv_gather_pages_kv,
+                                     kv_gather_pages_kv_plain)
+
+    def same_pair(name, shape, got, ref, tag):
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, r) for g, r in zip(got, ref))
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        rows.append(dict(kernel=name, shape=list(shape), case=tag,
+                         max_abs_err=err, bit_identical=same))
+        log(f"[kernel] {name} {tuple(shape)} {tag} bit-identical={same} "
+            f"finite={finite}")
+        check(finite, f"{name} {shape} {tag}: non-finite output")
+        check(same, f"{name} {shape} {tag}: differs from plain by {err}")
+        worst[name] = max(worst.get(name, 0.0), err)
+
+    for M, N, unaligned in KV_PAIR_DENSE:
+        k, v = kv_pair_operands(torch, gen, M, N, unaligned)
+        ref = kv_dequant_rows_kv_plain(k, v)
+        got = kv_dequant_rows_kv(k, v)
+        same_pair("kv_dequant_rows_kv", (M, N), got, ref, "planned")
+        same_pair("kv_dequant_rows_kv", (M, N), kv_dequant_rows_kv(k, v),
+                  got, "second call")
+        whole = N % 16 == 0 and not unaligned
+        for body, b in KV_BODIES.items():
+            if whole or body == "element":
+                same_pair("kv_dequant_rows_kv", (M, N), kv_dequant._launch(
+                    "kv_dequant_rows_kv", [k, v], M, N, 8, 1, b), ref, body)
+        del k, v, ref, got
+    for B, P, D, ragged, S in KV_PAIR_PAGED:
+        k, v, table = pool_pair_operands(torch, gen, B, P, D, ragged, S)
+        shape = (B, table.shape[1] * P, D)
+        ref = kv_gather_pages_kv_plain(k, v, table)
+        got = kv_gather_pages_kv(k, v, table)
+        tag = f"P={P}{' ragged' if ragged else ''}"
+        same_pair("kv_gather_pages_kv", shape, got, ref, tag)
+        same_pair("kv_gather_pages_kv", shape, kv_gather_pages_kv(k, v, table),
+                  got, tag + " second call")
+        for body, b in KV_BODIES.items():
+            if body == "element" or (D % 16 == 0 and P % 4 == 0):
+                same_pair("kv_gather_pages_kv", shape, kv_gather._launch(
+                    "kv_gather_pages_kv", [k, v], table, 8, b), ref,
+                    f"{tag} {body}")
+        del k, v, ref, got
+    torch.cuda.empty_cache()
 
 
 def forward_edge_cases(torch, gen, exact) -> None:
@@ -1013,7 +1119,8 @@ def _kernel_wrappers():
             kernels.q8_matmul, kernels.fused_qboth_tn_matmul,
             kernels.kv_gather_pages, kernels.quantize_sr_rows,
             kernels.quantize_sr_tensor, kernels.fused_qlhs_packed_matmul,
-            kernels.packed_matmul)
+            kernels.packed_matmul, kernels.kv_dequant_rows_kv,
+            kernels.kv_gather_pages_kv)
 
 
 def _reset_counts():
@@ -1026,7 +1133,7 @@ def _reset_counts():
 def _read_counts():
     """Launches by kernel (and mode) since the last reset."""
     (qlhs, kv, q8, qboth, gather, sr_rows, sr_tensor, qlhs_packed,
-     packed) = _kernel_wrappers()
+     packed, kv_pair, gather_pair) = _kernel_wrappers()
     return {"fused_qlhs_matmul": qlhs.launches - qlhs.launches_dx,
             "fused_qlhs_matmul_dx": qlhs.launches_dx,
             "kv_dequant_rows": kv.launches, "q8_matmul": q8.launches,
@@ -1035,7 +1142,9 @@ def _read_counts():
             "quantize_sr_rows": sr_rows.launches,
             "quantize_sr_tensor": sr_tensor.launches,
             "fused_qlhs_packed_matmul": qlhs_packed.launches,
-            "packed_matmul": packed.launches}
+            "packed_matmul": packed.launches,
+            "kv_dequant_rows_kv": kv_pair.launches,
+            "kv_gather_pages_kv": gather_pair.launches}
 
 
 def _check_counts(counts, want, tag):
@@ -1177,6 +1286,7 @@ def _vs_plain(torch, cfg, params, prompts, tag):
     import repro_torch.core.kv_cache as kv_cache
     from repro_torch.core import QuantPolicy
     from repro_torch.kernels import (fused_qlhs_matmul_plain,
+                                     kv_dequant_rows_kv_plain,
                                      kv_dequant_rows_plain)
     from repro_torch.models import build_model
     from repro_torch.serve import ServeEngine
@@ -1194,13 +1304,16 @@ def _vs_plain(torch, cfg, params, prompts, tag):
         return [done[r].tokens for r in sorted(done)], logits
 
     tok_k, log_k = run()
-    saved = backend.fused_qlhs_matmul, kv_cache.kv_dequant_rows
+    saved = (backend.fused_qlhs_matmul, kv_cache.kv_dequant_rows,
+             kv_cache.kv_dequant_rows_kv)
     backend.fused_qlhs_matmul = fused_qlhs_matmul_plain
     kv_cache.kv_dequant_rows = kv_dequant_rows_plain
+    kv_cache.kv_dequant_rows_kv = kv_dequant_rows_kv_plain
     try:
         tok_p, log_p = run()
     finally:
-        backend.fused_qlhs_matmul, kv_cache.kv_dequant_rows = saved
+        (backend.fused_qlhs_matmul, kv_cache.kv_dequant_rows,
+         kv_cache.kv_dequant_rows_kv) = saved
     err = max(float((a - b).abs().max()) for a, b in zip(log_k, log_p))
     scale = max(float(b.abs().max()) for b in log_p)
     log(f"[{tag}] kernels vs plain versions through the whole serving path: "
@@ -1210,6 +1323,11 @@ def _vs_plain(torch, cfg, params, prompts, tag):
     check(err <= KERNEL_TOL * scale, f"{tag}: logits through the kernels "
                                      f"differ from the plain path by {err}")
     return err
+
+
+# the KV reads' kernels in a profiled decode step (both trees' names), and
+# the clamps the dense read launched before them
+KV_SHARE = ("kv_dequant", "kv_gather", "aten::clamp_min")
 
 
 def _profile_decode(torch, eng, what="dense", share=None):
@@ -1228,9 +1346,10 @@ def _profile(torch, step, label, share=None):
     """``step``'s wall time (median of 5 runs without the profiler), and
     from one profiled run (torch.profiler) the device's busy time (the sum
     over kernels and copies on the card), the idle share, and the device
-    time by kernel and by the PyTorch op that launched it; with ``share``,
-    also the device time and launches of every kernel whose name holds
-    it."""
+    time by kernel and by the PyTorch op that launched it; with ``share``
+    (a name fragment or a tuple of them), also the device time and
+    launches of every kernel whose name holds one (of the op so named, for
+    an ``aten::`` name), by fragment and in all."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1266,11 +1385,18 @@ def _profile(torch, step, label, share=None):
         log(f"[profile]   kernel {ms:9.3f} ms {n:6d}x {name[:80]}")
     res = {}
     if share:
-        mine = [r for r in kernels if share in r[2]]
-        res = dict(share_key=share, share_ms=sum(r[0] for r in mine),
-                   share_launches=sum(r[1] for r in mine))
-        log(f"[profile]   kernels named *{share}*: {res['share_ms']:.3f} ms "
-            f"({res['share_launches']} launches) of {busy:.2f} ms busy")
+        keys = (share,) if isinstance(share, str) else tuple(share)
+        by = {}
+        for key in keys:
+            mine = ([r for r in ops if r[2] == key] if key.startswith("aten::")
+                    else [r for r in kernels if key in r[2]])
+            by[key] = dict(ms=sum(r[0] for r in mine),
+                           launches=sum(r[1] for r in mine))
+            log(f"[profile]   kernels of *{key}*: {by[key]['ms']:.3f} ms "
+                f"({by[key]['launches']} launches) of {busy:.2f} ms busy")
+        res = dict(share_key="|".join(keys), shares=by,
+                   share_ms=sum(v["ms"] for v in by.values()),
+                   share_launches=sum(v["launches"] for v in by.values()))
     return dict(res, wall_ms=wall, walls_ms=walls, device_busy_ms=busy,
                 device_kernels=sum(r[1] for r in kernels),
                 ops=[dict(ms=ms, count=n, name=name) for ms, n, name
@@ -1317,7 +1443,7 @@ def serve_granite(torch, seed, report):
     dts = np.asarray([dt for dt, n in eng.step_times])
     per_fwd = _gemms_per_forward(cfg)
     want = {"fused_qlhs_matmul": per_fwd * (len(prompts) + steps),
-            "kv_dequant_rows": 2 * cfg.n_layers * steps}
+            "kv_dequant_rows_kv": cfg.n_layers * steps}
     res = dict(requests=len(done), tokens=n_tok, wall_s=wall,
                tok_per_s=n_tok / wall, decode_steps=steps,
                p50_step_ms=float(np.percentile(dts, 50)) * 1e3,
@@ -1375,21 +1501,21 @@ def _paged_engine(cfg, params, policy, seed, **kw):
 
 def _plain_gather():
     """A context in which the paged attention gathers through
-    ``kv_gather_pages``'s plain version (on the card)."""
+    ``kv_gather_pages_kv``'s plain version (on the card)."""
     import contextlib
     import importlib
-    from repro_torch.kernels import kv_gather_pages_plain
+    from repro_torch.kernels import kv_gather_pages_kv_plain
     # the module, not the function ``repro_torch.layers.attention``
     attention = importlib.import_module("repro_torch.layers.attention")
 
     @contextlib.contextmanager
     def ctx():
-        saved = attention.kv_gather_pages
-        attention.kv_gather_pages = kv_gather_pages_plain
+        saved = attention.kv_gather_pages_kv
+        attention.kv_gather_pages_kv = kv_gather_pages_kv_plain
         try:
             yield
         finally:
-            attention.kv_gather_pages = saved
+            attention.kv_gather_pages_kv = saved
     return ctx()
 
 
@@ -1431,7 +1557,7 @@ def serve_granite_paged(torch, seed, report, dense_eng, workload):
     tokens = {r: c.tokens for r, c in done.items()}
     per_fwd = _gemms_per_forward(cfg)
     want = {"fused_qlhs_matmul": per_fwd * (len(workload) + fwd),
-            "kv_gather_pages": 2 * cfg.n_layers * fwd}
+            "kv_gather_pages_kv": cfg.n_layers * fwd}
     n_tok = sum(len(t) for t in tokens.values())
     dts = np.asarray([dt for dt, _ in eng.step_times])
     res = dict(requests=len(done), tokens=n_tok, wall_s=wall,
@@ -1460,7 +1586,7 @@ def serve_granite_paged(torch, seed, report, dense_eng, workload):
     same_tok = {r: c.tokens for r, c in done_p.items()} == tokens
     same_log = seen.keys() == seen_p.keys() and all(
         torch.equal(seen[k], seen_p[k]) for k in seen)
-    log(f"[paged] replay through kv_gather_pages_plain: tokens equal "
+    log(f"[paged] replay through kv_gather_pages_kv_plain: tokens equal "
         f"{same_tok}, logits of all {len(seen)} decode samples "
         f"bit-identical {same_log}")
     check(same_tok and same_log and fwd_p == fwd,
@@ -1527,7 +1653,7 @@ def paged_features(torch, seed, report, params):
     st = eng.pool_stats()
     fwd = st["paged_forwards"]
     want = {"fused_qlhs_matmul": _gemms_per_forward(cfg) * (prefills + fwd),
-            "kv_gather_pages": 2 * cfg.n_layers * fwd}
+            "kv_gather_pages_kv": cfg.n_layers * fwd}
     log(f"[paged features] granite full width, 4 slots, page 16, pool "
         f"{st['n_pages']} pages, chunk 32, spec k=3: {len(tokens)} "
         f"requests in {steps} steps, {wall:.2f}s; prefix hits "
@@ -1544,7 +1670,7 @@ def paged_features(torch, seed, report, params):
     check(st["preemptions"] >= 1, "paged features: no preemption")
     with _plain_gather():
         _, tokens_p, _, _, _ = run()
-    log(f"[paged features] replay through kv_gather_pages_plain: tokens "
+    log(f"[paged features] replay through kv_gather_pages_kv_plain: tokens "
         f"equal {tokens_p == tokens}")
     check(tokens_p == tokens, "paged features: the plain-gather replay "
                               "differs")
@@ -1704,7 +1830,7 @@ def paged_reduced_exact(torch, seed, report):
         log(f"[paged reduced exact] {name}: tokens equal the dense "
             f"engine's {same}; prefix hits {st['prefix_hits']}, cow "
             f"{st['cow_copies']}, preemptions {st['preemptions']}, "
-            f"kv_gather_pages {counts['kv_gather_pages']}")
+            f"kv_gather_pages_kv {counts['kv_gather_pages_kv']}")
         check(sorted(out[0]) == sorted(out[1]),
               f"paged reduced exact {name}: requests differ")
         check(same or chunks, f"paged reduced exact {name}: tokens differ "
@@ -1713,8 +1839,10 @@ def paged_reduced_exact(torch, seed, report):
         partings = _explain_divergence(f"paged reduced exact {name}", out[0],
                                        out[1], *recs, cfg.vocab_size)
         res[name] = dict(same_tokens=same, partings=partings, pool=st)
-        check(counts["kv_gather_pages"] == 2 * cfg.n_layers
-              * st["paged_forwards"] and counts["kv_dequant_rows"] == 0,
+        check(counts["kv_gather_pages_kv"] == cfg.n_layers
+              * st["paged_forwards"] and counts["kv_gather_pages"]
+              == counts["kv_dequant_rows"] == counts["kv_dequant_rows_kv"]
+              == 0,
               f"paged reduced exact {name}: launches {counts}")
     check(res["prefix_cow"]["pool"]["cow_copies"] >= 1
           and res["preemption"]["pool"]["preemptions"] >= 1,
@@ -1736,7 +1864,8 @@ def _profile_paged_decode(torch, eng):
     step = lambda: eng.model.paged_decode(  # noqa: E731
         eng.params, pool, {"tokens": tok}, eng.policy, table, start,
         kv_quant=True)
-    return _profile(torch, step, f"one paged decode step ({B} lanes)")
+    return _profile(torch, step, f"one paged decode step ({B} lanes)",
+                    KV_SHARE)
 
 
 def serve_statquant(torch, seed, report) -> None:
@@ -1765,7 +1894,7 @@ def serve_statquant(torch, seed, report) -> None:
     steps = len(eng.step_times)
     want = {"fused_qlhs_matmul": _gemms_per_forward(cfg) * (len(prompts)
                                                            + steps),
-            "kv_dequant_rows": 2 * cfg.n_layers * steps}
+            "kv_dequant_rows_kv": cfg.n_layers * steps}
     _check_counts(counts, want, "statquant-tx")
     report["statquant"] = dict(
         requests=len(done), launches=counts,
@@ -1850,7 +1979,7 @@ def serve_granite_packed(torch, seed, report, dense_eng, workload):
         tokens, seen, counts, wall = serve(eng, reqs)
         steps = len(eng.step_times)
         want = {kernel: per_fwd * (len(reqs) + steps),
-                "kv_dequant_rows": 2 * cfg.n_layers * steps}
+                "kv_dequant_rows_kv": cfg.n_layers * steps}
         n_tok = sum(len(t) for t in tokens.values())
         dts = np.asarray([dt for dt, _ in eng.step_times])
         r = dict(requests=len(tokens), tokens=n_tok, wall_s=wall,
@@ -2278,15 +2407,19 @@ def _leaves(tree):
 # timings
 # ---------------------------------------------------------------------------
 
-def _time_ms(torch, fn, flush, iters: int) -> float:
+def _time_ms(torch, fn, flush, iters: int, read_flush=False) -> float:
     """Mean device time of one call of ``fn``: CUDA events around each of
     ``iters`` calls, each after an L2 flush (the serving path meets every
-    weight cold: 280 other projections stream through between two uses).
+    weight cold: 280 other projections stream through between two uses):
+    ``flush.zero_()``, which leaves the L2 full of dirty lines, or with
+    ``read_flush`` a read of ``flush``, which leaves it clean.
     All calls are queued behind a spin kernel, so the events time the
     device's work and not the host's dispatch of the call; the spin is
     sized from the host's time to queue a call (measured after warm-up),
     and the check below holds the host to having queued them all before
     the spin ended."""
+    flush_once = (lambda: flush.max()) if read_flush else flush.zero_
+    flush_once()                       # its first call may load a module
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2304,7 +2437,7 @@ def _time_ms(torch, fn, flush, iters: int) -> float:
     ev[0][1].record()
     t0 = time.perf_counter()
     for a, b in ev[1:]:
-        flush.zero_()
+        flush_once()
         a.record()
         fn()
         b.record()
@@ -2325,13 +2458,13 @@ def _bound(bytes_moved: float, ops: float, peak_ops: float):
 def time_kernels(torch, report) -> dict:
     from repro_torch.kernels import (fused_qlhs_matmul,
                                      fused_qlhs_matmul_plain,
-                                     kv_dequant_rows, kv_dequant_rows_plain,
-                                     kv_gather_pages, kv_gather_pages_plain,
                                      quantize_sr_rows, quantize_sr_rows_plain,
                                      quantize_sr_tensor,
                                      quantize_sr_tensor_plain)
     gen = torch.Generator(device="cuda").manual_seed(99)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    floor = time_floor(torch, gen, flush)
+    report["timing_floor"] = floor
     rows = []
     for M in (8, 128):
         for (K, N) in GRANITE_KN:
@@ -2367,35 +2500,7 @@ def time_kernels(torch, report) -> dict:
                      bound_by=by))
     log(f"[time] fused_qlhs_matmul {(M, K, N)}: kernel {ms:.4f} ms, plain "
         f"{plain:.4f} ms, _int_mm {lib:.4f} ms, bound {bound:.4f} ms ({by})")
-    for (M, N) in [(2048, 512), (33, 130)]:
-        c, s, z = kv_operands(torch, gen, M, N)
-        ms = _time_ms(torch, lambda: kv_dequant_rows(c, s, z), flush, 50)
-        plain = _time_ms(torch, lambda: kv_dequant_rows_plain(c, s, z),
-                         flush, 50)
-        bound, by = _bound(M * N + 8 * M + 4 * M * N, M * N, FP32_OPS_PER_S)
-        rows.append(dict(kernel="kv_dequant_rows", shape=[M, N], ms=ms,
-                         plain_ms=plain, library_ms=None, bound_ms=bound,
-                         bound_by=by))
-        log(f"[time] kv_dequant_rows {(M, N)}: kernel {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, bound {bound:.5f} ms ({by})")
-    # one layer's K or V read of a paged decode step: 8 lanes x 256
-    # positions x 512 features, pages of 16 (the smoke run's) and 8
-    for P in (16, 8):
-        ops = pool_operands(torch, gen, 8, P, 512)
-        B, nb = ops[3].shape
-        S, D = nb * P, 512
-        ms = _time_ms(torch, lambda: kv_gather_pages(*ops), flush, 50)
-        plain = _time_ms(torch, lambda: kv_gather_pages_plain(*ops), flush,
-                         50)
-        # codes and (scale, zero) of every gathered row, the table, f32 out
-        bound, by = _bound(B * S * (D + 8) + 4 * B * nb + 4 * B * S * D,
-                           B * S * D, FP32_OPS_PER_S)
-        rows.append(dict(kernel="kv_gather_pages", shape=[B, S, D],
-                         page_size=P, ms=ms, plain_ms=plain, library_ms=None,
-                         bound_ms=bound, bound_by=by))
-        log(f"[time] kv_gather_pages (B, nb*P, D) = {(B, S, D)} P={P}: "
-            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.5f} "
-            f"ms ({by})")
+    rows += time_kv(torch, gen, flush, floor)
     # the backward quantizes of the statquant-tx step and one of granite's
     for (M, N) in [(512, 512), (512, 1024), (512, 10240), (2048, 8192)]:
         x, rb = sr_operands(torch, gen, M, N)
@@ -2427,21 +2532,146 @@ def time_kernels(torch, report) -> dict:
                                   "library_ms")}
     # the line's numbers: the decode-step shapes for the serving kernels
     # (MLP up-projection, at 4 bits for the packed ones, and one layer's K
-    # or V read at 8 slots x 256 positions, pages of 16 for the gather),
-    # the lm_head GEMMs and gradient (the largest) for the training kernels
+    # and V read in one launch at 8 slots x 256 positions, pages of 16 for
+    # the gather), the lm_head GEMMs and gradient (the largest) for the
+    # training kernels
     return {"fused_qlhs_matmul": pick("fused_qlhs_matmul", [8, 2048, 8192]),
-            "kv_dequant_rows": pick("kv_dequant_rows", [2048, 512]),
+            "kv_dequant_rows": pick("kv_dequant_rows_kv", [2048, 512]),
             "fused_qlhs_matmul_dx": pick("fused_qlhs_matmul_dx",
                                          [512, 10240, 512]),
             "q8_matmul": pick("q8_matmul", [512, 10240, 512]),
             "fused_qboth_tn_matmul": pick("fused_qboth_tn_matmul",
                                           [512, 512, 10240]),
-            "kv_gather_pages": pick("kv_gather_pages", [8, 256, 512]),
+            "kv_gather_pages": pick("kv_gather_pages_kv", [8, 256, 512]),
             "quantize_sr_rows": pick("quantize_sr_rows", [512, 10240]),
             "quantize_sr_tensor": pick("quantize_sr_tensor", [512, 10240]),
             "fused_qlhs_packed_matmul": pick("fused_qlhs_packed_matmul",
                                              [8, 2048, 8192], 4),
             "packed_matmul": pick("packed_matmul", [8, 2048, 8192], 4)}
+
+
+def time_floor(torch, gen, flush) -> dict:
+    """The timing harness's per-call floor, before any kernel is timed:
+    ``_time_ms`` of a launch that moves almost nothing (the KV read at (1,
+    16), one side and the pair), with the ``zero_()`` flush every timed row
+    uses and with a read flush (the dirty-L2 share), and of no launch at
+    all (the events alone)."""
+    from repro_torch.kernels import kv_dequant_rows, kv_dequant_rows_kv
+    c, s, z = kv_operands(torch, gen, 1, 16)
+    calls = {"events only": lambda: None,
+             "kv_dequant_rows (1, 16)": lambda: kv_dequant_rows(c, s, z),
+             "kv_dequant_rows_kv (1, 16)":
+                 lambda: kv_dequant_rows_kv((c, s, z), (c, s, z))}
+    res = {}
+    for name, fn in calls.items():
+        res[name] = {flush_kind: _time_ms(torch, fn, flush, 50,
+                                          read_flush=read)
+                     for flush_kind, read in (("zero_", False),
+                                              ("read", True))}
+        log(f"[time] floor {name}: {res[name]['zero_']:.4f} ms after the "
+            f"zero_() flush (every timed row's), {res[name]['read']:.4f} "
+            f"ms after a read flush")
+    res["ms"] = res["kv_dequant_rows (1, 16)"]["zero_"]
+    return res
+
+
+def time_kv(torch, gen, flush, floor) -> list:
+    """The KV reads: one side as before at (2048, 512), (33, 130) and the
+    paged (8, 256, 512) with pages of 16 and 8; and K and V of one layer
+    at 8 slots or lanes x 256 positions (dense and pages of 16 and 8) and
+    x 4,096 positions (dense and pages of 16, from 1 + 2,048 pages), each
+    as the pair in one launch, as two single calls in a row, the plain
+    pair, every body of its kernel (forced through the C entry), beside
+    the floor and the bound: both sides' bytes (codes, scale and zero of
+    every row read once, the table once, f32 out) over 3.35 TB/s."""
+    from repro_torch.kernels import (kv_dequant, kv_dequant_rows,
+                                     kv_dequant_rows_kv,
+                                     kv_dequant_rows_kv_plain,
+                                     kv_dequant_rows_plain, kv_gather,
+                                     kv_gather_pages, kv_gather_pages_kv,
+                                     kv_gather_pages_kv_plain,
+                                     kv_gather_pages_plain)
+    rows = []
+    floor_ms = floor["ms"]
+    for (M, N) in [(2048, 512), (33, 130)]:
+        c, s, z = kv_operands(torch, gen, M, N)
+        ms = _time_ms(torch, lambda: kv_dequant_rows(c, s, z), flush, 50)
+        plain = _time_ms(torch, lambda: kv_dequant_rows_plain(c, s, z),
+                         flush, 50)
+        bound, by = _bound(M * N + 8 * M + 4 * M * N, M * N, FP32_OPS_PER_S)
+        rows.append(dict(kernel="kv_dequant_rows", shape=[M, N], ms=ms,
+                         plain_ms=plain, library_ms=None, bound_ms=bound,
+                         bound_by=by, floor_ms=floor_ms))
+        log(f"[time] kv_dequant_rows {(M, N)}: kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, floor {floor_ms:.4f} ms, bound {bound:.5f} "
+            f"ms ({by})")
+    for P in (16, 8):
+        ops = pool_operands(torch, gen, 8, P, 512)
+        B, nb = ops[3].shape
+        S, D = nb * P, 512
+        ms = _time_ms(torch, lambda: kv_gather_pages(*ops), flush, 50)
+        plain = _time_ms(torch, lambda: kv_gather_pages_plain(*ops), flush,
+                         50)
+        # codes and (scale, zero) of every gathered row, the table, f32 out
+        bound, by = _bound(B * S * (D + 8) + 4 * B * nb + 4 * B * S * D,
+                           B * S * D, FP32_OPS_PER_S)
+        rows.append(dict(kernel="kv_gather_pages", shape=[B, S, D],
+                         page_size=P, ms=ms, plain_ms=plain, library_ms=None,
+                         bound_ms=bound, bound_by=by, floor_ms=floor_ms))
+        log(f"[time] kv_gather_pages (B, nb*P, D) = {(B, S, D)} P={P}: "
+            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, floor "
+            f"{floor_ms:.4f} ms, bound {bound:.5f} ms ({by})")
+
+    def pair_row(kernel, shape, pair, singles, plain, bodies, nbytes, ops,
+                 extra):
+        iters = 50 if nbytes < 1e8 else 20
+        ms = _time_ms(torch, pair, flush, iters)
+        two = _time_ms(torch, singles, flush, iters)
+        plain_ms = _time_ms(torch, plain, flush, 5)
+        body_ms = {name: _time_ms(torch, fn, flush, iters)
+                   for name, fn in bodies.items()}
+        bound, by = _bound(nbytes, ops, FP32_OPS_PER_S)
+        rows.append(dict(kernel=kernel, shape=list(shape), ms=ms,
+                         two_single_ms=two, plain_ms=plain_ms,
+                         library_ms=None, bound_ms=bound, bound_by=by,
+                         floor_ms=floor_ms, bodies_ms=body_ms, **extra))
+        log(f"[time] {kernel} {tuple(shape)}"
+            + "".join(f" {k}={v}" for k, v in extra.items())
+            + f": pair {ms:.4f} ms, two single calls {two:.4f} ms, plain "
+            f"pair {plain_ms:.4f} ms, floor {floor_ms:.4f} ms, bound "
+            f"{bound:.5f} ms ({by}, {bound / ms:.2f} of it); bodies "
+            + ", ".join(f"{k} {v:.4f}" for k, v in body_ms.items()) + " ms")
+
+    for M, N in [(2048, 512), (32768, 512)]:
+        k, v = kv_pair_operands(torch, gen, M, N)
+        ks = (k[0], torch.clamp_min(k[1], 1e-12), k[2])
+        vs = (v[0], torch.clamp_min(v[1], 1e-12), v[2])
+        bodies = {name: (lambda b=b: kv_dequant._launch(
+            "kv_dequant_rows_kv", [k, v], M, N, 8, 1, b))
+            for name, b in KV_BODIES.items()}
+        pair_row("kv_dequant_rows_kv", (M, N),
+                 lambda: kv_dequant_rows_kv(k, v),
+                 lambda: (kv_dequant_rows(*ks), kv_dequant_rows(*vs)),
+                 lambda: kv_dequant_rows_kv_plain(k, v), bodies,
+                 2 * (M * N + 8 * M + 4 * M * N), 2 * M * N, {})
+        del k, v, ks, vs, bodies
+    for P, S in [(16, 256), (8, 256), (16, 4096)]:
+        k, v, table = pool_pair_operands(torch, gen, 8, P, 512, S=S)
+        B, nb = table.shape
+        D = 512
+        bodies = {name: (lambda b=b: kv_gather._launch(
+            "kv_gather_pages_kv", [k, v], table, 8, b))
+            for name, b in KV_BODIES.items()}
+        pair_row("kv_gather_pages_kv", (B, S, D),
+                 lambda: kv_gather_pages_kv(k, v, table),
+                 lambda: (kv_gather_pages(*k, table),
+                          kv_gather_pages(*v, table)),
+                 lambda: kv_gather_pages_kv_plain(k, v, table), bodies,
+                 2 * (B * S * (D + 8) + 4 * B * S * D) + 4 * B * nb,
+                 2 * B * S * D, dict(page_size=P))
+        del k, v, table, bodies
+    torch.cuda.empty_cache()
+    return rows
 
 
 def time_train_kernels(torch, gen, flush) -> list:
@@ -2627,11 +2857,12 @@ def step_wall(torch, seed) -> dict:
     host time a call (``_host_us``) at the statquant-tx step's (512, 512,
     512) and the forward at the decode (8, 2048, 8192), both packed GEMMs'
     device time at 4 bits (``_time_ms``) at the decode (8, 2048, 8192),
-    (128, 2048, 8192) and (512, 512, 10240), the packed forward's share of
-    a packed decode step (``packed_decode_share``), and
-    the training step's wall (statquant-tx full width, 8 x 64 tokens,
-    median of 10 steps after 2, no profiler) under the four policies the
-    smoke run profiles.  It uses only wrapper signatures and engine options that
+    (128, 2048, 8192) and (512, 512, 10240), the KV reads' device time
+    (``kv_times``), granite's decode step profiled dense, paged and from
+    packed weights with the KV reads' and the packed forward's shares
+    (``decode_profiles``), and the training step's wall (statquant-tx
+    full width, 8 x 64 tokens, median of 10 steps after 2, no profiler)
+    under the four policies the smoke run profiles.  It uses only wrapper signatures and engine options that
     older checkouts of the package share, so two compare in one call."""
     import numpy as np
     from repro_torch.configs import get_config
@@ -2669,7 +2900,8 @@ def step_wall(torch, seed) -> dict:
         packed_us[f"packed_matmul {(M, K, N)} w4"] = 1e3 * _time_ms(
             torch, lambda: packed_matmul(*unfused, wbits=4, kdim=K), flush,
             20)
-    decode = packed_decode_share(torch, seed)
+    kv_us = kv_times(torch, gen, flush)
+    decode = decode_profiles(torch, seed)
     cfg = get_config("statquant-tx")
     walls = {}
     for tag, quant, bits, fused in (("psq8", "psq", 8, None),
@@ -2687,15 +2919,57 @@ def step_wall(torch, seed) -> dict:
             ms.append((time.perf_counter() - t0) * 1e3)
         walls[tag] = dict(median_ms=float(np.median(ms[2:])), ms=ms[2:])
     return dict(host_us_per_call=host, packed_us=packed_us, step_wall=walls,
-                packed_decode=decode)
+                kv_us=kv_us, decode=decode)
 
 
-def packed_decode_share(torch, seed) -> dict:
-    """One full-batch granite-3-2b decode step from weights packed at 8
-    and at 4 bits (8 slots, full width and depth), profiled
-    (``_profile_decode``): its device busy time and the part of it in the
-    packed forward's kernels (names holding "qlhs": a packed engine runs no
-    other fused-quantize kernel)."""
+def kv_times(torch, gen, flush) -> dict:
+    """Device time (``_time_ms``, us) of a layer's KV read as the package
+    on ``sys.path`` does it: dense (2048, 512) and (32768, 512) a side, and
+    paged (8, 256, 512) and (8, 4096, 512) with pages of 16, as two single
+    calls (dense also with the clamp each side launched before its call
+    until the pair existed) and, where the package has it, as the pair."""
+    from repro_torch import kernels
+    pair = hasattr(kernels, "kv_dequant_rows_kv")
+    res = {}
+    for M, N in [(2048, 512), (32768, 512)]:
+        k, v = kv_pair_operands(torch, gen, M, N)
+        ks = (k[0], torch.clamp_min(k[1], 1e-12), k[2])
+        vs = (v[0], torch.clamp_min(v[1], 1e-12), v[2])
+        calls = {
+            "two single calls": lambda: (kernels.kv_dequant_rows(*ks),
+                                         kernels.kv_dequant_rows(*vs)),
+            "two clamps and single calls": lambda: tuple(
+                kernels.kv_dequant_rows(c, torch.clamp_min(s, 1e-12), z)
+                for c, s, z in (k, v))}
+        if pair:
+            calls["pair"] = lambda: kernels.kv_dequant_rows_kv(k, v)
+        for name, fn in calls.items():
+            res[f"kv_dequant_rows {(M, N)} {name}"] = 1e3 * _time_ms(
+                torch, fn, flush, 20)
+        del k, v, ks, vs
+    for S in (256, 4096):
+        k, v, table = pool_pair_operands(torch, gen, 8, 16, 512, S=S)
+        calls = {"two single calls": lambda: (
+            kernels.kv_gather_pages(*k, table),
+            kernels.kv_gather_pages(*v, table))}
+        if pair:
+            calls["pair"] = lambda: kernels.kv_gather_pages_kv(k, v, table)
+        for name, fn in calls.items():
+            res[f"kv_gather_pages (8, {S}, 512) P=16 {name}"] = 1e3 * _time_ms(
+                torch, fn, flush, 20)
+        del k, v, table
+    torch.cuda.empty_cache()
+    return res
+
+
+def decode_profiles(torch, seed) -> dict:
+    """One full-batch granite-3-2b decode step (8 slots, full width and
+    depth), profiled (``_profile``): dense lanes, paged (pages of 16), and
+    from weights packed at 8 and at 4 bits.  Each: device busy time, wall,
+    device kernels, and the device time and launches of the KV reads and
+    the clamps (``KV_SHARE``) and, packed, of the packed forward's kernels
+    (names holding "qlhs": a packed engine runs no other fused-quantize
+    kernel)."""
     from repro_torch.configs import get_config
     from repro_torch.core import QuantPolicy
     from repro_torch.models import build_model
@@ -2703,15 +2977,18 @@ def packed_decode_share(torch, seed) -> dict:
     cfg = get_config("granite-3-2b")
     params = build_model(cfg).init(seed, device="cuda")
     res = {}
-    for bits in (8, 4):
+    for tag, kw in (("dense", {}), ("paged", dict(paged=True, page_size=16)),
+                    ("w8", dict(weight_bits=8)), ("w4", dict(weight_bits=4))):
         eng = ServeEngine(cfg, params, policy=QuantPolicy.qat(
             backend="kernel"), slots=8, max_seq=256, kv_quant=True,
-            seed=seed, weight_bits=bits, device="cuda")
-        prof = _profile_decode(torch, eng, f"w{bits} packed", share="qlhs")
-        res[f"w{bits}"] = dict(
-            busy_ms=prof["device_busy_ms"], wall_ms=prof["wall_ms"],
-            forward_ms=prof["share_ms"],
-            forward_launches=prof["share_launches"])
+            seed=seed, device="cuda", **kw)
+        share = KV_SHARE + (("qlhs",) if tag.startswith("w") else ())
+        prof = (_profile_paged_decode(torch, eng) if tag == "paged" else
+                _profile_decode(torch, eng, tag, share=share))
+        res[tag] = dict(busy_ms=prof["device_busy_ms"],
+                        wall_ms=prof["wall_ms"],
+                        device_kernels=prof["device_kernels"],
+                        shares=prof["shares"])
         del eng
         torch.cuda.empty_cache()
     return res
@@ -2736,21 +3013,25 @@ def step_wall_trees(trees, seed) -> int:
         out = json.loads(r.stdout.strip().splitlines()[-1])
         res.append(dict(tree=str(tree), **out))
         log(f"[step wall] {tree}: " + json.dumps(out))
-    for name in res[0]["packed_decode"]:
-        log(f"[step wall] packed decode {name}: " + " | ".join(
-            f"{r['tree']} busy {r['packed_decode'][name]['busy_ms']:.2f} ms, "
-            f"packed forward {r['packed_decode'][name]['forward_ms']:.2f} ms "
-            f"({r['packed_decode'][name]['forward_launches']} launches)"
+    for name in res[0]["decode"]:
+        log(f"[step wall] decode step {name}: " + " | ".join(
+            f"{r['tree']} busy {r['decode'][name]['busy_ms']:.2f} ms, "
+            f"{r['decode'][name]['device_kernels']} kernels; "
+            + ", ".join(f"{k} {v['ms']:.3f} ms ({v['launches']}x)"
+                        for k, v in r["decode"][name]["shares"].items())
             for r in res))
     for key, unit in (("host_us_per_call", " us a call (host)"),
                       ("packed_us", " us a call (device)"),
+                      ("kv_us", " us a call (device)"),
                       ("step_wall", " ms a step")):
-        for name in res[0][key]:
-            vals = [r[key][name] for r in res]
-            vals = [v["median_ms"] if isinstance(v, dict) else v
+        names = dict.fromkeys(n for r in res for n in r[key])
+        for name in names:
+            vals = [r[key].get(name) for r in res]
+            vals = ["n/a" if v is None else
+                    f"{v['median_ms'] if isinstance(v, dict) else v:.2f}"
                     for v in vals]
             log(f"[step wall] {name}: "
-                + " | ".join(f"{r['tree']} {v:.2f}"
+                + " | ".join(f"{r['tree']} {v}"
                              for r, v in zip(res, vals)) + unit)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -6,16 +6,21 @@ int8, ``x ~= (c8 + 2^(b-1)) / scale + zero``.  Dequantization dispatches on
 the execution backend: ``kernel`` goes through
 :func:`~repro_torch.kernels.kv_dequant.kv_dequant_rows` (the CUDA kernel on
 the card), the other backends run its plain PyTorch version.
+:func:`dequant_kv_rows_kv` reads a layer's K and V together: one launch of
+:func:`~repro_torch.kernels.kv_dequant.kv_dequant_rows_kv` on ``kernel``,
+whose kernel clamps the scales itself.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..kernels.kv_dequant import kv_dequant_rows, kv_dequant_rows_plain
+from ..kernels.kv_dequant import (kv_dequant_rows, kv_dequant_rows_kv,
+                                  kv_dequant_rows_plain)
 from .quantizers import num_bins, range_scale
 
-__all__ = ["quantize_kv_rows", "dequant_kv_rows", "kv_fresh_code"]
+__all__ = ["quantize_kv_rows", "dequant_kv_rows", "dequant_kv_rows_kv",
+           "kv_fresh_code"]
 
 _EPS = 1e-12
 
@@ -58,3 +63,21 @@ def dequant_kv_rows(codes8: torch.Tensor, scale: torch.Tensor,
         return out.reshape(codes8.shape)
     return kv_dequant_rows_plain(codes8, scale[..., None], zero[..., None],
                                  bits)
+
+
+def dequant_kv_rows_kv(k, v, bits: int = 8, *, backend: str = "simulate"):
+    """:func:`dequant_kv_rows` of a layer's K and V.  ``k``, ``v``:
+    ``(codes8 (..., D) int8, scale (...,), zero (...,))`` of equal shapes.
+    Returns ``(k, v)``, each (..., D) f32, equal to two
+    :func:`dequant_kv_rows` calls.  On ``kernel`` one launch reads both
+    sides and clamps the scales in the kernel; the other backends clamp
+    with ``torch.clamp_min`` and run the plain version per side."""
+    if backend != "kernel":
+        return tuple(dequant_kv_rows(*side, bits, backend=backend)
+                     for side in (k, v))
+    shape = k[0].shape
+    d = shape[-1]
+    out = kv_dequant_rows_kv(
+        *((c.reshape(-1, d), s.reshape(-1, 1), z.reshape(-1, 1))
+          for c, s, z in (k, v)), bits=bits)
+    return tuple(o.reshape(shape) for o in out)

@@ -272,7 +272,10 @@ class BlockHouseholder(Quantizer):
 class KVCacheInt8(Quantizer):
     """The ``kv_cache`` role: deterministic per-row affine int8 cache codec
     (core/kv_cache.py), with the ``quantize_rows``/``dequant_rows`` pair
-    the decode attention path consumes."""
+    the decode attention path consumes, and the optional
+    ``dequant_rows_kv`` it prefers: a layer's K and V in one call (one
+    kernel launch on ``kernel``).  A codec without it is read one side at
+    a time."""
 
     name = "kv_int8"
     stochastic = False
@@ -292,6 +295,11 @@ class KVCacheInt8(Quantizer):
                      backend: str = "simulate"):
         from .kv_cache import dequant_kv_rows
         return dequant_kv_rows(codes8, scale, zero, bits, backend=backend)
+
+    def dequant_rows_kv(self, k, v, bits: int = 8, *,
+                        backend: str = "simulate"):
+        from .kv_cache import dequant_kv_rows_kv
+        return dequant_kv_rows_kv(k, v, bits, backend=backend)
 
 
 class PackedPTQWeight(Quantizer):

@@ -17,7 +17,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..core import (QuantPolicy, get_quantizer, kv_fresh_code,
                     resolve_kv_cache_spec)
-from ..kernels.kv_gather import kv_gather_pages, kv_gather_pages_plain
+from ..kernels.kv_gather import kv_gather_pages_kv, kv_gather_pages_kv_plain
 from .common import dense, init_dense
 from .embeddings import apply_rope
 
@@ -142,8 +142,9 @@ def decode_attention(p: dict, x: torch.Tensor, cache: dict,
     ``init_kv_cache_quant`` layout; the new row is written in place
     (quantized for the int8 layout), then the resident cache is read — for
     int8 through the backend ``policy.backend`` selects (``kernel`` = the
-    ``kv_dequant_rows`` CUDA kernel).  Each slot attends over positions
-    <= its index.  Returns (y (B, 1, d), cache) — the same cache object,
+    ``kv_dequant_rows_kv`` CUDA kernel, K and V in one launch, where the
+    codec has ``dequant_rows_kv``; else its ``dequant_rows`` a side).  Each
+    slot attends over positions <= its index.  Returns (y (B, 1, d), cache) — the same cache object,
     updated.
     """
     B = x.shape[0]
@@ -166,13 +167,14 @@ def decode_attention(p: dict, x: torch.Tensor, cache: dict,
             cache[side]["scale"][bidx, pos] = scale
             cache[side]["zero"][bidx, pos] = zero
         S = cache["k"]["codes"].shape[1]
-
-        def get(side):
-            rows = qz.dequant_rows(side["codes"], side["scale"],
-                                   side["zero"], bits,
-                                   backend=policy.backend)
-            return rows.reshape(B, S, KV, hd).to(x.dtype)
-        k, v = get(cache["k"]), get(cache["v"])
+        sides = [(c["codes"], c["scale"], c["zero"])
+                 for c in (cache["k"], cache["v"])]
+        if hasattr(qz, "dequant_rows_kv"):
+            rows = qz.dequant_rows_kv(*sides, bits, backend=policy.backend)
+        else:
+            rows = [qz.dequant_rows(*side, bits, backend=policy.backend)
+                    for side in sides]
+        k, v = (r.reshape(B, S, KV, hd).to(x.dtype) for r in rows)
     else:
         cache["k"][bidx, pos] = rows_k.to(cache["k"].dtype)
         cache["v"][bidx, pos] = rows_v.to(cache["v"].dtype)
@@ -232,9 +234,9 @@ def paged_decode_attention(p: dict, x: torch.Tensor, pool: dict,
     step's :func:`paged_write_index`, computed here when not given.  Row
     ``c`` is quantized and written at position ``start + c`` of its page
     (in place; where rows share a target the last one's value wins), then
-    the whole table is gathered and dequantized — through the
-    ``kv_gather_pages`` CUDA kernel on the ``kernel`` backend, its plain
-    version otherwise — and position ``start + c`` attends over every
+    the whole table is gathered and dequantized — K and V in one launch of
+    the ``kv_gather_pages_kv`` CUDA kernel on the ``kernel`` backend, its
+    plain version otherwise — and position ``start + c`` attends over every
     position ``<= start + c``.  A ``C = 1`` step is arithmetically the
     dense-lane :func:`decode_attention` step.  Positions clamp to the
     table's span ``nb * P - 1``: padding rows write the last row, which
@@ -264,14 +266,11 @@ def paged_decode_attention(p: dict, x: torch.Tensor, pool: dict,
         pool[side]["scale"][pids, rows] = scale.reshape(B, C)
         pool[side]["zero"][pids, rows] = zero.reshape(B, C)
 
-    gather = (kv_gather_pages if policy.backend == "kernel"
-              else kv_gather_pages_plain)
-
-    def get(side):
-        rows_f = gather(side["codes"], side["scale"], side["zero"], table,
-                        bits)
-        return rows_f.reshape(B, S, KV, hd).to(x.dtype)
-    k, v = get(pool["k"]), get(pool["v"])
+    gather = (kv_gather_pages_kv if policy.backend == "kernel"
+              else kv_gather_pages_kv_plain)
+    rows_f = gather(*((c["codes"], c["scale"], c["zero"])
+                      for c in (pool["k"], pool["v"])), table, bits)
+    k, v = (r.reshape(B, S, KV, hd).to(x.dtype) for r in rows_f)
     mask = (torch.arange(S, device=dev)[None, None, :]
             <= offs[:, :, None])                                   # (B, C, S)
     out = _sdpa(q.reshape(B, C, KV, G, hd), k, v, mask[:, None, None])

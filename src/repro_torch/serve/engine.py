@@ -15,7 +15,8 @@ static batch while requests stream through —
     until decode overwrites them).
   * **int8 KV cache** — ``kv_quant=True`` stores keys/values as per-row
     affine int8 codes; on the ``kernel`` backend every decode step reads
-    them through the ``kv_dequant_rows`` CUDA kernel.
+    each layer's K and V through one launch of the ``kv_dequant_rows_kv``
+    CUDA kernel.
 
 Determinism: sampling keys are ``fold_in(fold_in(PRNGKey(seed), rid),
 count)``, the JAX package's draw.  Under per-tensor forward quantizers the

@@ -11,9 +11,9 @@ same int8 codec as fixed-size **pages** in one pool shared by all lanes:
     it, and the position mask hides every read of it.
   * **gather decode** — each step runs the paged multi-token forward
     (models/lm.py ``lm_paged_decode``): quantize-on-write into the owning
-    page, then gather the whole table back through the ``kv_gather_pages``
-    CUDA kernel (the ``kernel`` backend on the card; its plain version
-    otherwise).  A one-token step is arithmetically the dense lane step,
+    page, then gather the whole table back, K and V in one launch of the
+    ``kv_gather_pages_kv`` CUDA kernel (the ``kernel`` backend on the card;
+    its plain version otherwise).  A one-token step is arithmetically the dense lane step,
     so with whole-prompt prefill and spec decode off the engine emits the
     dense engine's tokens at equal seeds, slots and submission order.
   * **prefix reuse** — at prefill completion every full-page prompt
@@ -212,7 +212,7 @@ class PagedServeEngine(ServeEngine):
     scheduler surface (``submit`` / ``step`` / ``run`` / ``completions``)
     is the dense engine's.  ``paged_forwards`` counts the paged forwards
     run (decode, chunk, draft and verify steps), each of which reads K and
-    V of every layer through ``kv_gather_pages``."""
+    V of every layer through one ``kv_gather_pages_kv`` launch."""
 
     def __init__(self, cfg, params, *, page_size: int = 8,
                  pages: Optional[int] = None,

@@ -1,8 +1,8 @@
 """The port's CUDA kernels on the card, each against its plain PyTorch
 version on the same inputs, bit for bit: ``fused_qlhs_matmul`` (the int8
 forward, deterministic and SR, and its dX mode), ``fused_qboth_tn_matmul``,
-``q8_matmul``, ``kv_dequant_rows``,
-``kv_gather_pages``, ``quantize_sr_rows``/``_tensor``,
+``q8_matmul``, ``kv_dequant_rows`` and ``kv_gather_pages`` (each also as
+the K-and-V pair in one launch, every body), ``quantize_sr_rows``/``_tensor``,
 ``fused_qlhs_packed_matmul`` and ``packed_matmul`` bit for bit (page-0
 tables, zero scales, SR bits across all 32 bits, 1/2/4/8-bit packed
 weights with ragged K, odd N, unaligned rows, full-range codes and every
@@ -458,7 +458,7 @@ def test_kv_dequant_rows_rows_off_the_16_byte_grid(cuda):
 
 def test_serving_runs_through_both_kernels(cuda):
     from repro_torch.configs import get_config
-    from repro_torch.kernels import fused_qlhs_matmul, kv_dequant_rows
+    from repro_torch.kernels import fused_qlhs_matmul, kv_dequant_rows_kv
     from repro_torch.models import build_model
     from repro_torch.serve import ServeEngine
     cfg = get_config("granite-3-2b", smoke=True)
@@ -467,12 +467,13 @@ def test_serving_runs_through_both_kernels(cuda):
                       kv_quant=True)
     ref = ServeEngine(cfg, params, slots=2, max_seq=32, kv_quant=True,
                       device="cpu")
-    f0, k0 = fused_qlhs_matmul.launches, kv_dequant_rows.launches
+    f0, k0 = fused_qlhs_matmul.launches, kv_dequant_rows_kv.launches
     for e in (eng, ref):
         e.submit([1, 2, 3], max_new=4)
         e.submit(list(range(5, 20)), max_new=4)
     got, want = eng.run(), ref.run()
-    assert fused_qlhs_matmul.launches > f0 and kv_dequant_rows.launches > k0
+    assert fused_qlhs_matmul.launches > f0
+    assert kv_dequant_rows_kv.launches > k0
     assert {r: c.tokens for r, c in got.items()} == \
         {r: c.tokens for r, c in want.items()}
 
@@ -559,6 +560,108 @@ def test_kv_gather_pages_bit_identical(cuda, shape, bits):
     assert torch.equal(got, want)
     with pytest.raises(ValueError, match="int32"):
         kv_gather_pages(*ops[:3], ops[3].long(), bits=bits)
+
+
+def _dense_pair(gen, M, N):
+    """K and V of a dense int8 cache layer, (codes, scale (M, 1), zero
+    (M, 1)) each, with zero scales in a few rows."""
+    from repro_torch.core import quantize_kv_rows
+    sides = []
+    for _ in range(2):
+        c, s, z = quantize_kv_rows(torch.randn(M, N, generator=gen,
+                                               device=gen.device) * 3)
+        s[::97] = 0.0
+        sides.append((c, s[:, None].contiguous(), z[:, None].contiguous()))
+    return sides
+
+
+# the bodies of the KV kernels (csrc/kv_dequant.cu, csrc/kv_gather.cu):
+# bulk, element
+KV_BODIES = (1, 2)
+
+
+@pytest.mark.parametrize("mn", [(2048, 512), (33, 130), (1, 16),
+                                (32768, 512), (5, 20000)])
+def test_kv_dequant_rows_kv_bit_identical(cuda, mn):
+    """K and V in one launch equal the plain pair (scales clamped) bit for
+    bit at the serving shape, ragged, tiny, a 4,096-token context of 8
+    slots and rows wider than a bulk tile; every body the operands allow
+    gives the same result, and the launch counts once."""
+    from repro_torch.kernels import (kv_dequant, kv_dequant_rows_kv,
+                                     kv_dequant_rows_kv_plain)
+    gen = torch.Generator(device=cuda).manual_seed(sum(mn))
+    k, v = _dense_pair(gen, *mn)
+    before = kv_dequant_rows_kv.launches
+    got = kv_dequant_rows_kv(k, v)
+    assert kv_dequant_rows_kv.launches == before + 1
+    want = kv_dequant_rows_kv_plain(k, v)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert torch.equal(g, w)
+    bulk = mn[1] % 16 == 0 and mn[1] <= 16384
+    for body in KV_BODIES:
+        if body == 1 and not bulk:
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                kv_dequant._launch("kv_dequant_rows_kv", [k, v], *mn, 8, 1,
+                                   body)
+            continue
+        out = kv_dequant._launch("kv_dequant_rows_kv", [k, v], *mn, 8, 1,
+                                 body)
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+
+
+def test_kv_dequant_rows_kv_rows_off_the_16_byte_grid(cuda):
+    """Rows of 40 codes from the second on (codes off the 16-byte grid):
+    the element path, in one launch for both sides."""
+    from repro_torch.kernels import (kv_dequant_rows_kv,
+                                     kv_dequant_rows_kv_plain)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    k, v = ((c[1:], s[1:].contiguous(), z[1:].contiguous())
+            for c, s, z in _dense_pair(gen, 9, 40))
+    assert k[0].data_ptr() % 16 != 0
+    for g, w in zip(kv_dequant_rows_kv(k, v), kv_dequant_rows_kv_plain(k, v)):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="equal shapes"):
+        kv_dequant_rows_kv(k, tuple(t[1:] for t in v))
+
+
+@pytest.mark.parametrize("shape", [(129, 16, 512, 8, 16), (129, 8, 512, 8, 32),
+                                   (11, 3, 40, 3, 5), (7, 5, 17, 2, 3),
+                                   (2049, 16, 512, 8, 256)])
+def test_kv_gather_pages_kv_bit_identical(cuda, shape):
+    """K and V gathered through one table in one launch equal the plain
+    pair bit for bit: granite's paged shapes (P = 16 and 8, D = 512, and a
+    4,096-token context of 8 lanes from 1 + 2,048 pages) and ragged ones,
+    with page-0 tables, repeated pages and zero scales; the bulk body,
+    where the operands allow it, and the element path agree, and the
+    launch counts once."""
+    from repro_torch.kernels import (kv_gather, kv_gather_pages_kv,
+                                     kv_gather_pages_kv_plain)
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    k = _pool_operands(gen, *shape)
+    v = _pool_operands(gen, *shape)[:3]
+    k, table = k[:3], k[3]
+    before = kv_gather_pages_kv.launches
+    got = kv_gather_pages_kv(k, v, table)
+    assert kv_gather_pages_kv.launches == before + 1
+    want = kv_gather_pages_kv_plain(k, v, table)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert torch.equal(g, w)
+    n_pages, P, D = shape[:3]
+    bulk = D % 16 == 0 and P % 4 == 0
+    for body in KV_BODIES if bulk else KV_BODIES[1:]:
+        out = kv_gather._launch("kv_gather_pages_kv", [k, v], table, 8, body)
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+    if not bulk:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            kv_gather._launch("kv_gather_pages_kv", [k, v], table, 8, body=1)
+    with pytest.raises(ValueError, match="int32"):
+        kv_gather_pages_kv(k, v, table.long())
 
 
 def _sr_operands(gen, M, N):
@@ -649,26 +752,33 @@ def test_unfused_training_step_runs_through_quantize_sr(cuda):
 
 
 def test_paged_serving_runs_through_kv_gather(cuda):
-    """The paged engine on the card launches kv_gather_pages twice per
-    layer per paged forward, never kv_dequant_rows, and emits the tokens
-    of the same run on the CPU (plain versions)."""
+    """The paged engine on the card launches the K-and-V gather once per
+    layer per paged forward, never a single-side gather or the dense KV
+    read, and emits the tokens of the same run on the CPU (plain
+    versions)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import kv_dequant_rows, kv_gather_pages
+    from repro_torch.kernels import (kv_dequant_rows, kv_dequant_rows_kv,
+                                     kv_gather_pages, kv_gather_pages_kv)
     from repro_torch.models import build_model
     from repro_torch.serve import ServeEngine
     cfg = get_config("granite-3-2b", smoke=True)
     params = build_model(cfg).init(0, device="cpu")
     out = {}
+    kv = (kv_gather_pages, kv_gather_pages_kv, kv_dequant_rows,
+          kv_dequant_rows_kv)
     for dev in ("cpu", "cuda"):
         eng = ServeEngine(cfg, _tree_to(params, dev), slots=2, max_seq=32,
                           kv_quant=True, paged=True, page_size=8,
                           device=dev)
-        kv_gather_pages.launches = kv_dequant_rows.launches = 0
+        for fn in kv:
+            fn.launches = 0
         eng.submit([1, 2, 3], max_new=4)
         eng.submit(list(range(5, 20)), max_new=4)
         out[dev] = {r: c.tokens for r, c in eng.run().items()}
-    assert kv_gather_pages.launches == 2 * cfg.n_layers * eng.paged_forwards
-    assert eng.paged_forwards > 0 and kv_dequant_rows.launches == 0
+    assert kv_gather_pages_kv.launches == cfg.n_layers * eng.paged_forwards
+    assert eng.paged_forwards > 0
+    assert kv_gather_pages.launches == kv_dequant_rows.launches == 0
+    assert kv_dequant_rows_kv.launches == 0
     assert out["cuda"] == out["cpu"]
 
 
