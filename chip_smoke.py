@@ -5,10 +5,10 @@
     python3 chip_smoke.py --step-wall TREE [TREE ...]
 
 The second form only times the GEMM wrappers' host cost a call, the KV
-reads' device time, the training step's wall and profiles granite's
-decode step (dense, paged, from packed weights) for the package of each
-checkout TREE, one process each, in the order given
-(``step_wall_trees``).
+reads' and SR quantizers' device time, the training step's wall and
+profiles granite's decode step (dense, paged, from packed weights) and
+the unfused training step for the package of each checkout TREE, one
+process each, in the order given (``step_wall_trees``).
 
 From the root of a checkout, on a machine with one CUDA card and the CUDA
 toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
@@ -27,7 +27,10 @@ toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
      line with its shape and dynamic shared memory and one with the
      blocks the card runs at once in clusters of 1..8 as the library
      reports it (what the wrappers plan with) beside
-     ``kernels/splitk.py``'s table.
+     ``kernels/splitk.py``'s table; and the SR quantizers' card numbers
+     (``quantize_sr.on_card``) beside their H100 default, with each
+     ``sr_shapes`` plan's occupancy model held to the card's occupancy
+     calculator.
   3. Holds each kernel against its plain PyTorch version on the card, bit
      for bit, and a second call against the first: ``fused_qlhs_matmul``
      (the int8 forward) at every (K, N) of granite-3-2b's serving path for
@@ -46,9 +49,17 @@ toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
      or lanes at a 4,096-token context ((32768, 512) a side; pages of 16
      from 1 + 2,048), every kernel body forced through the C entry; and
      ``quantize_sr_rows``/``quantize_sr_tensor`` at every backward shape
-     of the statquant-tx step, at granite's (2048, N) and ragged, with SR
-     bits spanning all 32 bits, all bit for bit; ``q8_matmul`` also at the
-     forward and dW (``tn``) shapes of the unfused step.
+     of the statquant-tx step, at granite's (2048, N), ragged and at
+     widths off the 4-code grid, with SR bits spanning all 32 bits, codes,
+     scale and zero bit for bit and twice: through the wrappers and under
+     every plan forced through the C entries (each cluster size with the
+     row's share staged whole, a third and none; the tensor's planned
+     grid, 7 blocks, one an SM and the resident grid, staged as far as
+     shared memory holds, an eighth and none), also on row views off the
+     16-byte grid, and on a constant tensor, one of -0.0 and +0.0 only and
+     one whose extremes are its last elements, at 4 and 8 bits
+     (``sr_kernels_vs_plain``); ``q8_matmul`` also at the forward and dW
+     (``tn``) shapes of the unfused step.
   4. Serves granite-3-2b at full width (40 layers, random weights from the
      seed) through ``ServeEngine(slots=8, max_seq=256, kv_quant=True)`` on
      the ``kernel`` backend: 16 requests, prompts of 16-128 tokens,
@@ -157,7 +168,10 @@ toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
      decode up-projection at 8, 4, 2 and 1 bits (at 8 bits also at every
      other decode GEMM of granite), and at lm_head, (128, 2048, 8192) and
      (512, 512, 10240) at 4 bits, with ``torch._int_mm`` on the unpacked
-     codes.  Then profiles one granite decode step
+     codes; both SR quantizers at (512, 512), (512, 1024), (512, 10240)
+     and (2048, 8192) beside their plain versions, the floor and the
+     bound, each one device kernel a call (``time_sr``).  Then profiles
+     one granite decode step
      (dense, paged, and from 8- and 4-bit packed weights, with the packed
      forward's share) and one training step under each policy (fused and
      unfused): wall time, device busy time and idle share, device time by
@@ -258,6 +272,7 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
     report["int8_mma_build"] = int8_mma_build(built)
+    report["quantize_sr_build"] = quantize_sr_build(built)
 
     errs = kernel_vs_plain(torch, report)
     errs.update(train_kernel_vs_plain(torch, report))
@@ -399,6 +414,43 @@ def int8_mma_build(built) -> dict:
             f"queried {list(got)}; kernels/splitk.py table "
             f"{list(tile.capacity)}")
     return out
+
+
+def quantize_sr_build(built) -> dict:
+    """The SR quantizers' card numbers as their library reports them
+    (``quantize_sr.on_card``: SMs, shared memory, and each kernel mode's
+    blocks an SM by threads and registers, what the wrappers plan with)
+    beside ``kernels/quantize_sr.py``'s H100 default, ``-Xptxas -v``'s
+    registers and spills, and at every ``sr_shapes`` shape each plan
+    beside the occupancy calculator's blocks an SM at its shared memory,
+    which must equal the plan's model (a cooperative grid the model
+    overcounts would be refused)."""
+    import ctypes
+    import re
+    from repro_torch.kernels import quantize_sr as q
+    from repro_torch.kernels.build import load_function
+    text = built.get("quantize_sr", {}).get("log", "")
+    regs = [int(v) for v in re.findall(r"Used (\d+) registers", text)]
+    spill = [int(v) for v in re.findall(r"(\d+) bytes spill stores", text)]
+    card = q.on_card()
+    log(f"[build] quantize_sr: card {card}; kernels/quantize_sr.py H100 "
+        f"default {'equal' if card == q.H100 else q.H100}; ptxas over "
+        f"{len(regs)} kernels: registers {regs}, spill stores {spill}")
+    occ = load_function("quantize_sr", "quantize_sr_occupancy",
+                        (ctypes.c_int, ctypes.c_int))
+    plans = []
+    for M, N in sr_shapes():
+        for plan in (q.rows_plan(M, N, card), q.tensor_plan(M * N, card)):
+            model = card.blocks_per_sm(plan.mode, plan.smem)
+            got = occ(plan.mode, plan.smem)
+            plans.append(dict(plan=str(plan), model=model, occupancy=got))
+            check(model == got, f"quantize_sr plan {plan}: the model says "
+                                f"{model} blocks an SM, the card {got}")
+        log(f"[build] quantize_sr {(M, N)}: {plans[-2]['plan']}, "
+            f"{plans[-1]['plan']}; blocks an SM {plans[-2]['occupancy']}, "
+            f"{plans[-1]['occupancy']} (the model's too)")
+    return dict(card=dataclasses.asdict(card), default_equal=card == q.H100,
+                registers=regs, spill_store_bytes=spill, plans=plans)
 
 
 # ---------------------------------------------------------------------------
@@ -766,9 +818,6 @@ def train_kernel_vs_plain(torch, report) -> dict:
                                      fused_qlhs_matmul,
                                      fused_qlhs_matmul_plain, q8_matmul,
                                      q8_matmul_plain)
-    from repro_torch.kernels import (quantize_sr_rows, quantize_sr_rows_plain,
-                                     quantize_sr_tensor,
-                                     quantize_sr_tensor_plain)
     gen = torch.Generator(device="cuda").manual_seed(4321)
     dx, dw = train_shapes()
     rows = []
@@ -830,28 +879,149 @@ def train_kernel_vs_plain(torch, report) -> dict:
         ops = q8_unfused_operands(torch, gen, M, K, N)
         exact("q8_matmul", (M, K, N), lambda: q8_matmul(*ops),
               lambda: q8_matmul_plain(*ops), "unfused roles")
-    for i, (M, N) in enumerate(sr_shapes()):
-        bits = 8 if i % 3 else 4
-        x, rb = sr_operands(torch, gen, M, N)
-        for name, kern, plain in (
-                ("quantize_sr_rows", quantize_sr_rows, quantize_sr_rows_plain),
-                ("quantize_sr_tensor", quantize_sr_tensor,
-                 quantize_sr_tensor_plain)):
-            got, ref = kern(x, rb, bits), plain(x, rb, bits)
-            torch.cuda.synchronize()
-            same = all(g.shape == r.shape and torch.equal(g, r)
-                       for g, r in zip(got, ref))
-            err = max(float((g.float() - r.float()).abs().max())
-                      for g, r in zip(got, ref))
-            rows.append(dict(kernel=name, shape=[M, N], bits=bits,
-                             max_abs_err=err, bit_identical=same))
-            log(f"[kernel] {name} {(M, N)} bits={bits} codes, scale, zero "
-                f"bit-identical={same}")
-            check(same, f"{name} {(M, N)} bits={bits}: differs from plain "
-                        f"by {err}")
-            worst[name] = max(worst[name], err)
+    report["sr_device_kernels_per_call"] = sr_kernels_vs_plain(
+        torch, gen, rows, worst)
     report["train_kernel_vs_plain"] = rows
     return worst
+
+
+def sr_rows_plans(M, N, card):
+    """Every plan of quantize_sr_rows at (M, N) the C entry can be forced
+    to: the row held in registers where it fits, and each cluster size
+    with the row's share staged whole, a third of it, and not at all
+    (read twice)."""
+    from repro_torch.kernels import quantize_sr as q
+    if N <= q.REG_ROW:
+        yield q.RowsPlan(M, N, 1, q._span(N, 1), 0, 0, regs=True)
+    for c in (1, 2, 4, 8):
+        span = q._span(N, c)
+        for stage in sorted({0, span + 4, max(4, span // 12 * 4)}):
+            smem = q.stage_bytes(stage)
+            mode = q.rows_mode(c, stage < span + 4)
+            if smem + card.static_smem[mode] <= card.smem_per_block:
+                yield q.RowsPlan(M, N, c, span, stage, smem)
+
+
+def sr_tensor_plans(n, card):
+    """Plans of quantize_sr_tensor over n elements: the planned grid, 7
+    blocks, one an SM and the card's resident grid (and one block up to 6
+    M elements), each chunk staged whole where the blocks' shared memory
+    holds it, as far as it reaches, an eighth of it, and not at all."""
+    from repro_torch.kernels import quantize_sr as q
+    grids = {q.tensor_plan(n, card).grid, 7, card.sms,
+             card.sms * min(card.blocks[q.TENSOR:])}
+    if n <= 6_000_000:
+        grids.add(1)
+    for g in sorted(grids):
+        chunk, per = q._span(n, g), -(-g // card.sms)
+        most = min(chunk + 4, card.stage_for(q.TENSOR + 1, per))
+        for stage in sorted({0, most, min(most, max(4, chunk // 32 * 4))}):
+            plan = q.TensorPlan(n, g, chunk, stage, q.stage_bytes(stage))
+            if card.blocks_per_sm(plan.mode, plan.smem) >= per:
+                yield plan
+
+
+def sr_kernels_vs_plain(torch, gen, rows, worst) -> dict:
+    """quantize_sr_rows and quantize_sr_tensor against their plain versions,
+    codes, scale and zero bit for bit and a second call bit-identical to
+    the first: the wrappers at every ``sr_shapes`` shape and at widths off
+    the 4-code grid, and every plan of ``sr_rows_plans`` /
+    ``sr_tensor_plans`` forced through the C entries there, also on row
+    views off the 16-byte grid (the tensor minus its first row); then a
+    constant tensor (scale B / 1e-12), one whose only values are -0.0 and
+    +0.0, and one whose extremes are its last two elements (the last
+    chunk, the last block), at 4 and 8 bits.  The sign of a zero ``zero``
+    is not held: ``torch.amin`` over -0.0 and +0.0 returns either, by the
+    order it reduces in.  Then the device kernels a call of each wrapper
+    at the timed shapes (``SR_TIMED``), which must be one: the range is
+    reduced in the same launch.  Returns those counts."""
+    from repro_torch.kernels import quantize_sr as q
+    card = q.on_card()
+
+    def same(got, ref):
+        return all(g.shape == r.shape and torch.equal(g, r)
+                   for g, r in zip(got, ref))
+
+    def exact3(name, shape, fn, ref, tag):
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        ok, repeat = same(got, ref), same(got, again)
+        err = max(float((g.float() - r.float()).abs().max())
+                  for g, r in zip(got, ref))
+        rows.append(dict(kernel=name, shape=list(shape), case=tag,
+                         max_abs_err=err, bit_identical=ok,
+                         repeat_identical=repeat))
+        check(ok, f"{name} {shape} {tag}: differs from plain by {err}")
+        check(repeat, f"{name} {shape} {tag}: two calls differ")
+        worst[name] = max(worst[name], err)
+
+    shapes = sr_shapes() + [(64, 4099), (7, 8191), (5, 40003), (3, 140001)]
+    for i, (M, N) in enumerate(shapes):
+        bits = 8 if i % 3 else 4
+        x, rb = sr_operands(torch, gen, M, N)
+        views = [("", x, rb)]
+        if M > 1 and M * N < 30_000_000:
+            views.append(("rows off the 16-byte grid", x[1:], rb[1:]))
+        forced = 0
+        for vtag, xv, rv in views:
+            Mv = xv.shape[0]
+            ref_r = q.quantize_sr_rows_plain(xv, rv, bits)
+            ref_t = q.quantize_sr_tensor_plain(xv, rv, bits)
+            for name, fn, ref in (
+                    ("quantize_sr_rows", q.quantize_sr_rows, ref_r),
+                    ("quantize_sr_tensor", q.quantize_sr_tensor, ref_t)):
+                exact3(name, (Mv, N), lambda: fn(xv, rv, bits), ref,
+                       f"{bits}-bit {vtag}")
+            for plan in sr_rows_plans(Mv, N, card):
+                exact3("quantize_sr_rows", (Mv, N),
+                       lambda: q._rows_launch(xv, rv, bits, plan), ref_r,
+                       f"{bits}-bit {vtag} forced {plan}")
+                forced += 1
+            for plan in sr_tensor_plans(Mv * N, card):
+                exact3("quantize_sr_tensor", (Mv, N),
+                       lambda: q._tensor_launch(xv, rv, bits, plan), ref_t,
+                       f"{bits}-bit {vtag} forced {plan}")
+                forced += 1
+        log(f"[kernel] quantize_sr_rows/_tensor {(M, N)} bits={bits}: "
+            f"codes, scale, zero bit-identical to plain, twice, through "
+            f"the wrappers and {forced} forced plans"
+            + (", also on rows off the 16-byte grid" if len(views) > 1
+               else ""))
+        del x, rb, views
+        torch.cuda.empty_cache()
+    for tag, make in (
+            ("constant", lambda x: torch.full_like(x, 0.25)),
+            ("only -0.0 and +0.0", lambda x: torch.where(
+                x < 0, torch.zeros_like(x).neg_(), torch.zeros_like(x))),
+            ("extremes last", None)):
+        for M, N in ((512, 10240), (2048, 8192), (33, 130)):
+            x, rb = sr_operands(torch, gen, M, N)
+            if make is None:
+                x[-1, -1], x[-1, -2] = 1.0, -1.0
+            else:
+                x = make(x)
+            for bits in (4, 8):
+                for name, fn, plain in (
+                        ("quantize_sr_rows", q.quantize_sr_rows,
+                         q.quantize_sr_rows_plain),
+                        ("quantize_sr_tensor", q.quantize_sr_tensor,
+                         q.quantize_sr_tensor_plain)):
+                    exact3(name, (M, N), lambda: fn(x, rb, bits),
+                           plain(x, rb, bits), f"{tag}, {bits}-bit")
+        log(f"[kernel] quantize_sr_rows/_tensor {tag} at (512, 10240), "
+            f"(2048, 8192), (33, 130), 4 and 8 bits: bit-identical, twice")
+    per_call = {}
+    for M, N in SR_TIMED:
+        x, rb = sr_operands(torch, gen, M, N)
+        for name, fn in (("quantize_sr_rows", q.quantize_sr_rows),
+                         ("quantize_sr_tensor", q.quantize_sr_tensor)):
+            n = _kernels_per_call(torch, lambda: fn(x, rb, 8))
+            per_call[f"{name} {(M, N)}"] = n
+            check(n == 1, f"{name} {(M, N)}: {n} device kernels a call")
+        del x, rb
+    log(f"[kernel] quantize_sr device kernels a call (torch.profiler): "
+        f"{per_call}")
+    return per_call
 
 
 def redesign_edge_cases(torch, gen, exact) -> None:
@@ -2457,10 +2627,7 @@ def _bound(bytes_moved: float, ops: float, peak_ops: float):
 
 def time_kernels(torch, report) -> dict:
     from repro_torch.kernels import (fused_qlhs_matmul,
-                                     fused_qlhs_matmul_plain,
-                                     quantize_sr_rows, quantize_sr_rows_plain,
-                                     quantize_sr_tensor,
-                                     quantize_sr_tensor_plain)
+                                     fused_qlhs_matmul_plain)
     gen = torch.Generator(device="cuda").manual_seed(99)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     floor = time_floor(torch, gen, flush)
@@ -2501,24 +2668,8 @@ def time_kernels(torch, report) -> dict:
     log(f"[time] fused_qlhs_matmul {(M, K, N)}: kernel {ms:.4f} ms, plain "
         f"{plain:.4f} ms, _int_mm {lib:.4f} ms, bound {bound:.4f} ms ({by})")
     rows += time_kv(torch, gen, flush, floor)
-    # the backward quantizes of the statquant-tx step and one of granite's
-    for (M, N) in [(512, 512), (512, 1024), (512, 10240), (2048, 8192)]:
-        x, rb = sr_operands(torch, gen, M, N)
-        for name, kern, plain_fn in (
-                ("quantize_sr_rows", quantize_sr_rows, quantize_sr_rows_plain),
-                ("quantize_sr_tensor", quantize_sr_tensor,
-                 quantize_sr_tensor_plain)):
-            ms = _time_ms(torch, lambda: kern(x, rb, 8), flush, 20)
-            plain = _time_ms(torch, lambda: plain_fn(x, rb, 8), flush, 5)
-            # f32 x and int64 bits in, int8 codes and (scale, zero) out;
-            # the tensor mode's wrapper reads x once more for its aminmax
-            bound, by = _bound(13 * M * N + 8 * M, 6 * M * N,
-                               FP32_OPS_PER_S)
-            rows.append(dict(kernel=name, shape=[M, N], ms=ms,
-                             plain_ms=plain, library_ms=None,
-                             bound_ms=bound, bound_by=by))
-            log(f"[time] {name} {(M, N)}: kernel {ms:.4f} ms, plain "
-                f"{plain:.4f} ms, bound {bound:.5f} ms ({by})")
+    rows += time_sr(torch, gen, flush, floor,
+                    report["sr_device_kernels_per_call"])
     rows += time_train_kernels(torch, gen, flush)
     report["split_sweep"] = split_sweep(torch, gen, flush)
     rows += time_packed_kernels(torch, gen, flush)
@@ -2548,6 +2699,109 @@ def time_kernels(torch, report) -> dict:
             "fused_qlhs_packed_matmul": pick("fused_qlhs_packed_matmul",
                                              [8, 2048, 8192], 4),
             "packed_matmul": pick("packed_matmul", [8, 2048, 8192], 4)}
+
+
+SR_TIMED = [(512, 512), (512, 1024), (512, 10240), (2048, 8192),
+            (2048, 49408)]
+
+
+def time_sr(torch, gen, flush, floor, per_call) -> list:
+    """The backward quantizes of the statquant-tx step (512 tokens: d_model,
+    d_ff and lm_head wide) and two of granite's (2048 tokens x d_ff and x
+    the vocabulary), each wrapper with its plan beside its plain version,
+    the harness's floor and the bound (f32 x and int64 bits in, int8 codes
+    and the (scale, zero) pairs out, once each), and the device kernels a
+    call (``per_call``, profiled in ``sr_kernels_vs_plain``); at N >= 8192
+    also the sweep of its neighbouring plans (``sr_sweep``)."""
+    from repro_torch.kernels import quantize_sr as q
+    card = q.on_card()
+    rows = []
+    for (M, N) in SR_TIMED:
+        x, rb = sr_operands(torch, gen, M, N)
+        for name, kern, plain_fn, plan in (
+                ("quantize_sr_rows", q.quantize_sr_rows,
+                 q.quantize_sr_rows_plain, q.rows_plan(M, N, card)),
+                ("quantize_sr_tensor", q.quantize_sr_tensor,
+                 q.quantize_sr_tensor_plain, q.tensor_plan(M * N, card))):
+            ms = _time_ms(torch, lambda: kern(x, rb, 8), flush, 20)
+            plain = _time_ms(torch, lambda: plain_fn(x, rb, 8), flush, 5)
+            launched = per_call[f"{name} {(M, N)}"]
+            bound, by = _bound(13 * M * N + 8 * M, 6 * M * N,
+                               FP32_OPS_PER_S)
+            rows.append(dict(kernel=name, shape=[M, N], ms=ms,
+                             plain_ms=plain, library_ms=None,
+                             bound_ms=bound, bound_by=by,
+                             floor_ms=floor["ms"], plan=str(plan),
+                             device_kernels_per_call=launched))
+            log(f"[time] {name} {(M, N)}: kernel {ms:.4f} ms ({launched} "
+                f"device kernel a call; {plan}), plain {plain:.4f} ms, "
+                f"floor {floor['ms']:.4f} ms, bound {bound:.5f} ms ({by}), "
+                f"{bound / ms:.2f} of it")
+        rows += sr_sweep(torch, flush, x, rb, card)
+        del x, rb
+        torch.cuda.empty_cache()
+    return rows
+
+
+def sr_sweep(torch, flush, x, rb, card) -> list:
+    """The plans the wrappers chose against their neighbours, forced through
+    the C entries: rows held in registers (up to ``REG_ROW`` columns) and
+    with 1, 2, 4 and 8 blocks a row (each block's share staged whole where
+    it fits a block; up to 2 below 8,192 columns), the tensor with 1 to 4
+    blocks an SM (each chunk staged as far as its share of the SM
+    holds)."""
+    from repro_torch.kernels import quantize_sr as q
+    M, N = x.shape
+    out = []
+    plans = ([q.RowsPlan(M, N, 1, q._span(N, 1), 0, 0, regs=True)]
+             if N <= q.REG_ROW else [])
+    for c in (1, 2, 4, 8) if N >= 8192 else (1, 2):
+        span = q._span(N, c)
+        stage = min(span + 4, card.stage_for(q.rows_mode(c, True), 1))
+        plans.append(q.RowsPlan(M, N, c, span, stage, q.stage_bytes(stage)))
+    for plan in plans:
+        out.append(dict(kernel="quantize_sr_rows sweep", shape=[M, N],
+                        plan=str(plan), ms=_time_ms(
+                            torch, lambda: q._rows_launch(x, rb, 8, plan),
+                            flush, 20)))
+    for per in (1, 2, 3, 4):
+        grid = per * card.sms
+        chunk = q._span(M * N, grid)
+        stage = min(chunk + 4, card.stage_for(q.TENSOR + 1, per))
+        plan = q.TensorPlan(M * N, grid, chunk, stage, q.stage_bytes(stage))
+        if card.blocks_per_sm(plan.mode, plan.smem) < per:
+            continue
+        out.append(dict(kernel="quantize_sr_tensor sweep", shape=[M, N],
+                        plan=str(plan), ms=_time_ms(
+                            torch, lambda: q._tensor_launch(x, rb, 8, plan),
+                            flush, 20)))
+    for r in out:
+        log(f"[sweep] {r['kernel']} {(M, N)}: {r['ms']:.4f} ms, {r['plan']}")
+    return out
+
+
+def _kernels_per_call(torch, fn) -> float:
+    """Device kernels a call of ``fn`` runs: torch.profiler over a window of
+    calls after a warm-up.  A session of a few short kernels has come back
+    with no device kernel at all on the card (after a process's first few
+    sessions); no call runs none, so such a session is repeated over a
+    longer window (8, 64, then 256 calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for calls in (8, 64, 256):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0)
+        if n:
+            return n / calls
+    return 0.0
 
 
 def time_floor(torch, gen, flush) -> dict:
@@ -2858,12 +3112,16 @@ def step_wall(torch, seed) -> dict:
     512) and the forward at the decode (8, 2048, 8192), both packed GEMMs'
     device time at 4 bits (``_time_ms``) at the decode (8, 2048, 8192),
     (128, 2048, 8192) and (512, 512, 10240), the KV reads' device time
-    (``kv_times``), granite's decode step profiled dense, paged and from
-    packed weights with the KV reads' and the packed forward's shares
-    (``decode_profiles``), and the training step's wall (statquant-tx
-    full width, 8 x 64 tokens, median of 10 steps after 2, no profiler)
-    under the four policies the smoke run profiles.  It uses only wrapper signatures and engine options that
-    older checkouts of the package share, so two compare in one call."""
+    (``kv_times``), the SR quantizers' device time and device kernels a
+    call (``sr_times``), granite's decode step profiled dense, paged and
+    from packed weights with the KV reads' and the packed forward's shares
+    (``decode_profiles``), the training step's wall (statquant-tx full
+    width, 8 x 64 tokens, median of 10 steps after 2, no profiler) under
+    the four policies the smoke run profiles, and one unfused step under
+    ``fqt(psq,8)`` and ``fqt(ptq,8)`` profiled (busy, device kernels, the
+    SR quantizers' share).  It uses only wrapper signatures and engine
+    options that older checkouts of the package share, so two compare in
+    one call."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import (build, fused_qboth_tn_matmul,
@@ -2901,6 +3159,7 @@ def step_wall(torch, seed) -> dict:
             torch, lambda: packed_matmul(*unfused, wbits=4, kdim=K), flush,
             20)
     kv_us = kv_times(torch, gen, flush)
+    sr_us, sr_kernels = sr_times(torch, gen, flush)
     decode = decode_profiles(torch, seed)
     cfg = get_config("statquant-tx")
     walls = {}
@@ -2918,8 +3177,37 @@ def step_wall(torch, seed) -> dict:
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
         walls[tag] = dict(median_ms=float(np.median(ms[2:])), ms=ms[2:])
+    train = {}
+    for quant in ("psq", "ptq"):
+        prof = _profile(torch, _one_step(_train_engine(
+            cfg, quant, 8, "kernel", seed, fused=False)),
+            f"one training step, {quant}8 unfused", share="quantize_sr")
+        train[f"{quant}8 unfused"] = dict(
+            busy_ms=prof["device_busy_ms"], wall_ms=prof["wall_ms"],
+            device_kernels=prof["device_kernels"], shares=prof["shares"])
     return dict(host_us_per_call=host, packed_us=packed_us, step_wall=walls,
-                kv_us=kv_us, decode=decode)
+                kv_us=kv_us, sr_us=sr_us, sr_kernels_per_call=sr_kernels,
+                decode=decode, train=train)
+
+
+def sr_times(torch, gen, flush):
+    """Device time (``_time_ms``, us) of ``quantize_sr_rows`` and
+    ``quantize_sr_tensor`` as the package on ``sys.path`` runs them, at the
+    timed shapes (``SR_TIMED``), and the device kernels one call of each
+    runs at (512, 512)."""
+    from repro_torch.kernels import quantize_sr_rows, quantize_sr_tensor
+    us, kernels = {}, {}
+    for M, N in SR_TIMED:
+        x, rb = sr_operands(torch, gen, M, N)
+        for name, fn in (("quantize_sr_rows", quantize_sr_rows),
+                         ("quantize_sr_tensor", quantize_sr_tensor)):
+            us[f"{name} {(M, N)}"] = 1e3 * _time_ms(
+                torch, lambda: fn(x, rb, 8), flush, 20)
+            if (M, N) == SR_TIMED[0]:
+                kernels[name] = _kernels_per_call(torch, lambda: fn(x, rb, 8))
+        del x, rb
+    torch.cuda.empty_cache()
+    return us, kernels
 
 
 def kv_times(torch, gen, flush) -> dict:
@@ -3020,9 +3308,19 @@ def step_wall_trees(trees, seed) -> int:
             + ", ".join(f"{k} {v['ms']:.3f} ms ({v['launches']}x)"
                         for k, v in r["decode"][name]["shares"].items())
             for r in res))
+    for name in res[0]["train"]:
+        log(f"[step wall] training step {name}: " + " | ".join(
+            f"{r['tree']} busy {r['train'][name]['busy_ms']:.2f} ms, "
+            f"{r['train'][name]['device_kernels']} kernels; "
+            + ", ".join(f"{k} {v['ms']:.3f} ms ({v['launches']}x)"
+                        for k, v in r["train"][name]["shares"].items())
+            for r in res))
+    log("[step wall] device kernels a call at (512, 512): " + " | ".join(
+        f"{r['tree']} {r['sr_kernels_per_call']}" for r in res))
     for key, unit in (("host_us_per_call", " us a call (host)"),
                       ("packed_us", " us a call (device)"),
                       ("kv_us", " us a call (device)"),
+                      ("sr_us", " us a call (device)"),
                       ("step_wall", " ms a step")):
         names = dict.fromkeys(n for r in res for n in r[key])
         for name in names:

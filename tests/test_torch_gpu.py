@@ -1012,3 +1012,176 @@ def test_packed_kernels_odd_n_and_unaligned_rows(cuda, wbits):
         assert torch.equal(packed_matmul(*unfused, wbits=wbits, kdim=K),
                            packed_matmul_plain(*unfused, wbits=wbits,
                                                kdim=K))
+
+
+def _sr_plans(q, card, M, N):
+    """Every launch plan the SR quantizers' C entries can be forced to at
+    (M, N): the row held in registers where it fits, each cluster size
+    with the row's share staged whole, a third of it and none; the
+    tensor's planned grid, 7 blocks, one an SM and the
+    card's resident grid, each chunk staged as far as the blocks' shared
+    memory holds it, an eighth of it, and not at all."""
+    rows, tensor = [], []
+    if N <= q.REG_ROW:
+        rows.append(q.RowsPlan(M, N, 1, q._span(N, 1), 0, 0, regs=True))
+    for c in (1, 2, 4, 8):
+        span = q._span(N, c)
+        for stage in sorted({0, span + 4, max(4, span // 12 * 4)}):
+            smem = q.stage_bytes(stage)
+            mode = q.rows_mode(c, stage < span + 4)
+            if smem + card.static_smem[mode] <= card.smem_per_block:
+                rows.append(q.RowsPlan(M, N, c, span, stage, smem))
+    n = M * N
+    for g in sorted({q.tensor_plan(n, card).grid, 7, card.sms,
+                     card.sms * min(card.blocks[q.TENSOR:])}):
+        chunk, per = q._span(n, g), -(-g // card.sms)
+        most = min(chunk + 4, card.stage_for(q.TENSOR + 1, per))
+        for stage in sorted({0, most, min(most, max(4, chunk // 32 * 4))}):
+            plan = q.TensorPlan(n, g, chunk, stage, q.stage_bytes(stage))
+            if card.blocks_per_sm(plan.mode, plan.smem) >= per:
+                tensor.append(plan)
+    return rows, tensor
+
+
+@pytest.mark.parametrize("mn", [(512, 10240), (2048, 8192), (64, 4099),
+                                (7, 8191), (3, 140001), (33, 130), (16, 1)])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_sr_every_plan_bit_identical(cuda, mn, bits):
+    """Both SR quantizers under every plan (forced through the C entries)
+    equal their plain versions bit for bit, on the tensor and on its row
+    view off the 16-byte grid, twice; the wrappers count one launch a
+    call."""
+    from repro_torch.kernels import quantize_sr as q
+    card = q.on_card()
+    gen = torch.Generator(device=cuda).manual_seed(sum(mn) + bits)
+    x, rb = _sr_operands(gen, *mn)
+    views = [(x, rb)] + ([(x[1:], rb[1:])] if mn[0] > 1 else [])
+    for xv, rv in views:
+        M, N = xv.shape
+        want_r = q.quantize_sr_rows_plain(xv, rv, bits)
+        want_t = q.quantize_sr_tensor_plain(xv, rv, bits)
+        rows, tensor = _sr_plans(q, card, M, N)
+        for launch, plans, want in ((q._rows_launch, rows, want_r),
+                                    (q._tensor_launch, tensor, want_t)):
+            for plan in plans:
+                for _ in range(2):
+                    got = launch(xv, rv, bits, plan)
+                    torch.cuda.synchronize()
+                    for g, w in zip(got, want):
+                        assert g.shape == w.shape and torch.equal(g, w), plan
+        for kern, want in ((q.quantize_sr_rows, want_r),
+                           (q.quantize_sr_tensor, want_t)):
+            n0 = kern.launches
+            for g, w in zip(kern(xv, rv, bits), want):
+                assert torch.equal(g, w)
+            assert kern.launches == n0 + 1
+
+
+@pytest.mark.parametrize("case", ["constant", "zeros", "extremes last"])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_sr_edge_tensors(cuda, case, bits):
+    """A constant tensor (scale B / 1e-12), one of -0.0 and +0.0 only (the
+    sign of a zero ``zero`` is the reduction order's, in torch.amin too),
+    and one whose extremes are its last two elements (the last chunk and
+    the last block)."""
+    from repro_torch.kernels import quantize_sr as q
+    gen = torch.Generator(device=cuda).manual_seed(bits)
+    for M, N in ((512, 10240), (2048, 8192), (33, 130)):
+        x, rb = _sr_operands(gen, M, N)
+        if case == "constant":
+            x = torch.full_like(x, 0.25)
+        elif case == "zeros":
+            x = torch.where(x < 0, torch.zeros_like(x).neg_(),
+                            torch.zeros_like(x))
+        else:
+            x[-1, -1], x[-1, -2] = 1.0, -1.0
+        for kern, plain in ((q.quantize_sr_rows, q.quantize_sr_rows_plain),
+                            (q.quantize_sr_tensor,
+                             q.quantize_sr_tensor_plain)):
+            for g, w in zip(kern(x, rb, bits), plain(x, rb, bits)):
+                assert torch.equal(g, w)
+
+
+def _device_kernels(fn) -> int:
+    """Device kernels one call of ``fn`` runs (torch.profiler, after a
+    warm-up call); a session that reports none at all is repeated, twice
+    at most (seen once after earlier sessions in a process; no call here
+    runs none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    n = 0
+    for _ in range(3):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0)
+        if n:
+            break
+    return n
+
+
+def test_quantize_sr_plans_and_launches_on_the_card(cuda):
+    """The plans' occupancy model equals the card's occupancy calculator
+    at every planned shared memory size, and each wrapper is one device
+    kernel a call (the tensor mode reduces its range in the same
+    cooperative launch)."""
+    import ctypes
+    from repro_torch.kernels import quantize_sr as q
+    from repro_torch.kernels.build import load_function
+    card = q.on_card()
+    occ = load_function("quantize_sr", "quantize_sr_occupancy",
+                        (ctypes.c_int, ctypes.c_int))
+    for M, N in ((512, 512), (512, 10240), (2048, 8192), (2048, 49408),
+                 (16, 8192), (3, 5)):
+        rp, tp = q.rows_plan(M, N, card), q.tensor_plan(M * N, card)
+        for plan in (rp, tp):
+            assert card.blocks_per_sm(plan.mode, plan.smem) == \
+                occ(plan.mode, plan.smem)
+        assert tp.grid <= card.sms * occ(tp.mode, tp.smem)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x, rb = _sr_operands(gen, 512, 1024)
+    assert _device_kernels(lambda: q.quantize_sr_rows(x, rb, 8)) == 1
+    assert _device_kernels(lambda: q.quantize_sr_tensor(x, rb, 8)) == 1
+
+
+def test_unfused_ptq_step_runs_one_kernel_a_tensor_quantize(cuda,
+                                                            monkeypatch):
+    """A reduced statquant-tx step under ``fqt(ptq, 8)`` unfused: with the
+    plain tensor quantizer swapped in, the step runs exactly (kernels of a
+    plain call - 1) more device kernels for each ``quantize_sr_tensor``
+    call, so each call through the wrapper is one kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import QuantPolicy
+    from repro_torch.core import backend
+    from repro_torch.data import make_batch_for
+    from repro_torch.engine import init_train_state, make_step_fn
+    from repro_torch.kernels import quantize_sr as q
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, cosine_schedule
+    cfg = get_config("statquant-tx", smoke=True)
+    model = build_model(cfg)
+    step = make_step_fn(model, QuantPolicy.fqt("ptq", 8, backend="kernel",
+                                               fused=False),
+                        adamw(), cosine_schedule(3e-3, 4, 1))
+    batch = _tree_to(make_batch_for(cfg, 4, 16, step=0), cuda)
+    state = init_train_state(model, adamw(), 0, device="cpu")
+    state.params = _tree_to(state.params, cuda)
+    state.opt_state = {k: (v if k == "t" else _tree_to(v, cuda))
+                       for k, v in state.opt_state.items()}
+    n0 = q.quantize_sr_tensor.launches
+    kernel = _device_kernels(lambda: step(state, batch))
+    calls = (q.quantize_sr_tensor.launches - n0) // 2
+    assert calls == 2 * 13
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x, rb = _sr_operands(gen, 64, 48)
+    per_plain = _device_kernels(
+        lambda: q.quantize_sr_tensor_plain(x, rb, 8))
+    monkeypatch.setattr(backend, "quantize_sr_tensor",
+                        q.quantize_sr_tensor_plain)
+    plain = _device_kernels(lambda: step(state, batch))
+    assert plain - kernel == calls * (per_plain - 1)
