@@ -176,6 +176,33 @@ toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
      forward's share) and one training step under each policy (fused and
      unfused): wall time, device busy time and idle share, device time by
      op and by kernel.
+ 10. (run after 8, before the timings of 9) ``[ckpt train]``:
+     statquant-tx at full width trains 6 steps under ``fqt(bhq,5)`` and
+     ``fqt(psq,8)`` against 3 steps with an asynchronous checkpoint and a
+     new engine resuming to 6, and against a run stopped by
+     ``PreemptionHandler.request_stop`` after step 4 (checkpointed
+     synchronously) and resumed: losses and every leaf of params, m and
+     v, step, t and rng equal (``torch.equal``; a leaf that differs is a
+     port fault).  Prints the checkpoint's bytes on disk, the snapshot
+     time in the loop, the write time on the worker thread and the
+     restore time.  ``[ckpt serve]``: ``ServeEngine.from_checkpoint`` on
+     that checkpoint dense, ``paged=True`` and ``weight_bits=4`` serves
+     the statquant-tx requests of 7 with the tokens of the engine built
+     from the same params in memory, through its kernels.
+ 11. ``[native]``: statquant-tx training on the ``native`` backend
+     (``torch._int_mm``), each step from ``simulate``'s state: full
+     width, losses within rtol 1e-3 / atol 5e-3 and every backward GEMM
+     within rtol 1e-3 + 5e-3 x max|ref| of ``simulate``, no hand-written
+     kernel launched; reduced config, losses and gradient norms within
+     rtol 1e-3 / atol 5e-3; the step wall beside the ``kernel`` backend's.
+ 12. ``[theory]``: ``quantizer_variance`` (exact) against
+     ``empirical_mean_and_variance`` (64 draws) for PTQ and PSQ (through
+     the ``quantize_sr`` kernels) and BHQ at 5 and 8 bits on a (512,
+     10240) gradient in the paper's outlier regime: the empirical
+     variance within 6 sd of its expectation, the unbiasedness ratio in
+     [0.5, 2], bhq < psq < ptq; and ``fqt_gradient_stats`` of full-width
+     statquant-tx (16 draws) against its QAT gradient under
+     ``fqt(psq,8)`` and ``fqt(bhq,5)`` (Theorem 1 on the card).
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -288,6 +315,10 @@ def main(argv=None) -> int:
     train = train_statquant(torch, args.seed, report)
     unfused = train_unfused(torch, args.seed, report)
     packed_train = train_packed(torch, args.seed, report)
+    serve_from = ckpt_train(torch, args.seed, report)
+    ckpt_serve(torch, args.seed, report, serve_from)
+    native_train(torch, args.seed, report)
+    theory_phase(torch, args.seed, report)
     timings = time_kernels(torch, report)
     serve["profile_decode_step"] = _profile_decode(torch, granite_engine,
                                                    share=KV_SHARE)
@@ -2039,7 +2070,6 @@ def _profile_paged_decode(torch, eng):
 
 
 def serve_statquant(torch, seed, report) -> None:
-    import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import QuantPolicy
     from repro_torch.models import build_model
@@ -2049,9 +2079,7 @@ def serve_statquant(torch, seed, report) -> None:
     eng = ServeEngine(cfg, params, policy=QuantPolicy.qat(backend="kernel"),
                       slots=4, max_seq=64, kv_quant=True, seed=seed,
                       device="cuda")
-    rng = np.random.RandomState(seed + 1)
-    prompts = [rng.randint(0, cfg.vocab_size, size=int(rng.randint(4, 33)))
-               .tolist() for _ in range(4)]
+    prompts = _statquant_prompts(cfg, seed)
     for p in prompts:
         eng.submit(p, max_new=8)
     _reset_counts()
@@ -2323,9 +2351,10 @@ def _step_gemms(torch, eng):
 
 
 def _backward_vs(torch, eng, quant, bits, tag, fused=None,
-                          against=("simulate", None)) -> dict:
-    """Each backward GEMM of one step re-run from its (x, w, key, g) on the
-    kernel backend (with ``fused``) and on the reference ``against``
+                          against=("simulate", None),
+                          backend="kernel") -> dict:
+    """Each backward GEMM of one step re-run from its (x, w, key, g) on
+    ``backend`` (with ``fused``) and on the reference ``against``
     (backend, fused): dX and dW within rtol 1e-3 / atol 5e-3 (the repo's
     cross-backend tolerance), and within rtol 1e-3 plus an atol of
     ``GRAD_ATOL_FRAC`` times the reference's max|.| — the gradients lie
@@ -2344,10 +2373,9 @@ def _backward_vs(torch, eng, quant, bits, tag, fused=None,
     for path, x, w, key, g in calls:
         check(g is not None, f"{tag}: no gradient reached {path}")
         grads = []
-        for backend, fz in (("kernel", fused), against):
+        for bk, fz in ((backend, fused), against):
             xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
-            y = fqt_matmul(xr, wr, key,
-                           _train_policy(quant, bits, backend, fz),
+            y = fqt_matmul(xr, wr, key, _train_policy(quant, bits, bk, fz),
                            path=path)
             grads.append(torch.autograd.grad(y, (xr, wr), g))
         for name, got, ref in zip(("dx", "dw"), grads[0], grads[1]):
@@ -2360,16 +2388,16 @@ def _backward_vs(torch, eng, quant, bits, tag, fused=None,
             worst[name + "_ref"] = max(worst[name + "_ref"], peak)
             worst[name + "_margin"] = max(worst[name + "_margin"], margin)
             check(within_tol(got, ref),
-                  f"{tag}: {path} x {tuple(x.shape)}: kernel vs {ref_name} "
-                  f"{name} differ by {float(d.max())} beyond rtol "
+                  f"{tag}: {path} x {tuple(x.shape)}: {backend} vs "
+                  f"{ref_name} {name} differ by {float(d.max())} beyond rtol "
                   f"{RTOL}/atol {ATOL}")
             check(margin <= 1.0,
-                  f"{tag}: {path} x {tuple(x.shape)}: kernel vs {ref_name} "
+                  f"{tag}: {path} x {tuple(x.shape)}: {backend} vs {ref_name} "
                   f"{name} differ by {float(d.max())} beyond rtol {RTOL} "
                   f"+ {GRAD_ATOL_FRAC} * max|{name}| ({peak:.3g}); share "
                   f"of that tolerance used {margin:.3g}")
     log(f"[{tag}] every backward GEMM of one step ({n}) re-run from its "
-        f"(x, w, key, g): kernel vs {ref_name} max|d| dX {worst['dx']:.3g} "
+        f"(x, w, key, g): {backend} vs {ref_name} max|d| dX {worst['dx']:.3g} "
         f"(max|dX| {worst['dx_ref']:.3g}), dW {worst['dw']:.3g} (max|dW| "
         f"{worst['dw_ref']:.3g}) (checked, rtol {RTOL}, atol {ATOL}); "
         f"share of rtol {RTOL} + {GRAD_ATOL_FRAC}*max|ref| used, worst "
@@ -2571,6 +2599,511 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+# ---------------------------------------------------------------------------
+# checkpoints, serving from a checkpoint, the native backend, the theory
+# ---------------------------------------------------------------------------
+
+CKPT_STEPS = 6
+CKPT_EVERY = 3
+
+
+def _ckpt_engine(cfg, quant, bits, seed, **kw):
+    """``_train_engine``'s engine for CKPT_STEPS steps with the engine's
+    checkpoint options ``kw`` (``ckpt_dir``, ``ckpt_every``,
+    ``preemption``, ``log_fn``)."""
+    from repro_torch.engine import Engine
+    kw.setdefault("log_fn", None)
+    return Engine(cfg, _train_policy(quant, bits, "kernel"),
+                  steps=CKPT_STEPS, batch_size=8, seq_len=64, seed=seed,
+                  device="cuda", log_every=1, **kw)
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], f"{prefix}/{k}" if prefix
+                                     else k)
+    else:
+        yield prefix, tree
+
+
+def _state_diff(torch, a, b) -> list:
+    """The leaves of two TrainStates that are not bit-identical."""
+    out = []
+    for name, x, y in (("params", a.params, b.params),
+                       ("m", a.opt_state["m"], b.opt_state["m"]),
+                       ("v", a.opt_state["v"], b.opt_state["v"])):
+        for (path, p), (_, q) in zip(_named_leaves(x), _named_leaves(y)):
+            if not torch.equal(p, q):
+                out.append(f"{name}/{path} (max|d| "
+                           f"{float((p - q).abs().max()):.3g})")
+    for name, p, q in (("step", a.step, b.step),
+                       ("t", a.opt_state["t"], b.opt_state["t"])):
+        if p != q:
+            out.append(f"{name} {p} vs {q}")
+    if not torch.equal(a.rng, b.rng):
+        out.append(f"rng {a.rng.tolist()} vs {b.rng.tolist()}")
+    return out
+
+
+def ckpt_train(torch, seed, report):
+    """[ckpt train]: statquant-tx at full width, 8 x 64 tokens, on the
+    kernel backend under ``fqt(bhq,5)`` (the launcher's default) and
+    ``fqt(psq,8)``: CKPT_STEPS uninterrupted steps against CKPT_EVERY
+    steps with an asynchronous checkpoint and a new engine that resumes to
+    CKPT_STEPS; and a run stopped by ``PreemptionHandler.request_stop``
+    after step 4, checkpointed synchronously and resumed.  Losses must be
+    equal and every leaf of params, m and v, step, t and rng
+    ``torch.equal``: a leaf that differs is a port fault and fails the
+    phase.  Returns the bhq directory (its step-3 checkpoint) and the
+    params the checkpointing engine held at step 3."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import PreemptionHandler
+    cfg = get_config("statquant-tx")
+    n = _gemms_per_forward(cfg)
+    root = ROOT / "build" / "ckpt_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    res, serve_from = {}, None
+    for quant, bits in (("bhq", 5), ("psq", 8)):
+        tag = f"ckpt train {quant}{bits}"
+        t_phase = time.perf_counter()
+        full = _ckpt_engine(cfg, quant, bits, seed)
+        _reset_counts()
+        h_full = full.run()
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        want = {"fused_qlhs_matmul": n * CKPT_STEPS,
+                "fused_qboth_tn_matmul": n * CKPT_STEPS,
+                ("fused_qlhs_matmul_dx" if quant == "psq" else "q8_matmul"):
+                    n * CKPT_STEPS}
+        _check_counts(counts, want, tag)
+        d = root / f"{quant}{bits}"
+        e1 = _ckpt_engine(cfg, quant, bits, seed, ckpt_dir=str(d),
+                          ckpt_every=CKPT_EVERY)
+        h1 = e1.run(steps=CKPT_EVERY)
+        e2 = _ckpt_engine(cfg, quant, bits, seed, ckpt_dir=str(d),
+                          ckpt_every=100)
+        h2 = e2.run()
+        torch.cuda.synchronize()
+        diff = _state_diff(torch, e2.state, full.state)
+        log(f"[{tag}] {CKPT_STEPS} steps {[round(v, 6) for _, v in h_full]}"
+            f"; {CKPT_EVERY} + checkpoint + resumed {CKPT_STEPS - CKPT_EVERY}"
+            f" {[round(v, 6) for _, v in h1 + h2]}; leaves that differ: "
+            f"{len(diff)} {diff[:4]}")
+        check(h1 + h2 == h_full, f"{tag}: resumed losses {h1 + h2} differ "
+                                 f"from the uninterrupted run's {h_full}")
+        check(not diff, f"{tag}: port fault, the resumed state differs from "
+                        f"the uninterrupted one in {diff[:8]}")
+        # preemption: stop after step 4 (index 3), synchronous checkpoint
+        d2 = root / f"{quant}{bits}_preempt"
+        prm = PreemptionHandler()
+
+        def stop_after_4(msg):
+            if msg.startswith("[engine] step     3 "):
+                prm.request_stop()
+        e3 = _ckpt_engine(cfg, quant, bits, seed, ckpt_dir=str(d2),
+                          ckpt_every=CKPT_EVERY, preemption=prm,
+                          log_fn=stop_after_4)
+        h3 = e3.run()
+        e4 = _ckpt_engine(cfg, quant, bits, seed, ckpt_dir=str(d2),
+                          ckpt_every=100)
+        h4 = e4.run()
+        torch.cuda.synchronize()
+        diff_p = _state_diff(torch, e4.state, full.state)
+        steps = e3.ckpt.all_steps()
+        log(f"[{tag}] preempted after step {len(h3)} (checkpoints {steps}), "
+            f"resumed to {e4.state.step}: leaves that differ: "
+            f"{len(diff_p)} {diff_p[:4]}")
+        check([s for s, _ in h3] == [0, 1, 2, 3] and steps == [3, 4],
+              f"{tag}: the preempted run ran {[s for s, _ in h3]} and wrote "
+              f"{steps}, not steps 0-3 and checkpoints [3, 4]")
+        check(h3 + h4 == h_full, f"{tag}: the preempted and resumed losses "
+                                 f"{h3 + h4} differ from {h_full}")
+        check(not diff_p, f"{tag}: port fault, the state resumed after the "
+                          f"preemption differs in {diff_p[:8]}")
+        st1, st3 = e1.ckpt.stats, e3.ckpt.stats
+        nbytes = e1.ckpt.nbytes(CKPT_EVERY)
+        res[quant] = dict(
+            losses=[v for _, v in h_full], ckpt_bytes=nbytes,
+            async_snapshot_s=st1["snapshot_s"][0],
+            async_write_s=st1["write_s"][0],
+            restore_s=e2.ckpt.stats["restore_s"][0],
+            sync_snapshot_s=st3["snapshot_s"][-1],
+            sync_write_s=st3["write_s"][-1],
+            restore_after_preempt_s=e4.ckpt.stats["restore_s"][0],
+            launches=counts, phase_s=time.perf_counter() - t_phase)
+        log(f"[{tag}] checkpoint {nbytes} bytes on disk; in the loop: async "
+            f"snapshot {res[quant]['async_snapshot_s']:.4f} s, write on the "
+            f"worker {res[quant]['async_write_s']:.4f} s; on preemption: "
+            f"snapshot {res[quant]['sync_snapshot_s']:.4f} s + write "
+            f"{res[quant]['sync_write_s']:.4f} s; restore "
+            f"{res[quant]['restore_s']:.4f} s; phase "
+            f"{res[quant]['phase_s']:.2f} s")
+        if serve_from is None:
+            serve_from = (str(d), e1.state.params)
+        del full, e1, e2, e3, e4
+        torch.cuda.empty_cache()
+    report["ckpt_train"] = res
+    return serve_from
+
+
+def _statquant_prompts(cfg, seed):
+    """The smoke run's statquant-tx serving requests (``serve_statquant``):
+    4 prompts of 4-32 tokens."""
+    import numpy as np
+    rng = np.random.RandomState(seed + 1)
+    return [rng.randint(0, cfg.vocab_size, size=int(rng.randint(4, 33)))
+            .tolist() for _ in range(4)]
+
+
+def ckpt_serve(torch, seed, report, serve_from) -> None:
+    """[ckpt serve]: ``ServeEngine.from_checkpoint`` on [ckpt train]'s bhq
+    directory (step 3, full-width statquant-tx) dense, ``paged=True``
+    (pages of 16) and ``weight_bits=4``, 4 slots: each serves the smoke
+    run's statquant-tx requests with the greedy tokens of the same engine
+    built from the checkpointing engine's params in memory (equal pool
+    size and submissions), through its kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import QuantPolicy
+    from repro_torch.serve import PagedServeEngine, ServeEngine
+    d, params = serve_from
+    cfg = get_config("statquant-tx")
+    prompts = _statquant_prompts(cfg, seed)
+    res = {}
+    for form, kw, kernels in (
+            ("dense", {}, ("fused_qlhs_matmul", "kv_dequant_rows_kv")),
+            ("paged", dict(paged=True, page_size=16),
+             ("fused_qlhs_matmul", "kv_gather_pages_kv")),
+            ("w4", dict(weight_bits=4),
+             ("fused_qlhs_packed_matmul", "kv_dequant_rows_kv"))):
+        tag = f"ckpt serve {form}"
+        t0 = time.perf_counter()
+        base = dict(policy=QuantPolicy.qat(backend="kernel"), slots=4,
+                    max_seq=64, kv_quant=True, seed=seed, device="cuda", **kw)
+        loaded = ServeEngine.from_checkpoint(cfg, d, **base)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        direct = ServeEngine(cfg, params, **base)
+        check(isinstance(loaded, PagedServeEngine) == (form == "paged"),
+              f"{tag}: built {type(loaded).__name__}")
+        outs = []
+        for eng in (loaded, direct):
+            for p in prompts:
+                eng.submit(p, max_new=8)
+            _reset_counts()
+            done = eng.run()
+            outs.append(({r: c.tokens for r, c in done.items()},
+                         _read_counts()))
+        (got, counts), (want, _) = outs
+        log(f"[{tag}] from the checkpoint in {load_s:.3f} s: {len(got)} "
+            f"requests, tokens equal to the in-memory engine's: "
+            f"{got == want}; launches {counts}")
+        check(len(got) == 4 and all(len(t) == 8 for t in got.values()),
+              f"{tag}: requests did not complete")
+        check(got == want, f"{tag}: tokens {got} differ from the in-memory "
+                           f"engine's {want}")
+        for name in kernels:
+            check(counts[name] > 0, f"{tag}: {name} never launched")
+        res[form] = dict(load_s=load_s, launches=counts, tokens=got)
+        del loaded, direct
+        torch.cuda.empty_cache()
+    report["ckpt_serve"] = res
+
+
+NATIVE_STEPS = 3
+
+
+def _clone_state(state):
+    """A TrainState whose tensors are copies (the step updates in place)."""
+    import dataclasses
+    from repro_torch.optim import tree_map
+    opt = {k: (v if k == "t" else tree_map(lambda t: t.clone(), v))
+           for k, v in state.opt_state.items()}
+    return dataclasses.replace(state, params=tree_map(
+        lambda t: t.clone(), state.params), opt_state=opt)
+
+
+def _carried_steps(torch, engines, steps):
+    """``steps`` steps of ``engines[0]`` from its initial state; before
+    each, every other engine takes the same step from a copy of that
+    state on the same batch.  Returns [(loss, grad norm)] per step for
+    each engine (a step's own cross-backend difference, not a
+    trajectory's)."""
+    ref = engines[0]
+    state = ref.init_state()
+    out = [[] for _ in engines]
+    for s in range(steps):
+        batch = ref.loader.get(s)
+        for i, eng in enumerate(engines[1:], 1):
+            _, m = eng.step_fn(_clone_state(state), batch)
+            out[i].append((float(m["loss"]), float(m["grad_norm"])))
+        state, m = ref.step_fn(state, batch)
+        out[0].append((float(m["loss"]), float(m["grad_norm"])))
+    return out
+
+
+def native_train(torch, seed, report) -> None:
+    """[native]: statquant-tx training on the ``native`` backend
+    (``torch._int_mm`` on the int8 codes) under ``fqt(psq,8)``, each step
+    from the state ``simulate``'s run carries (``_carried_steps``).
+
+    At full width (8 x 64 tokens), NATIVE_STEPS steps: finite, none of
+    the hand-written kernels launched, each step's loss within the repo's
+    cross-backend tolerance (rtol 1e-3, atol 5e-3) of ``simulate``'s; and
+    every backward GEMM of one step, re-run from its (x, w, key, dY) on
+    ``native`` and ``simulate``, within rtol 1e-3 plus 5e-3 x max|ref|
+    (``_backward_vs``).  The full-width gradient norms are printed beside
+    ``simulate``'s and ``kernel``'s, not held: per-tensor ``Q_f`` turns
+    the backends' float32 round-off (an exact int32 product and epilogue
+    against an fp32 product of dequantized values) into whole-code flips,
+    which move the gradient norm by a few tenths of a percent at this
+    width, ``kernel`` against ``simulate`` too, as in the JAX package
+    (ROADMAP queue 3, "Full width").  At the reduced config (4 x 16
+    tokens) the losses and gradient norms are held, as the repo holds end
+    to end.  Then the median step wall (10 steps after 2) beside the
+    ``kernel`` backend's, in this run."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.engine import Engine
+    cfg = get_config("statquant-tx")
+    t_phase = time.perf_counter()
+    engines = [_train_engine(cfg, "psq", 8, b, seed, steps=NATIVE_STEPS)
+               for b in ("simulate", "native", "kernel")]
+    sim, got, kern = _carried_steps(torch, engines, NATIVE_STEPS)
+    log(f"[native] {cfg.name} full width, fqt(psq,8), each step from "
+        f"simulate's state: (loss, grad norm) native {got} vs simulate "
+        f"{sim} (kernel {kern}; losses checked, rtol {RTOL}, atol {ATOL}; "
+        f"grad norms measured, not held)")
+    check(all(np.isfinite(v) for s in got for v in s), f"[native] {got}")
+    for s, (a, b) in enumerate(zip(got, sim)):
+        check(abs(a[0] - b[0]) <= ATOL + RTOL * abs(b[0]),
+              f"[native] step {s}: loss {a[0]} vs simulate {b[0]} beyond "
+              f"rtol {RTOL}/atol {ATOL}")
+    _reset_counts()
+    _replay(torch, engines[1], 1)
+    counts = _read_counts()
+    log(f"[native] hand-written kernel launches in one native step: "
+        f"{sum(counts.values())} (checked, none)")
+    check(not any(counts.values()), f"[native]: the native backend launched "
+                                    f"hand-written kernels {counts}")
+    gemms = _backward_vs(torch, engines[1], "psq", 8, "native",
+                         backend="native")
+    red = get_config("statquant-tx", smoke=True)
+    reduced = _carried_steps(torch, [
+        Engine(red, _train_policy("psq", 8, b), steps=NATIVE_STEPS,
+               batch_size=4, seq_len=16, seed=seed, device="cuda",
+               log_fn=None) for b in ("simulate", "native")], NATIVE_STEPS)
+    log(f"[native] reduced {red.name}, 4 x 16 tokens, each step from "
+        f"simulate's state: (loss, grad norm) native {reduced[1]} vs "
+        f"simulate {reduced[0]} (checked, rtol {RTOL}, atol {ATOL})")
+    for s, (a, b) in enumerate(zip(reduced[1], reduced[0])):
+        for name, x, y in (("loss", a[0], b[0]), ("grad norm", a[1], b[1])):
+            check(abs(x - y) <= ATOL + RTOL * abs(y),
+                  f"[native] reduced step {s}: {name} {x} vs simulate {y} "
+                  f"beyond rtol {RTOL}/atol {ATOL}")
+    walls = {}
+    for backend in ("native", "kernel"):
+        step = _one_step(_train_engine(cfg, "psq", 8, backend, seed,
+                                       steps=NATIVE_STEPS))
+        ms = []
+        for _ in range(12):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        walls[backend] = dict(median_ms=float(np.median(ms[2:])), ms=ms[2:])
+    log(f"[native] step wall, median of 10: native "
+        f"{walls['native']['median_ms']:.2f} ms, kernel "
+        f"{walls['kernel']['median_ms']:.2f} ms; phase "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    report["native"] = dict(native=got, simulate=sim, kernel=kern,
+                            launches=counts, backward_gemms_vs_simulate=gemms,
+                            reduced=dict(native=reduced[1],
+                                         simulate=reduced[0]), walls=walls)
+
+
+THEORY_DRAWS = 64
+FQT_DRAWS = 16
+
+
+def _variance_estimate_sd(torch, x, name, bits, n):
+    """The standard deviation of ``empirical_mean_and_variance``'s
+    variance (the population variance over ``n`` draws, summed over
+    entries) for quantizer ``name`` on ``x``, from the exact per-entry SR
+    moments.
+
+    Every quantizer rounds t = the transform of x stochastically: entry e
+    gets independent noise with variance s2_e = p(1-p) and fourth
+    cumulant k4_e = p(1-p)(1-6p(1-p)), p = frac(t_e) (Bernoulli), and the
+    dequantized noise is e -> M eps with M = diag(1/S) for PTQ, diag(1/s_i)
+    for PSQ and diag(1/s) Q within each BHQ group.  The estimate is
+    (1/n) tr(A W) with A = M^T M and W the scatter of the n draws, so
+    Var = 2(n-1)/n^2 sum_d tr((A Sigma_d)^2) + (n-1)^2/n^3 sum_e A_ee^2 k4_e
+    (the Wishart term, exact for Gaussian noise, plus the fourth-cumulant
+    term), in float64."""
+    from repro_torch.core import quantizers as qz
+    from repro_torch.core.bhq import _blocked_rows, _bhq_transform
+    B = qz.num_bins(bits)
+    x = x.to(torch.float32)
+    if name == "bhq":
+        gb, valid, _ = _blocked_rows(x, 256)
+        y, zero, rs, nv, cf, seg, _ = _bhq_transform(gb, valid, bits,
+                                                     "refined")
+        t = (y - zero).double()
+        p = t - torch.floor(t)
+        s2 = p * (1 - p)
+        k4 = s2 * (1 - 6 * s2)
+        t2 = k = 0.0
+        for b in range(gb.shape[0]):
+            nb = gb.shape[1]
+            same = seg[b][:, None] == seg[b][None, :]
+            nvb = nv[b, :, 0].double()
+            q = (torch.eye(nb, dtype=torch.float64, device=x.device)
+                 - cf[b, :, 0].double()[:, None] * nvb[:, None]
+                 * nvb[None, :] * same)
+            m = q / rs[b].double()                 # row j scaled by 1/s_j
+            a = m.T @ m
+            t2 = t2 + float(((a * a) * (s2[b] @ s2[b].T)).sum())
+            k = k + float((torch.diagonal(a)[:, None] ** 2 * k4[b]).sum())
+    else:
+        rows = x.reshape(-1, x.shape[-1])
+        if name == "ptq":
+            zero = torch.amin(rows)
+            scale = qz.range_scale(B, qz.dynamic_range(rows))
+            c = (1.0 / scale.double() ** 2).expand(rows.shape[0], 1)
+        else:
+            zero = torch.amin(rows, dim=-1, keepdim=True)
+            scale = qz.range_scale(B, qz.row_dynamic_range(rows)[:, None])
+            c = 1.0 / scale.double() ** 2
+        t = (scale * (rows - zero)).double()
+        p = t - torch.floor(t)
+        s2 = p * (1 - p)
+        k4 = s2 * (1 - 6 * s2)
+        t2 = float((c ** 2 * s2 ** 2).sum())
+        k = float((c ** 2 * k4).sum())
+    var = 2 * (n - 1) / n ** 2 * t2 + (n - 1) ** 2 / n ** 3 * k
+    return var ** 0.5
+
+
+def theory_phase(torch, seed, report) -> None:
+    """[theory]: the paper's estimators through the card's kernels.
+
+    1. A gradient of the training step's lm_head shape (512, 10240) in the
+       paper's regime (Fig. 4: rows of scale 1e-3 with 4 outlier rows of
+       scale 1), made from the seed on the card; at 5 and 8 bits, for
+       ``ptq`` and ``psq`` (the ``quantize_sr_tensor``/``_rows`` kernels)
+       and ``bhq`` (block_rows 256, the launcher's): ``quantizer_variance``
+       (exact) against ``empirical_mean_and_variance`` (THEORY_DRAWS
+       draws).  Checked: the empirical variance V_hat against its
+       expectation (n-1)/n V within 6 standard deviations
+       (``_variance_estimate_sd``, from the exact per-entry moments: a
+       quantizer whose noise is not the SR noise of its transform fails
+       it); the unbiasedness ratio R = n ||mean - x||^2 / V in [0.5, 2]
+       (E[R] = 1 for an unbiased quantizer; over 5.2 million entries its
+       spread is far below 0.1, and a bias per entry of a fifth of the
+       draws' standard error already gives R = 1 + 64 * 0.04 = 3.6, so a
+       biased rounding cannot pass); and Var bhq < psq < ptq (exact and
+       empirical), the paper's Sec. 4 ordering in this regime.
+    2. ``fqt_gradient_stats`` of statquant-tx at full width (one batch of
+       8 x 64, FQT_DRAWS draws) against its QAT gradient (the same fused
+       forward, a full-precision backward) under ``fqt(psq,8)`` and
+       ``fqt(bhq,5)`` on the kernel backend: Theorem 1 on the card, the
+       same ratio R = n ||mean - g_QAT||^2 / V_hat in [0.5, 2] (E[R] =
+       n/(n-1) for an unbiased gradient; a gradient whose bias reached the
+       draws' standard error would give R >= 1 + n = 17)."""
+    from repro_torch import prng
+    from repro_torch.core import QuantizerSpec, get_quantizer
+    from repro_torch.core.theory import (empirical_mean_and_variance,
+                                         fqt_gradient_stats,
+                                         quantizer_variance)
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    M, N = 512, 10240
+    x = torch.randn(M, N, generator=gen, device="cuda") * 1e-3
+    x[:4] *= 1e3
+    n = THEORY_DRAWS
+    res = {"quantizers": {}}
+    for bits in (5, 8):
+        exact, emp = {}, {}
+        for name in ("ptq", "psq", "bhq"):
+            params = {"block_rows": 256} if name == "bhq" else {}
+            spec = QuantizerSpec(name, bits, tuple(params.items()))
+            q = get_quantizer(name)
+            mean, v_hat = empirical_mean_and_variance(
+                lambda a, k: q.quantize(a, k, spec,
+                                        backend="kernel").dequant(),
+                x, prng.PRNGKey(seed + bits), n)
+            v = float(quantizer_variance(x, name, bits, **params))
+            sd = _variance_estimate_sd(torch, x, name, bits, n)
+            z = (v_hat - (n - 1) / n * v) / sd
+            r = n * float(((mean.double() - x.double()) ** 2).sum()) / v
+            tag = f"theory {name}{bits}"
+            log(f"[{tag}] ({M}, {N}): exact Var {v:.6g}, empirical "
+                f"{v_hat:.6g} ({n} draws; (V_hat - (n-1)/n V) / sd = "
+                f"{z:.3f}, checked |.| <= 6), R = n |mean - x|^2 / V = "
+                f"{r:.4f} (checked in [0.5, 2])")
+            check(abs(z) <= 6, f"[{tag}]: the empirical variance {v_hat} "
+                               f"is {z:.2f} sd from {(n - 1) / n * v}")
+            check(0.5 <= r <= 2, f"[{tag}]: R = {r} outside [0.5, 2]: "
+                                 f"biased")
+            exact[name], emp[name] = v, v_hat
+            res["quantizers"][f"{name}{bits}"] = dict(
+                exact=v, empirical=v_hat, z=z, ratio=r, sd=sd)
+        for d, what in ((exact, "exact"), (emp, "empirical")):
+            check(d["bhq"] < d["psq"] < d["ptq"],
+                  f"[theory] {bits} bits: {what} variances {d} not ordered "
+                  f"bhq < psq < ptq")
+    res["fqt"] = _theorem1_on_card(torch, seed, fqt_gradient_stats)
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"[theory] phase {res['phase_s']:.2f} s")
+    report["theory"] = res
+
+
+def _theorem1_on_card(torch, seed, fqt_gradient_stats) -> dict:
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.core import QuantPolicy
+    from repro_torch.data import make_batch_for
+    from repro_torch.models import build_model
+    from repro_torch.optim import tree_leaves, tree_map
+    cfg = get_config("statquant-tx")
+    model = build_model(cfg)
+    params = model.init(seed, device="cuda")
+    batch = {k: v.to("cuda") for k, v in
+             make_batch_for(cfg, 8, 64, seed=seed).items()}
+
+    def grad_fn(policy):
+        def fn(key):
+            with torch.enable_grad():
+                ps = tree_map(lambda t: t.detach().requires_grad_(), params)
+                loss, _ = model.loss(ps, batch, key, policy)
+                return torch.autograd.grad(loss, tree_leaves(ps))
+        return fn
+
+    qat = grad_fn(QuantPolicy.qat(backend="kernel"))(prng.PRNGKey(0))
+    out = {}
+    for quant, bits in (("psq", 8), ("bhq", 5)):
+        stats = fqt_gradient_stats(
+            grad_fn(_train_policy(quant, bits, "kernel")),
+            prng.PRNGKey(seed + 17), FQT_DRAWS)
+        err = sum(float(((m.double() - g.double()) ** 2).sum())
+                  for m, g in zip(stats["mean"], qat))
+        v_hat = stats["variance"]
+        r = FQT_DRAWS * err / v_hat
+        qat_sq = sum(float((g.double() ** 2).sum()) for g in qat)
+        log(f"[theory fqt {quant}{bits}] statquant-tx full width, one batch "
+            f"of 8 x 64: Var[FQT grad | batch] {v_hat:.6g} ({FQT_DRAWS} "
+            f"draws; |QAT grad|^2 {qat_sq:.6g}), |mean - QAT|^2 {err:.6g}, "
+            f"R = n |mean - QAT|^2 / V_hat = {r:.4f} (checked in [0.5, 2])")
+        check(0.5 <= r <= 2, f"[theory fqt {quant}{bits}]: R = {r} outside "
+                             f"[0.5, 2]: the FQT gradient is not unbiased")
+        out[f"{quant}{bits}"] = dict(variance=v_hat, sq_err=err, ratio=r,
+                                     qat_sq_norm=qat_sq)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,15 @@ GEMMs (Eq. 6).  Backends:
                 weight (:class:`~repro_torch.kernels.pack.PackedTensor`) the
                 forward runs ``fused_qlhs_packed_matmul`` (fused) or
                 ``packed_matmul`` (unfused), which stream the packed bytes
-  ``native``    the JAX package's XLA int8 dot: not ported, raises
+  ``native``    ``torch._int_mm`` on the same int8 codes (the reference's
+                XLA ``dot_general(int8, int8 -> int32)``) + the epilogue as
+                torch ops; a packed weight is unpacked first, as the
+                reference's ``packed_matmul_xla`` does.  Every role runs
+                unfused (the library product has no quantize to fuse), so
+                ``fused=True`` has no effect there.  On CUDA ``_int_mm``
+                wants M > 16 and K, N multiples of 8: the operands are
+                zero-padded and the product sliced back
+                (``padded_int_mm``).
 
 SR bits are ``prng.bits(key, shape)`` drawn on the operand's device, the
 same draw the unfused quantizers make for that key, so the fused and
@@ -50,23 +58,21 @@ from ..kernels.q8_matmul import q8_matmul
 from ..kernels.quantize_sr import quantize_sr_rows, quantize_sr_tensor
 from .bhq import BHQTensor
 from .quantizers import QTensor, range_scale, tensor_min_max
-from .registry import BACKENDS, NATIVE_SLICE
+from .registry import BACKENDS
 
 __all__ = ["BACKENDS", "affine_factors", "epilogue_coeffs", "apply_epilogue",
-           "q8_gemm", "qt_gemm", "qt_gemm_tn", "qt_gemm_nt",
-           "quantize_sr_rows_qt", "quantize_sr_tensor_qt", "requantize_det",
-           "fused_fqt_fwd", "fused_fqt_dx", "fused_fqt_dw", "dw_operands"]
+           "int_mm", "padded_int_mm", "q8_gemm", "qt_gemm", "qt_gemm_tn",
+           "qt_gemm_nt", "quantize_sr_rows_qt", "quantize_sr_tensor_qt",
+           "requantize_det", "fused_fqt_fwd", "fused_fqt_dx", "fused_fqt_dw",
+           "dw_operands"]
 
 
 def _check_backend(backend: str, what: str) -> None:
-    """Raise unless ``backend`` is one this slice runs ``what`` on."""
-    if backend == "kernel":
-        return
-    if backend == "native":
-        raise NotImplementedError(f"{what} on the 'native' backend comes "
-                                  f"with {NATIVE_SLICE}")
-    raise ValueError(f"unknown backend {backend!r} for {what}; expected one "
-                     f"of {BACKENDS}")
+    """Raise unless ``backend`` is ``kernel``, the only one that runs
+    ``what`` (``simulate`` and ``native`` never reach it)."""
+    if backend != "kernel":
+        raise ValueError(f"{what} runs on the 'kernel' backend only, not "
+                         f"{backend!r} (backends: {BACKENDS})")
 
 
 # ---------------------------------------------------------------------------
@@ -126,13 +132,41 @@ def apply_epilogue(acc: torch.Tensor, rs, cs, r2, u, a, b) -> torch.Tensor:
 # Code-level GEMM dispatch
 # ---------------------------------------------------------------------------
 
+def int_mm(a8: torch.Tensor, b8: torch.Tensor) -> torch.Tensor:
+    """The exact int32 product ``a8 @ b8`` of int8 codes through
+    ``torch._int_mm`` (the ``native`` backend); on CUDA through
+    :func:`padded_int_mm`."""
+    if a8.device.type == "cuda":
+        return padded_int_mm(a8, b8)
+    return torch._int_mm(a8, b8)
+
+
+def padded_int_mm(a8: torch.Tensor, b8: torch.Tensor) -> torch.Tensor:
+    """``torch._int_mm`` with the operands zero-padded to what CUDA's
+    wants (M > 16, K and N multiples of 8: here M >= 32) and the result
+    sliced back; zero codes add nothing to the product."""
+    M, K = a8.shape
+    N = b8.shape[1]
+    Mp = max(32, -(-M // 8) * 8)
+    Kp, Np = -(-K // 8) * 8, -(-N // 8) * 8
+    if (Mp, Kp) != (M, K):
+        a8 = torch.nn.functional.pad(a8, (0, Kp - K, 0, Mp - M))
+    if (Kp, Np) != (K, N):
+        b8 = torch.nn.functional.pad(b8, (0, Np - N, 0, Kp - K))
+    return torch._int_mm(a8, b8)[:M, :N]
+
+
 def q8_gemm(a8: torch.Tensor, alpha_a, beta_a, b8: torch.Tensor, alpha_b,
             beta_b, *, backend: str, bias=None) -> torch.Tensor:
     """fp32 value of ``A-hat @ B-hat`` from shifted int8 codes through
-    ``q8_matmul``.  ``b8`` may be the transpose of a contiguous tensor (the
-    kernel reads it K-major); ``a8`` is made contiguous."""
-    _check_backend(backend, "the unfused int8 GEMM")
+    ``q8_matmul`` (``kernel``) or ``torch._int_mm`` (``native``).  ``b8``
+    may be the transpose of a contiguous tensor (the kernel reads it
+    K-major); ``a8`` is made contiguous."""
     coeffs = epilogue_coeffs(a8, alpha_a, beta_a, b8, alpha_b, beta_b, bias)
+    if backend == "native":
+        acc = int_mm(a8, b8).to(torch.float32)
+        return apply_epilogue(acc, *coeffs)
+    _check_backend(backend, "the unfused int8 GEMM")
     return q8_matmul(a8.contiguous(), b8, *(c.contiguous() for c in coeffs))
 
 
@@ -175,13 +209,18 @@ def _packed_gemm(aq: QTensor, pt: PackedTensor, *, backend: str,
     """``A-hat @ B-hat`` with the B codes bit-packed, through
     ``packed_matmul``.  The epilogue's ``u`` takes the unpacked codes'
     column sums from ``pt.colsum`` (computed once at pack time), so no
-    unpacked weight is made here."""
-    _check_backend(backend, "the packed GEMM")
+    unpacked weight is made here.  ``native`` unpacks the codes and runs
+    ``torch._int_mm``, as the reference's ``packed_matmul_xla``."""
     a8 = _codes2d(aq)
     alpha_a, beta_a = affine_factors(aq.scale, aq.zero, aq.bits)
     alpha_b, beta_b = _packed_scalars(pt)
     coeffs = epilogue_coeffs(a8, alpha_a, beta_a, None, alpha_b, beta_b,
                              bias, colsum=pt.colsum.reshape(-1))
+    if backend == "native":
+        w8 = pt.int8_codes.reshape(-1, pt.shape[-1])
+        acc = int_mm(a8, w8).to(torch.float32)
+        return apply_epilogue(acc, *coeffs)
+    _check_backend(backend, "the packed GEMM")
     packed2d = pt.packed.reshape(-1, pt.packed.shape[-1])
     return packed_matmul(a8.contiguous(), packed2d,
                          *(c.contiguous() for c in coeffs), wbits=pt.bits,

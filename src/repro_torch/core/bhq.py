@@ -34,7 +34,8 @@ import torch
 from .. import prng
 from .quantizers import num_bins, row_dynamic_range, sr_uniform
 
-__all__ = ["BHQTensor", "quantize_bhq_stoch"]
+__all__ = ["BHQTensor", "quantize_bhq_stoch", "bhq_variance_bound",
+           "bhq_exact_variance"]
 
 _EPS = 1e-12
 
@@ -286,3 +287,60 @@ def quantize_bhq_stoch(x: torch.Tensor, key: torch.Tensor, bits: int = 8,
     return BHQTensor(codes=codes, zero=zero, row_scale=rs, n_vec=nv,
                      coef=cf, seg=seg, inv_perm=perm, bits=bits,
                      shape=tuple(x.shape))
+
+
+def bhq_variance_bound(qt: BHQTensor) -> torch.Tensor:
+    """Eq. (13): Var <= D/4 * ||S^{-1}||_F^2 = D/4 * sum_j (1/s_j)^2.
+
+    (The Householder factor is orthogonal, so ||S^{-1}||_F = ||diag(1/s)||_F.)
+    """
+    d = qt.shape[-1]
+    return d / 4.0 * torch.sum(1.0 / qt.row_scale ** 2)
+
+
+def _block_exact_variance(gb: torch.Tensor, valid: torch.Tensor, *,
+                          bits: int, g_search: str) -> torch.Tensor:
+    """Exact conditional variance contributed by each (n, D) block of
+    ``gb`` (nb, n, D); ``valid`` (nb, n) marks the real rows.
+
+    The dequantized noise is ``S^{-1} eps = diag(1/s) Q eps`` with
+    independent SR noise ``Var[eps_kd] = p(1-p)``, ``p = frac(y - zero)``
+    (Proposition 4).  Summing over the retained (real) output rows j:
+
+        Var = sum_k w_k * colnorm_k
+        w_k       = sum_d p(1-p)_kd
+        colnorm_k = ret_k (1 - 2 c n_k^2)/s_k^2 + c^2 n_k^2 sum_{j in g, ret} n_j^2/s_j^2
+
+    using ``Q_jk = delta_jk - c n_j n_k`` within a group (0 across
+    groups).  Returns the (nb,) per-block sums.
+    """
+    y, zero, row_scale, n_vec, coef, seg, perm = _bhq_transform(
+        gb, valid, bits, g_search)
+    t = y - zero
+    p = t - torch.floor(t)
+    w = torch.sum(p * (1.0 - p), dim=-1)                      # (nb, n)
+    s = row_scale[..., 0]
+    nv = n_vec[..., 0]
+    c = coef[..., 0]
+    ret = torch.gather(valid.to(torch.float32), 1, perm)      # sorted order
+    a = _segment(ret * nv ** 2 / s ** 2, seg, "sum")
+    colnorm = (ret * (1.0 - 2.0 * c * nv ** 2) / s ** 2
+               + c ** 2 * nv ** 2 * torch.gather(a, 1, seg))
+    return torch.sum(w * colnorm, dim=1)
+
+
+def bhq_exact_variance(x: torch.Tensor, bits: int = 8,
+                       block_rows: int = 1024,
+                       g_search: str = "refined") -> torch.Tensor:
+    """Exact conditional ``Var[Q_b(x) | x]`` summed over entries.
+
+    The BHQ transform is deterministic given ``x``; only the stochastic
+    rounding injects noise, so the exact variance is the SR ``sum p(1-p)``
+    (Proposition 4) pushed through the ``S^{-1}`` columns — see
+    :func:`_block_exact_variance`.  Exact modulo the (rare) code clipping
+    at the bin boundaries, the caveat of
+    :func:`~repro_torch.core.quantizers.sr_variance_exact`.
+    """
+    gb, valid, _ = _blocked_rows(x, block_rows)
+    return torch.sum(_block_exact_variance(gb, valid, bits=bits,
+                                           g_search=g_search))

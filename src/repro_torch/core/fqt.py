@@ -32,6 +32,10 @@ The bit-packed forward-weight quantizers (``int4w``, ``binary``,
 backward unpacks it transiently.  A weight packed once at load (a
 :class:`~repro_torch.kernels.pack.PackedTensor` given as ``w``, the
 serving engine's ``weight_bits``) takes the inference-only ``_packed_fwd``.
+
+Each role's work runs under the reference's markers (``core/exempt.py``:
+``q[path|role]``, ``qfp[path|role]``, ``qk[path]``), which appear in a
+profile and cost nothing outside one.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from .. import prng
 from ..kernels.pack import PackedTensor
 from .backend import (fused_fqt_dw, fused_fqt_dx, fused_fqt_fwd, qt_gemm,
                       qt_gemm_nt, qt_gemm_tn, requantize_det)
+from .exempt import key_scope, quant_scope
 from .policy import QuantPolicy
 from .registry import GemmQuantConfig, QuantizerSpec, get_quantizer
 
@@ -57,12 +62,13 @@ def _fused_roles(cfg: GemmQuantConfig):
     role only fuses when the fused kernels implement its quantizer — the
     deterministic-PTQ forward (its weight ``ptq_det`` or a packed-weight
     quantizer), per-tensor stochastic-PTQ wgrad, PTQ/PSQ agrad; the fused
-    wgrad also needs the fused forward's residuals.
+    wgrad also needs the fused forward's residuals.  Only the ``kernel``
+    backend has fused kernels: ``native``'s ``torch._int_mm`` is the bare
+    product, so there every role runs unfused.
     """
-    if cfg.backend == "simulate" or not cfg.quantize_fwd:
+    if cfg.backend != "kernel" or not cfg.quantize_fwd:
         return False, False, False
-    on = cfg.fused if cfg.fused is not None else (cfg.backend == "kernel")
-    if not on:
+    if cfg.fused is False:
         return False, False, False
     w_packed = get_quantizer(cfg.fwd_weight.name).packed_weights
     fwd = (cfg.fwd_act.name == "ptq_det"
@@ -84,26 +90,28 @@ def _quantize_role(spec: QuantizerSpec, x2d: torch.Tensor, key,
     return q.quantize(x2d, key, spec, backend=cfg.backend)
 
 
-def _fqt_fwd(cfg: GemmQuantConfig, x: torch.Tensor, w: torch.Tensor):
+def _fqt_fwd(cfg: GemmQuantConfig, path: str, x: torch.Tensor,
+             w: torch.Tensor):
     """(y, residuals) of the forward GEMM."""
     lead = x.shape[:-1]
     # quantizer math in fp32 regardless of activation dtype
     x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
-    wq = _quantize_role(cfg.fwd_weight, w.to(torch.float32), None, cfg)
-    f_fwd, _, _ = _fused_roles(cfg)
-    if f_fwd:
-        # Q_f inside the GEMM: residuals (x2, scale, zero); the backward
-        # rematerializes the codes deterministically
-        y, sx, zx = fused_fqt_fwd(x2, wq, cfg.fwd_act.bits or 8,
-                                  backend=cfg.backend)
-        xres = (x2, sx, zx)
-    else:
-        xres = _quantize_role(cfg.fwd_act, x2, None, cfg)         # Q_f
-        y = qt_gemm(xres, wq, backend=cfg.backend)
+    with quant_scope(path, "fwd", True):
+        wq = _quantize_role(cfg.fwd_weight, w.to(torch.float32), None, cfg)
+        f_fwd, _, _ = _fused_roles(cfg)
+        if f_fwd:
+            # Q_f inside the GEMM: residuals (x2, scale, zero); the backward
+            # rematerializes the codes deterministically
+            y, sx, zx = fused_fqt_fwd(x2, wq, cfg.fwd_act.bits or 8,
+                                      backend=cfg.backend)
+            xres = (x2, sx, zx)
+        else:
+            xres = _quantize_role(cfg.fwd_act, x2, None, cfg)         # Q_f
+            y = qt_gemm(xres, wq, backend=cfg.backend)
     return y.reshape(*lead, w.shape[-1]).to(x.dtype), (xres, wq, lead)
 
 
-def _fqt_bwd(cfg: GemmQuantConfig, res, key, g: torch.Tensor):
+def _fqt_bwd(cfg: GemmQuantConfig, path: str, res, key, g: torch.Tensor):
     """(dx, dw) of the backward GEMMs."""
     xres, wq, lead = res
     dtype = g.dtype                  # cotangent dtype == stream dtype
@@ -119,29 +127,39 @@ def _fqt_bwd(cfg: GemmQuantConfig, res, key, g: torch.Tensor):
 
     if cfg.wgrad is None and cfg.agrad is None:
         # QAT (Eq. 4): full-precision gradient through quantized operands
-        dw = xq_remat().dequant().T @ g2
-        dx = g2 @ wq.dequant().T
+        with quant_scope(path, "wgrad", False):
+            dw = xq_remat().dequant().T @ g2
+        with quant_scope(path, "agrad", False):
+            dx = g2 @ wq.dequant().T
     else:
         if key is None:
             raise ValueError(f"the FQT backward ({cfg.describe()}) needs a "
                              f"PRNG key; fqt_matmul was given None")
-        k1, k2 = prng.split(prng.fold_in(key, 0x5151))
+        with key_scope(path):
+            k1, k2 = prng.split(prng.fold_in(key, 0x5151))
         if cfg.wgrad is None:
-            dw = xq_remat().dequant().T @ g2
+            with quant_scope(path, "wgrad", False):
+                dw = xq_remat().dequant().T @ g2
         elif f_wg:
-            x2, sx, zx = xres
-            dw = fused_fqt_dw(x2, sx, zx, bits_act, g2, k1,
-                              cfg.wgrad.bits or 8, backend=cfg.backend)
+            with quant_scope(path, "wgrad", True):
+                x2, sx, zx = xres
+                dw = fused_fqt_dw(x2, sx, zx, bits_act, g2, k1,
+                                  cfg.wgrad.bits or 8, backend=cfg.backend)
         else:
-            gq1 = _quantize_role(cfg.wgrad, g2, k1, cfg)           # Q_b1
-            dw = qt_gemm_tn(xq_remat(), gq1, backend=cfg.backend)
+            with quant_scope(path, "wgrad", True):
+                gq1 = _quantize_role(cfg.wgrad, g2, k1, cfg)       # Q_b1
+                dw = qt_gemm_tn(xq_remat(), gq1, backend=cfg.backend)
         if cfg.agrad is None:
-            dx = g2 @ wq.dequant().T
+            with quant_scope(path, "agrad", False):
+                dx = g2 @ wq.dequant().T
         elif f_ag:
-            dx = fused_fqt_dx(g2, k2, cfg.agrad, wq, backend=cfg.backend)
+            with quant_scope(path, "agrad", True):
+                dx = fused_fqt_dx(g2, k2, cfg.agrad, wq, backend=cfg.backend)
         else:
-            gq2 = _quantize_role(cfg.agrad, g2, k2, cfg)           # Q_b2
-            dx = qt_gemm_nt(gq2, wq, backend=cfg.backend)
+            # BHQ's Householder transform counts as quantized agrad work
+            with quant_scope(path, "agrad", True):
+                gq2 = _quantize_role(cfg.agrad, g2, k2, cfg)       # Q_b2
+                dx = qt_gemm_nt(gq2, wq, backend=cfg.backend)
     return dx.reshape(*lead, -1).to(dtype), dw
 
 
@@ -149,16 +167,16 @@ class _FQT(torch.autograd.Function):
     """``x @ w`` quantized by ``cfg``: Eq. 3 forward, Eq. 6 backward."""
 
     @staticmethod
-    def forward(ctx, x, w, key, cfg):
-        y, res = _fqt_fwd(cfg, x, w)
-        ctx.cfg, ctx.res, ctx.key = cfg, res, key
+    def forward(ctx, x, w, key, cfg, path):
+        y, res = _fqt_fwd(cfg, path, x, w)
+        ctx.cfg, ctx.path, ctx.res, ctx.key = cfg, path, res, key
         return y
 
     @staticmethod
     def backward(ctx, g):
-        dx, dw = _fqt_bwd(ctx.cfg, ctx.res, ctx.key, g)
+        dx, dw = _fqt_bwd(ctx.cfg, ctx.path, ctx.res, ctx.key, g)
         ctx.res = None                    # free the residuals now
-        return dx, dw, None, None
+        return dx, dw, None, None, None
 
 
 def fqt_matmul(x: torch.Tensor, w: torch.Tensor, key,
@@ -178,13 +196,17 @@ def fqt_matmul(x: torch.Tensor, w: torch.Tensor, key,
         return _packed_fwd(x, w, policy, path)
     if isinstance(policy, QuantPolicy):
         if not policy.enabled:
-            return x @ w
+            # qfp marker: policy-declared full precision (its gradients run
+            # outside the scope, in autograd's own backward)
+            with quant_scope(path, "fwd", False):
+                return x @ w
         cfg = policy.resolve(path)           # validated at resolution
     else:
         cfg = policy.validate()
     if not cfg.quantize_fwd:                 # layer pinned exact
-        return x @ w
-    return _FQT.apply(x, w, key, cfg)
+        with quant_scope(path, "fwd", False):
+            return x @ w
+    return _FQT.apply(x, w, key, cfg, path)
 
 
 def _packed_fwd(x: torch.Tensor, pt: PackedTensor,
@@ -204,16 +226,17 @@ def _packed_fwd(x: torch.Tensor, pt: PackedTensor,
         cfg = policy.resolve(path) if policy.enabled else None
     else:
         cfg = policy.validate() if policy is not None else None
-    if cfg is None or not cfg.quantize_fwd or cfg.backend == "simulate":
-        if cfg is not None and cfg.quantize_fwd:
-            xv = _quantize_role(cfg.fwd_act, x2, None, cfg).dequant()
+    with quant_scope(path, "fwd", True):
+        if cfg is None or not cfg.quantize_fwd or cfg.backend == "simulate":
+            if cfg is not None and cfg.quantize_fwd:
+                xv = _quantize_role(cfg.fwd_act, x2, None, cfg).dequant()
+            else:
+                xv = x2
+            y = xv @ pt.dequant().reshape(-1, pt.shape[-1])
+        elif _fused_roles(cfg)[0]:
+            y, _, _ = fused_fqt_fwd(x2, pt, cfg.fwd_act.bits or 8,
+                                    backend=cfg.backend)
         else:
-            xv = x2
-        y = xv @ pt.dequant().reshape(-1, pt.shape[-1])
-    elif _fused_roles(cfg)[0]:
-        y, _, _ = fused_fqt_fwd(x2, pt, cfg.fwd_act.bits or 8,
-                                backend=cfg.backend)
-    else:
-        xq = _quantize_role(cfg.fwd_act, x2, None, cfg)
-        y = qt_gemm(xq, pt, backend=cfg.backend)
+            xq = _quantize_role(cfg.fwd_act, x2, None, cfg)
+            y = qt_gemm(xq, pt, backend=cfg.backend)
     return y.reshape(*lead, pt.shape[-1]).to(x.dtype)

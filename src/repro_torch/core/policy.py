@@ -11,8 +11,16 @@ Port of ``repro.core.policy``.  Three canonical modes (paper App. E):
 per GEMM.  ``backend`` picks how every quantized GEMM executes:
 
   ``simulate``  fp32 quantize-dequantize matmul (the paper's GPU simulation)
+  ``native``    ``torch._int_mm`` on the int8 codes + the affine epilogue
+                (the reference's XLA int8 ``dot_general``)
   ``kernel``    the hand-written CUDA kernels (their plain versions on CPU)
-  ``native``    the JAX package's XLA int8 path: not ported, raises
+
+The factory methods also accept the legacy ``mode=`` spelling and
+``policy.mode`` reads as an alias of ``backend``.
+:func:`overrides_to_json` / :func:`overrides_from_json` are the precision
+planner's interchange format, byte for byte the reference's, so a plan
+either package writes is read by the other (``launch/train.py
+--override-file``).
 """
 
 from __future__ import annotations
@@ -25,7 +33,8 @@ from typing import Optional
 from .registry import (BACKENDS, EXACT_NAME, ROLES, GemmQuantConfig,
                        QuantizerSpec, get_quantizer)
 
-__all__ = ["QuantPolicy", "RoleOverride", "BACKENDS"]
+__all__ = ["QuantPolicy", "RoleOverride", "BACKENDS", "overrides_to_json",
+           "overrides_from_json"]
 
 _BIT_FIELDS = ("act_bits", "weight_bits", "wgrad_bits", "grad_bits")
 
@@ -180,22 +189,85 @@ class QuantPolicy:
         ``re.search``-matches ``path`` applied in order (memoized)."""
         return _resolve(self, path or "")
 
+    def spec_table(self, paths) -> tuple:
+        """((path, resolved-spec-description), ...) for a path list: the
+        per-layer precision table of a config."""
+        return tuple((p, self.resolve(p).describe()) for p in paths)
+
+    @property
+    def mode(self) -> str:
+        """Legacy alias of ``backend`` (read-only; set via the factories)."""
+        return self.backend
+
+    @staticmethod
+    def _resolve_backend(backend: str, mode: str) -> str:
+        # `mode` is the legacy spelling; an explicit `backend` wins.
+        chosen = backend or mode or "simulate"
+        if chosen not in BACKENDS:
+            which = "backend" if backend else "mode"
+            raise ValueError(f"invalid {which}={chosen!r}; "
+                             f"expected one of {BACKENDS}")
+        return chosen
+
     @staticmethod
     def exact() -> "QuantPolicy":
         return QuantPolicy(enabled=False)
 
     @staticmethod
-    def qat(act_bits: int = 8, weight_bits: int = 8,
-            backend: str = "simulate", **kw) -> "QuantPolicy":
+    def qat(act_bits: int = 8, weight_bits: int = 8, mode: str = "",
+            backend: str = "", **kw) -> "QuantPolicy":
         return QuantPolicy(enabled=True, quantize_bwd=False,
                            act_bits=act_bits, weight_bits=weight_bits,
-                           backend=backend, **kw)
+                           backend=QuantPolicy._resolve_backend(backend, mode),
+                           **kw)
 
     @staticmethod
     def fqt(grad_quantizer: str = "bhq", grad_bits: int = 8,
-            act_bits: int = 8, weight_bits: int = 8,
-            backend: str = "simulate", **kw) -> "QuantPolicy":
+            act_bits: int = 8, weight_bits: int = 8, mode: str = "",
+            backend: str = "", **kw) -> "QuantPolicy":
         return QuantPolicy(enabled=True, quantize_bwd=True,
                            grad_quantizer=grad_quantizer, grad_bits=grad_bits,
                            act_bits=act_bits, weight_bits=weight_bits,
-                           backend=backend, **kw)
+                           backend=QuantPolicy._resolve_backend(backend, mode),
+                           **kw)
+
+
+def _spec_to_json(spec: Optional[QuantizerSpec]):
+    if spec is None:
+        return None
+    d = {"name": spec.name, "bits": spec.bits}
+    d.update(dict(spec.params))
+    return d
+
+
+def overrides_to_json(overrides) -> list:
+    """Overrides (any form ``QuantPolicy(overrides=...)`` accepts) -> a
+    JSON-serializable ``[[pattern, {role: spec-dict, ...}], ...]`` list,
+    the inverse of :func:`overrides_from_json`."""
+    out = []
+    for pattern, ov in _normalize_overrides(overrides):
+        d: dict = {}
+        if ov.exact:
+            d["exact"] = True
+        if ov.bits is not None:
+            d["bits"] = ov.bits
+        for role in ROLES:
+            spec = getattr(ov, role)
+            if spec is not None:
+                d[role] = _spec_to_json(spec)
+        out.append([pattern, d])
+    return out
+
+
+def overrides_from_json(data) -> tuple:
+    """JSON overrides -> the normalized tuple ``QuantPolicy(overrides=...)``
+    consumes.  Accepts the list-of-pairs form :func:`overrides_to_json`
+    emits, a ``{pattern: override}`` dict, or a whole planner document
+    (its ``"overrides"`` key)."""
+    if isinstance(data, dict) and "overrides" in data:
+        data = data["overrides"]
+    if isinstance(data, dict):
+        pairs = list(data.items())
+    else:
+        pairs = [(p, v) for p, v in data]
+    return _normalize_overrides(pairs)

@@ -24,9 +24,10 @@ import torch
 from .. import prng
 
 __all__ = ["QTensor", "num_bins", "range_scale", "tensor_min_max",
-           "row_dynamic_range",
+           "dynamic_range", "row_dynamic_range",
            "sr_uniform", "stochastic_round", "quantize_ptq_det",
-           "quantize_ptq_stoch", "quantize_psq_stoch"]
+           "quantize_ptq_stoch", "quantize_psq_stoch", "ptq_variance_bound",
+           "psq_variance_bound", "sr_variance_exact"]
 
 # Tiny epsilon guarding against zero dynamic range (constant tensors
 # quantize to a single code; scale must stay finite).
@@ -105,6 +106,14 @@ def quantize_ptq_det(x: torch.Tensor, bits: int = 8) -> QTensor:
                    shape=tuple(x.shape))
 
 
+def dynamic_range(x: torch.Tensor) -> torch.Tensor:
+    """R(X) = max X - min X over the whole tensor (paper Sec. 3.3).  (The
+    reference's ``opt_barrier`` only pins an XLA schedule; eager PyTorch
+    has none to pin, and ``aminmax`` is one pass.)"""
+    lo, hi = tensor_min_max(x)
+    return hi - lo
+
+
 def row_dynamic_range(x2d: torch.Tensor) -> torch.Tensor:
     """Per-row dynamic range R(x_i) for an (N, D) matrix (paper Sec. 4.1)."""
     return torch.amax(x2d, dim=-1) - torch.amin(x2d, dim=-1)
@@ -147,3 +156,27 @@ def quantize_psq_stoch(x: torch.Tensor, key: torch.Tensor,
     codes = torch.clamp(codes, 0, B).to(torch.uint8)
     return QTensor(codes=codes, scale=scale, zero=zero, bits=bits,
                    shape=tuple(x.shape))
+
+
+# ---------------------------------------------------------------------------
+# Variance bounds (paper Eq. 9, App. D.3, Proposition 4)
+# ---------------------------------------------------------------------------
+
+def ptq_variance_bound(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Eq. (9): Var[Q_b(X)|X] <= N D R(X)^2 / (4 B^2)."""
+    B = num_bins(bits)
+    return x.numel() * dynamic_range(x) ** 2 / (4.0 * B * B)
+
+
+def psq_variance_bound(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Appendix D.3: Var <= D/(4B^2) * sum_i R(x_i)^2."""
+    B = num_bins(bits)
+    rows = x.reshape(-1, x.shape[-1])
+    d = rows.shape[-1]
+    return d * torch.sum(row_dynamic_range(rows) ** 2) / (4.0 * B * B)
+
+
+def sr_variance_exact(t: torch.Tensor) -> torch.Tensor:
+    """Exact SR variance sum: sum_ij p(1-p), p = frac(t) (Proposition 4)."""
+    p = t - torch.floor(t)
+    return torch.sum(p * (1.0 - p))

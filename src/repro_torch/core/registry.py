@@ -35,6 +35,7 @@ __all__ = [
     "available_quantizers", "resolve_kv_cache_spec",
 ]
 
+# ``native`` runs ``torch._int_mm`` (the JAX package's XLA int8 dot);
 # ``kernel`` is the JAX package's ``pallas``: the hand-written CUDA kernels
 # on the card, their plain PyTorch versions on the CPU.
 BACKENDS = ("simulate", "native", "kernel")
@@ -44,10 +45,6 @@ ROLES = ("fwd_act", "fwd_weight", "wgrad", "agrad")
 KV_CACHE_ROLE = "kv_cache"
 
 EXACT_NAME = "exact"
-
-NATIVE_SLICE = ("a later slice of the port (the 'native' backend; use "
-                "'kernel', the hand-written CUDA kernels)")
-
 
 @dataclasses.dataclass(frozen=True)
 class QuantizerSpec:

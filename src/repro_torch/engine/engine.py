@@ -4,14 +4,25 @@ Port of ``repro.engine.engine.Engine`` for one device::
 
     eng = Engine(cfg, QuantPolicy.fqt("bhq", 5, bhq_block=256,
                                       backend="kernel"),
-                 steps=200, batch_size=8, seq_len=64)
+                 steps=200, batch_size=8, seq_len=64, ckpt_dir="/ckpts")
     history = eng.run()
 
 It builds the model, the optimizer (AdamW or SGD), the cosine schedule,
 the data loader with prefetch and the step (:func:`make_step_fn`) once,
 and runs the loop, keeping losses as device scalars and reading them on
-the host only on log steps.  Checkpoints (``ckpt_dir``) and meshes come
-with later slices and raise.
+the host only on log and checkpoint steps.  With ``ckpt_dir`` it saves
+the whole :class:`TrainState` every ``ckpt_every`` steps (asynchronously:
+the host snapshot is taken in the loop, the write runs on a worker
+thread), resumes from the latest checkpoint, and on a preemption request
+(``preemption.should_stop``) checkpoints synchronously and stops.
+Meshes come with a later slice and raise.
+
+Resume semantics: the checkpoint holds ``(params, opt_state, step, rng)``.
+On restore, the data loader fast-forwards to ``step`` (batches are
+seed-by-step, so the stream continues exactly where it stopped) and the rng
+stream continues from the saved key — a run that is preempted and resumed is
+bit-identical to one that never stopped.  Checkpoints are the reference's
+layout and dtypes, so either package resumes the other's.
 """
 
 from __future__ import annotations
@@ -19,16 +30,17 @@ from __future__ import annotations
 import time
 from typing import Callable, Optional
 
+from .. import prng
+from ..checkpoint import CheckpointManager
 from ..data import Prefetcher, ShardedLoader, make_batch_for
 from ..device import resolve_device
 from ..models import build_model
 from ..optim import Optimizer, adamw, cosine_schedule, sgd
-from .state import TrainState, init_train_state
+from ..runtime import PreemptionHandler, StragglerMonitor
+from .state import TrainState, abstract_train_state, init_train_state
 from .step import DISTRIBUTION_SLICE, make_step_fn
 
 __all__ = ["Engine"]
-
-CHECKPOINT_SLICE = "the checkpoint slice of the port"
 
 
 class Engine:
@@ -38,6 +50,8 @@ class Engine:
     ``batch_size`` is the global batch per optimizer step; with
     ``accum_steps=k`` the step consumes it as k sequential microbatches.
     ``batch_fn(step) -> batch`` must be a pure function of the step.
+    ``straggler_probe(local_dt) -> [dt_host0, ...]`` feeds the straggler
+    monitor the fleet's step times; without it the monitor stays idle.
     """
 
     def __init__(self, cfg, policy, *, steps: int, batch_size: int,
@@ -45,16 +59,17 @@ class Engine:
                  opt: Optional[Optimizer] = None, accum_steps: int = 1,
                  mesh=None, remat: bool = False, clip_norm: float = 1.0,
                  loss_kwargs: Optional[dict] = None,
-                 ckpt_dir: Optional[str] = None, log_every: int = 10,
-                 seed: int = 0,
+                 ckpt_dir: Optional[str] = None, ckpt_every: int = 100,
+                 keep: int = 3, log_every: int = 10, seed: int = 0,
+                 resume: bool = True,
+                 preemption: Optional[PreemptionHandler] = None,
+                 straggler: Optional[StragglerMonitor] = None,
+                 straggler_probe: Optional[Callable[[float], list]] = None,
                  batch_fn: Optional[Callable[[int], dict]] = None,
                  device=None, log_fn=print):
         if batch_size % accum_steps:
             raise ValueError(f"batch_size={batch_size} not divisible by "
                              f"accum_steps={accum_steps}")
-        if ckpt_dir is not None:
-            raise NotImplementedError(f"checkpoints (ckpt_dir) come with "
-                                      f"{CHECKPOINT_SLICE}")
         if mesh is not None:
             raise NotImplementedError(f"meshes come with {DISTRIBUTION_SLICE}")
         self.device = resolve_device(device)
@@ -62,8 +77,12 @@ class Engine:
         self.policy = policy
         self.steps = steps
         self.seed = seed
+        self.resume = resume
         self.log_every = log_every
         self.log_fn = log_fn or (lambda *a: None)
+        self.preemption = preemption
+        self.straggler = straggler or StragglerMonitor(n_hosts=1)
+        self.straggler_probe = straggler_probe
         self.model = build_model(cfg)
         self.opt = opt or (adamw() if opt_name == "adamw"
                            else sgd(momentum=0.9))
@@ -76,16 +95,56 @@ class Engine:
         self.step_fn = make_step_fn(
             self.model, policy, self.opt, self.lr_fn, clip_norm=clip_norm,
             remat=remat, accum_steps=accum_steps, loss_kwargs=loss_kwargs)
+        self.ckpt = (CheckpointManager(ckpt_dir, keep=keep)
+                     if ckpt_dir else None)
+        self.ckpt_every = ckpt_every
         self.state: Optional[TrainState] = None
 
+    # -- state lifecycle ----------------------------------------------------
     def init_state(self) -> TrainState:
         return init_train_state(self.model, self.opt, self.seed, self.device)
 
+    def restore_state(self, step: Optional[int] = None) -> TrainState:
+        """Restore the full TrainState onto this engine's device.
+
+        Pre-engine checkpoints ({params, opt} only, no step/rng leaves)
+        migrate: step comes from the checkpoint index, the rng stream
+        restarts (SR draws after resume differ from the unpreempted run —
+        logged, since the bit-identical-resume guarantee needs a
+        full-state checkpoint)."""
+        step = step if step is not None else self.ckpt.latest_step()
+        target = abstract_train_state(self.model, self.opt,
+                                      self.seed).checkpoint_tree()
+        legacy = "step" not in self.ckpt.load_meta(step)["keys"]
+        if legacy:
+            target = {k: target[k] for k in ("params", "opt")}
+        tree = self.ckpt.restore(step, target, device=self.device)
+        if legacy:
+            self.log_fn(f"[engine] legacy checkpoint (no step/rng) at "
+                        f"step {step}: resuming data stream, restarting "
+                        f"rng stream")
+            key = prng.fold_in(prng.PRNGKey(self.seed), step)
+            tree = {**tree, "step": step, "rng": key.numpy()}
+        return TrainState.from_checkpoint_tree(tree)
+
+    def _startup_state(self) -> TrainState:
+        if self.ckpt and self.resume and self.ckpt.latest_step() is not None:
+            state = self.restore_state()
+            self.log_fn(f"[engine] resumed from step {int(state.step)}")
+            return state
+        return self.init_state()
+
+    def _save(self, state: TrainState, asynchronous: bool = True):
+        self.ckpt.save(int(state.step), state.checkpoint_tree(),
+                       extra={"data_step": int(state.step)},
+                       asynchronous=asynchronous)
+
+    # -- the loop -----------------------------------------------------------
     def run(self, steps: Optional[int] = None):
         """Train until ``steps``; returns history ``[(step, loss), ...]``
         with one entry per executed step."""
         steps = steps if steps is not None else self.steps
-        state = self.state if self.state is not None else self.init_state()
+        state = self.state if self.state is not None else self._startup_state()
         start = int(state.step)
         pf = Prefetcher(self.loader, depth=2, start_step=start)
         history, pending = [], []
@@ -97,8 +156,15 @@ class Engine:
         t0 = time.time()
         try:
             for step in range(start, steps):
+                t_step = time.time()
                 state, mets = self.step_fn(state, pf.next())
                 pending.append((step, mets["loss"]))
+                if self.straggler_probe is not None:
+                    self.straggler.record(
+                        self.straggler_probe(time.time() - t_step))
+                    slow = self.straggler.stragglers()
+                    if slow:
+                        self.log_fn(f"[engine] stragglers: {slow}")
                 if step % self.log_every == 0 or step == steps - 1:
                     drain()
                     self.log_fn(
@@ -106,8 +172,23 @@ class Engine:
                         f"loss {history[-1][1]:8.4f} "
                         f"gnorm {float(mets['grad_norm']):8.3f} "
                         f"({time.time() - t0:.1f}s)")
+                if self.ckpt and (step + 1) % self.ckpt_every == 0:
+                    drain()
+                    self._save(state)
+                if self.preemption and self.preemption.should_stop:
+                    if self.ckpt:
+                        # drain any in-flight async save first: both write
+                        # step_<N>.tmp
+                        self.ckpt.wait()
+                        if (step + 1) % self.ckpt_every != 0:
+                            self._save(state, asynchronous=False)
+                    self.log_fn(f"[engine] preempted at step {step + 1}; "
+                                f"checkpointed")
+                    break
         finally:
             pf.stop()
+            if self.ckpt:
+                self.ckpt.wait()
             self.state = state
             drain()
         return history

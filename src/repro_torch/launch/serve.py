@@ -9,7 +9,9 @@ percentiles.  It runs on the card unless ``--device cpu`` is given.
 ``--paged`` serves from the paged int8 page pool (prefix reuse, chunked
 prefill, preemption, ``--spec-decode``) instead of one lane per slot.
 ``--weight-bits B`` bit-packs every dense kernel once at load and serves
-from the packed codes.
+from the packed codes.  ``--ckpt-dir DIR`` serves the parameters of the
+latest training checkpoint in DIR (either package's) instead of random
+ones.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
         --full --slots 8 --max-seq 256 --requests 16
@@ -17,6 +19,7 @@ from the packed codes.
         --full --paged --page-size 16 --spec-decode
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
         --full --weight-bits 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --ckpt-dir /ckpts
 """
 
 from __future__ import annotations
@@ -91,12 +94,15 @@ def main(argv=None):
                          "in-kernel; omit to keep fp32 weights with "
                          "per-call forward quantization")
     ap.add_argument("--backend", default="kernel",
-                    choices=["simulate", "kernel"],
+                    choices=["simulate", "native", "kernel"],
                     help="execution backend for the quantized ops, "
                          "including the int8-KV dequant")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
                          "versions")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="restore params from an engine TrainState "
+                         "checkpoint instead of random init")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -117,12 +123,15 @@ def main(argv=None):
         kw.update(paged=True, page_size=args.page_size, pages=args.pages,
                   prefill_chunk=args.prefill_chunk,
                   spec_decode=args.spec_decode, spec_k=args.spec_k)
-    params = build_model(cfg).init(args.seed, device=args.device)
-    eng = ServeEngine(cfg, params, **kw)
+    if args.ckpt_dir:
+        eng = ServeEngine.from_checkpoint(cfg, args.ckpt_dir, **kw)
+        print(f"[serve] params from the checkpoint in {args.ckpt_dir}")
+    else:
+        params = build_model(cfg).init(args.seed, device=args.device)
+        eng = ServeEngine(cfg, params, **kw)
     if args.weight_bits is not None:
         print(f"[serve] packed w{args.weight_bits} weights: "
-              f"{weight_nbytes(eng.params)} resident bytes (fp32: "
-              f"{weight_nbytes(params)})")
+              f"{weight_nbytes(eng.params)} resident bytes")
 
     # warmup: every prefill bucket the workload can hit, off the clock
     hi = min(args.max_prompt, args.max_seq - 1)

@@ -8,9 +8,16 @@ unless ``--device cpu`` is given (the kernels' plain versions then run)::
         --quant bhq --grad-bits 5 --backend kernel
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 2
 
-``--backend`` is ``simulate`` or ``kernel`` (the reference's ``pallas``).
-``--ckpt-dir``, ``--mesh`` and ``--override-file`` belong to later slices
-of the port and raise ``NotImplementedError``.
+``--backend`` is ``simulate``, ``native`` (``torch._int_mm`` on the int8
+codes) or ``kernel`` (the reference's ``pallas``).  ``--ckpt-dir`` saves
+the whole training state every 100 steps and resumes from the latest
+checkpoint there (either package's); SIGTERM checkpoints and stops.
+``--override-file`` reads a precision plan (``overrides_to_json``'s
+format) before any ``--override``.  ``--mesh`` belongs to a later slice
+and raises ``NotImplementedError``.
+
+``train_loop`` is the reference's compatibility wrapper over
+``Engine(...).run()``.
 """
 
 from __future__ import annotations
@@ -21,8 +28,28 @@ from ..configs import get_config
 from ..core import QuantPolicy
 from ..engine import Engine
 from ..models import model_quant_paths
+from ..runtime import PreemptionHandler
 
-__all__ = ["main", "parse_override"]
+__all__ = ["train_loop", "main", "parse_override"]
+
+
+def train_loop(cfg, policy: QuantPolicy, *, steps: int, batch_size: int,
+               seq_len: int, lr: float = 3e-3, opt_name: str = "adamw",
+               ckpt_dir: str | None = None, ckpt_every: int = 100,
+               log_every: int = 10, seed: int = 0, remat: bool = False,
+               resume: bool = True, preemption: PreemptionHandler | None = None,
+               log_fn=print, **engine_kwargs):
+    """Compatibility wrapper over ``Engine(...).run()``: returns
+    ``(params, opt_state, history)`` with one ``(step, loss)`` entry per
+    executed step.  Extra kwargs (``accum_steps=``, ``device=``, ...) pass
+    through to :class:`~repro_torch.engine.Engine`."""
+    eng = Engine(cfg, policy, steps=steps, batch_size=batch_size,
+                 seq_len=seq_len, lr=lr, opt_name=opt_name,
+                 ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+                 log_every=log_every, seed=seed, remat=remat, resume=resume,
+                 preemption=preemption, log_fn=log_fn, **engine_kwargs)
+    history = eng.run()
+    return eng.state.params, eng.state.opt_state, history
 
 
 def parse_override(text: str):
@@ -66,8 +93,9 @@ def main(argv=None):
                                                        "qat", "exact"])
     ap.add_argument("--grad-bits", type=int, default=5)
     ap.add_argument("--backend", default="simulate",
-                    choices=["simulate", "kernel"],
-                    help="quantized-GEMM execution backend; kernel = the "
+                    choices=["simulate", "native", "kernel"],
+                    help="quantized-GEMM execution backend; native = "
+                         "torch._int_mm on the int8 codes; kernel = the "
                          "CUDA kernels for the forward AND both backward "
                          "GEMMs (their plain versions with --device cpu)")
     ap.add_argument("--device", default=None,
@@ -77,28 +105,38 @@ def main(argv=None):
     ap.add_argument("--accum", type=int, default=1,
                     help="gradient-accumulation microbatches per step")
     ap.add_argument("--ckpt-dir", default=None,
-                    help="checkpoints: not ported yet (raises)")
+                    help="checkpoint the training state here and resume "
+                         "from the latest checkpoint in it")
     ap.add_argument("--override", action="append", default=[],
                     metavar="PATTERN=SPEC", type=parse_override,
                     help="per-layer policy override (repeatable, applied in "
                          "order): PATTERN=exact | PATTERN=bits:B | "
                          "PATTERN=ROLE:QUANT[:B]")
     ap.add_argument("--override-file", default=None, metavar="PLAN.json",
-                    help="per-layer overrides from a precision plan: not "
-                         "ported yet (raises)")
+                    help="load per-layer overrides from a JSON file (the "
+                         "format overrides_to_json writes), applied before "
+                         "any --override, so CLI entries win")
     args = ap.parse_args(argv)
 
     if args.mesh is not None:
         raise NotImplementedError("--mesh: sharded training comes with the "
                                   "distribution slice of the port")
-    if args.override_file is not None:
-        raise NotImplementedError("--override-file: precision plans come "
-                                  "with the analysis slice of the port")
-    overrides = tuple(args.override)
+    file_overrides = ()
+    if args.override_file:
+        import json
+
+        from ..core.policy import overrides_from_json
+        with open(args.override_file) as fh:
+            doc = json.load(fh)
+        try:
+            file_overrides = overrides_from_json(doc)
+        except (TypeError, ValueError, KeyError) as e:
+            ap.error(f"--override-file {args.override_file}: {e}")
+    overrides = tuple(file_overrides) + tuple(args.override)
     if args.quant == "exact":
         if overrides:
-            ap.error("--override has no effect with --quant exact (the "
-                     "policy quantizes nothing)")
+            ap.error("--override/--override-file have no effect with "
+                     "--quant exact (the policy quantizes nothing)")
         policy = QuantPolicy.exact()
     elif args.quant == "qat":
         policy = QuantPolicy.qat(backend=args.backend, overrides=overrides)
@@ -109,13 +147,14 @@ def main(argv=None):
     cfg = get_config(args.arch, smoke=args.smoke)
     if overrides:
         print("[train] resolved per-layer quantizer specs:")
-        for path in model_quant_paths(cfg):
-            print(f"  {path:32s} {policy.resolve(path).describe()}")
+        for path, desc in policy.spec_table(model_quant_paths(cfg)):
+            print(f"  {path:32s} {desc}")
 
+    prm = PreemptionHandler(install=True)
     eng = Engine(cfg, policy, steps=args.steps, batch_size=args.batch,
                  seq_len=args.seq, lr=args.lr, opt_name=args.opt,
                  accum_steps=args.accum, ckpt_dir=args.ckpt_dir,
-                 device=args.device)
+                 preemption=prm, device=args.device)
     return eng.run()
 
 

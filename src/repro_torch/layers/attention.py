@@ -17,6 +17,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..core import (QuantPolicy, get_quantizer, kv_fresh_code,
                     resolve_kv_cache_spec)
+from ..core.exempt import fp_exempt
 from ..kernels.kv_gather import kv_gather_pages_kv, kv_gather_pages_kv_plain
 from .common import dense, init_dense
 from .embeddings import apply_rope
@@ -63,13 +64,16 @@ def _sdpa(q, k, v, mask):
 
     Plain ops, not ``scaled_dot_product_attention``: masking with -1e30 and
     an fp32 softmax are the reference's numerics."""
-    scale = 1.0 / torch.sqrt(torch.tensor(q.shape[-1], dtype=q.dtype,
-                                          device=q.device))
-    scores = torch.einsum("btkgh,bskh->bkgts", q * scale, k)
-    scores = torch.where(mask, scores, torch.tensor(_NEG, dtype=scores.dtype,
-                                                    device=scores.device))
-    probs = torch.softmax(scores.to(torch.float32), dim=-1).to(q.dtype)
-    return torch.einsum("bkgts,bskh->btkgh", probs, v)
+    with fp_exempt("attn.sdpa",
+                   "attention scores/probs GEMMs stay full precision — the "
+                   "paper quantizes only linear layers (Sec. 2.1 setting)"):
+        scale = 1.0 / torch.sqrt(torch.tensor(q.shape[-1], dtype=q.dtype,
+                                              device=q.device))
+        scores = torch.einsum("btkgh,bskh->bkgts", q * scale, k)
+        scores = torch.where(mask, scores, torch.tensor(
+            _NEG, dtype=scores.dtype, device=scores.device))
+        probs = torch.softmax(scores.to(torch.float32), dim=-1).to(q.dtype)
+        return torch.einsum("bkgts,bskh->btkgh", probs, v)
 
 
 def attention(p: dict, x: torch.Tensor, key, policy: QuantPolicy,

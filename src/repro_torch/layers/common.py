@@ -15,7 +15,15 @@ import torch
 from .. import prng
 from ..core import QuantPolicy, fqt_matmul
 
-__all__ = ["qkey", "init_dense", "dense", "randn"]
+__all__ = ["qkey", "init_dense", "dense", "randn", "MetaGenerator"]
+
+
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` on the meta device: the
+    initializers then make the parameters' shapes and dtypes, no values
+    (the restore target of a checkpoint, ``Model.input_specs``)."""
+
+    device = torch.device("meta")
 
 
 def qkey(key: Optional[torch.Tensor], tag: int) -> Optional[torch.Tensor]:
@@ -26,6 +34,8 @@ def qkey(key: Optional[torch.Tensor], tag: int) -> Optional[torch.Tensor]:
 
 def randn(gen: torch.Generator, shape, scale: float = 1.0) -> torch.Tensor:
     """Standard normal draw on the generator's device, times ``scale``."""
+    if isinstance(gen, MetaGenerator):
+        return torch.empty(tuple(shape), device=gen.device)
     return torch.randn(tuple(shape), generator=gen,
                        device=gen.device).mul_(scale)
 

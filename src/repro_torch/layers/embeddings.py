@@ -23,7 +23,7 @@ def init_embedding(gen: torch.Generator, cfg: ArchConfig) -> dict:
 
 
 def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens]
+    return torch.nn.functional.embedding(tokens, p["table"])
 
 
 def init_lm_head(gen: torch.Generator, cfg: ArchConfig) -> dict:

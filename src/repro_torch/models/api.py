@@ -1,19 +1,22 @@
 """Unified model API: ``build_model(cfg)`` -> :class:`Model`.
 
 Port of ``repro.models.api`` for the dense family: init / loss / prefill /
-decode / paged decode plus the cache and page-pool constructors.  Other
-families raise until their slice.
+decode / paged decode plus the cache and page-pool constructors,
+``quant_paths`` and ``input_specs`` (meta-device tensors in place of the
+reference's ``ShapeDtypeStruct``).  Other families raise until their
+slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable, Dict
 
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShapeSpec
 from ..device import resolve_device
+from ..layers.common import MetaGenerator
 from . import lm
 
 __all__ = ["Model", "build_model", "model_quant_paths"]
@@ -44,10 +47,38 @@ class Model:
 
     def init(self, seed: int, device=None) -> dict:
         """Random parameters from ``seed`` on ``device`` (CUDA unless the
-        caller asks otherwise; raises when CUDA is asked for and absent)."""
+        caller asks otherwise; raises when CUDA is asked for and absent).
+        On the meta device: their shapes and dtypes only."""
         dev = resolve_device(device)
+        if dev.type == "meta":
+            return lm.init_lm_params(MetaGenerator(), self.cfg)
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         return lm.init_lm_params(gen, self.cfg)
+
+    def quant_paths(self) -> tuple:
+        """Logical paths of this model's quantized GEMMs (policy overrides
+        resolve against these — see :func:`model_quant_paths`)."""
+        return model_quant_paths(self.cfg)
+
+    def input_specs(self, shape: ShapeSpec,
+                    dtype=torch.float32) -> Dict[str, Any]:
+        """Abstract inputs for one (arch x shape) cell, as meta-device
+        tensors of the reference's shapes and dtypes: train -> kwargs for
+        ``loss``; prefill -> kwargs for ``prefill``; decode -> kwargs for
+        ``decode`` (cache included; the port's caches are float32)."""
+        B, T = shape.global_batch, shape.seq_len
+
+        def tok(b, t):
+            return torch.empty((b, t), dtype=torch.int32, device="meta")
+
+        if shape.kind == "train":
+            return {"batch": {"labels": tok(B, T), "tokens": tok(B, T)}}
+        if shape.kind == "prefill":
+            return {"batch": {"tokens": tok(B, T)}}
+        if dtype != torch.float32:
+            raise ValueError(f"the port's caches are float32, not {dtype}")
+        cache = self.init_cache(self.cfg, B, T, device="meta")
+        return {"cache": cache, "batch": {"tokens": tok(B, 1)}}
 
 
 def build_model(cfg: ArchConfig) -> Model:

@@ -33,13 +33,16 @@ prefix reuse, chunked prefill, preemption and optional speculative decode.
 it (:func:`pack_dense_weights`): the resident GEMM weights drop to
 bits/32 of fp32, and every forward streams the stored codes through the
 packed kernels instead of quantizing the fp32 weights per call.
-Checkpoint startup comes with a later slice of the port and raises
-``NotImplementedError``.
+
+``ServeEngine.from_checkpoint`` starts from the ``params`` subtree of a
+training checkpoint (a whole ``TrainState``, or a legacy ``{params,
+opt}`` one), written by either package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from collections import deque
 from typing import Dict, List, Optional, Sequence
@@ -228,9 +231,24 @@ class ServeEngine:
     @classmethod
     def from_checkpoint(cls, cfg, ckpt_dir: str, step: Optional[int] = None,
                         **kw) -> "ServeEngine":
-        raise NotImplementedError(
-            "checkpoint startup (the reference checkpoint reader) comes with "
-            "the checkpoint slice of the port")
+        """Restore ``params`` from a training checkpoint (an engine
+        ``TrainState``, or the legacy ``{params, opt}`` layout: the same
+        subtree) onto ``device`` and build the engine with ``kw``
+        (``paged=True`` gives the paged engine, ``weight_bits`` packs at
+        load).  Raises ``FileNotFoundError`` when ``ckpt_dir`` holds no
+        checkpoint."""
+        from ..checkpoint import CheckpointManager
+        if not os.path.isdir(ckpt_dir):
+            raise FileNotFoundError(f"no checkpoints under {ckpt_dir!r}")
+        ckpt = CheckpointManager(ckpt_dir)
+        step = step if step is not None else ckpt.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {ckpt_dir!r}")
+        device = resolve_device(kw.get("device"))
+        abstract = build_model(cfg).init(0, device="meta")
+        params = ckpt.restore(step, {"params": abstract},
+                              device=device)["params"]
+        return cls(cfg, params, **kw)
 
     def _init_cache(self):
         if self.kv_spec is not None:

@@ -1185,3 +1185,101 @@ def test_unfused_ptq_step_runs_one_kernel_a_tensor_quantize(cuda,
                         q.quantize_sr_tensor_plain)
     plain = _device_kernels(lambda: step(state, batch))
     assert plain - kernel == calls * (per_plain - 1)
+
+
+def test_checkpoint_resume_is_bit_identical_on_the_card(cuda, tmp_path):
+    """Reduced statquant-tx on the kernel backend under ``fqt(bhq,5)``: 4
+    steps against 2 steps, a checkpoint and a new engine resuming to 4,
+    every leaf ``torch.equal`` (checkpoints restore onto the card)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import QuantPolicy
+    from repro_torch.engine import Engine
+    from repro_torch.optim import tree_leaves
+    cfg = get_config("statquant-tx", smoke=True)
+
+    def engine(**kw):
+        return Engine(cfg, QuantPolicy.fqt("bhq", 5, bhq_block=32,
+                                           backend="kernel"),
+                      steps=4, batch_size=4, seq_len=16, log_fn=None, **kw)
+    full = engine()
+    h = full.run()
+    e1 = engine(ckpt_dir=str(tmp_path), ckpt_every=2)
+    h1 = e1.run(steps=2)
+    e2 = engine(ckpt_dir=str(tmp_path), ckpt_every=100)
+    h2 = e2.run()
+    assert h == h1 + h2
+    for tree in (lambda s: s.params, lambda s: s.opt_state["m"],
+                 lambda s: s.opt_state["v"]):
+        for a, b in zip(tree_leaves(tree(full.state)),
+                        tree_leaves(tree(e2.state))):
+            assert a.device.type == "cuda" and torch.equal(a, b)
+    assert full.state.opt_state["t"] == e2.state.opt_state["t"] == 4
+    assert torch.equal(full.state.rng, e2.state.rng)
+
+
+def test_from_checkpoint_serves_through_the_kernels(cuda, tmp_path):
+    """``ServeEngine.from_checkpoint`` (dense and paged) on the card, kernel
+    backend: the in-memory engine's tokens, through the serving kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import QuantPolicy
+    from repro_torch.engine import Engine
+    from repro_torch.kernels import fused_qlhs_matmul
+    from repro_torch.serve import ServeEngine
+    cfg = get_config("statquant-tx", smoke=True)
+    eng = Engine(cfg, QuantPolicy.fqt("psq", 8, backend="kernel"), steps=2,
+                 batch_size=4, seq_len=16, ckpt_dir=str(tmp_path),
+                 ckpt_every=2, log_fn=None)
+    eng.run()
+    for kw in ({}, {"paged": True, "page_size": 4}):
+        outs = []
+        for build in (lambda: ServeEngine.from_checkpoint(
+                          cfg, str(tmp_path), slots=2, max_seq=32,
+                          kv_quant=True, **kw),
+                      lambda: ServeEngine(cfg, eng.state.params, slots=2,
+                                          max_seq=32, kv_quant=True, **kw)):
+            e = build()
+            e.submit([1, 2, 3], max_new=4)
+            e.submit(list(range(5, 20)), max_new=4)
+            f0 = fused_qlhs_matmul.launches
+            outs.append({r: c.tokens for r, c in e.run().items()})
+            assert fused_qlhs_matmul.launches > f0
+        assert outs[0] == outs[1]
+
+
+def test_native_backend_matches_simulate_on_the_card(cuda):
+    """``native`` (``torch._int_mm``, operands padded to its M > 16 and K,
+    N multiples of 8) against ``simulate`` on the card: forward and both
+    backward GEMMs of a ragged 33 x 17 x 9 call to float32 round-off, and a
+    reduced statquant-tx step's loss and gradient norm within the repo's
+    cross-backend tolerance."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.core import QuantPolicy, fqt_matmul
+    from repro_torch.data import make_batch_for
+    from repro_torch.engine import init_train_state, make_step_fn
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, cosine_schedule
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(33, 17, generator=gen, device=cuda)
+    w = torch.randn(17, 9, generator=gen, device=cuda)
+    g = torch.randn(33, 9, generator=gen, device=cuda)
+    outs = []
+    for backend in ("native", "simulate"):
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = fqt_matmul(xr, wr, prng.PRNGKey(3),
+                       QuantPolicy.fqt("psq", 8, backend=backend), path="p")
+        outs.append((y,) + torch.autograd.grad(y, (xr, wr), g))
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-5,
+                                   atol=1e-5 * float(b.abs().max()))
+    cfg = get_config("statquant-tx", smoke=True)
+    model = build_model(cfg)
+    batch = _tree_to(make_batch_for(cfg, 4, 16, step=0), cuda)
+    mets = []
+    for backend in ("native", "simulate"):
+        step = make_step_fn(model, QuantPolicy.fqt("psq", 8, backend=backend),
+                            adamw(), cosine_schedule(3e-3, 4, 1))
+        _, m = step(init_train_state(model, adamw(), 0), batch)
+        mets.append((float(m["loss"]), float(m["grad_norm"])))
+    for a, b in zip(*mets):
+        assert abs(a - b) <= 5e-3 + 1e-3 * abs(b)

@@ -226,8 +226,11 @@ def test_unported_paths_raise():
     from repro_torch.launch.train import main
     x = torch.randn(4, 8)
     w = torch.randn(8, 3)
-    with pytest.raises(NotImplementedError, match="'native' backend"):
-        fqt_matmul(x, w, None, QuantPolicy.qat(backend="native"))
+    # the native backend runs (torch._int_mm; tests/test_torch_native.py)
+    y = fqt_matmul(x, w, None, QuantPolicy.qat(backend="native"))
+    torch.testing.assert_close(
+        y, fqt_matmul(x, w, None, QuantPolicy.qat(backend="kernel")),
+        rtol=1e-5, atol=1e-5)
     # the unfused PTQ/PSQ roles on the kernel backend run since the
     # quantize_sr kernels were ported (tests/test_torch_quantize_sr.py)
     for name in ("ptq", "psq"):
@@ -241,7 +244,7 @@ def test_unported_paths_raise():
                                        fused=False))
         y.sum().backward()
         assert bool(torch.isfinite(xr.grad).all())
-    for flag, value in (("--mesh", "2x2"), ("--ckpt-dir", "/nonexistent")):
-        with pytest.raises(NotImplementedError, match="slice of the port"):
-            main(["--device", "cpu", "--steps", "1", flag, value])
+    # checkpoints are ported (tests/test_torch_checkpoint.py); meshes not
+    with pytest.raises(NotImplementedError, match="slice of the port"):
+        main(["--device", "cpu", "--steps", "1", "--mesh", "2x2"])
     assert QuantPolicy.fqt("bhq", 5).resolve("x").agrad.name == "bhq"

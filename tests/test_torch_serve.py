@@ -102,8 +102,10 @@ def test_unported_engine_options_raise():
     # outside {8, 4, 2} is refused
     with pytest.raises(ValueError, match="packable widths"):
         ServeEngine(cfg, params, weight_bits=5, device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint slice"):
-        ServeEngine.from_checkpoint(cfg, "/nonexistent")
+    # checkpoint startup is ported (tests/test_torch_serve_ckpt.py): a
+    # directory without a checkpoint is refused
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
+        ServeEngine.from_checkpoint(cfg, "/nonexistent", device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
         build_model(get_config("granite-moe-1b-a400m", smoke=True))
 

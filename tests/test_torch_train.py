@@ -172,10 +172,10 @@ def test_accumulation_and_override_run_on_cpu(capsys):
 
 
 def test_unported_training_options_raise(monkeypatch):
-    for flag, value in (("--mesh", "2x2"), ("--ckpt-dir", "/nonexistent"),
-                        ("--override-file", "plan.json")):
-        with pytest.raises(NotImplementedError, match="slice of the port"):
-            main(["--device", "cpu", "--steps", "1", flag, value])
+    # --ckpt-dir and --override-file are ported
+    # (tests/test_torch_checkpoint.py, tests/test_torch_policy_surface.py)
+    with pytest.raises(NotImplementedError, match="slice of the port"):
+        main(["--device", "cpu", "--steps", "1", "--mesh", "2x2"])
     cfg = get_config("statquant-tx", smoke=True)
     with pytest.raises(NotImplementedError, match="distribution slice"):
         make_step_fn(build_model(cfg), QuantPolicy.fqt(), None, None,
