@@ -60,9 +60,10 @@ toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
      one whose extremes are its last elements, at 4 and 8 bits
      (``sr_kernels_vs_plain``); ``q8_matmul`` also at the forward and dW
      (``tn``) shapes of the unfused step.
-  4. Serves granite-3-2b at full width (40 layers, random weights from the
-     seed) through ``ServeEngine(slots=8, max_seq=256, kv_quant=True)`` on
-     the ``kernel`` backend: 16 requests, prompts of 16-128 tokens,
+  4. Serves granite-3-2b at full width, its depth cut from 40 to
+     ``GRANITE_LAYERS`` (20) layers (random weights from the seed),
+     through ``ServeEngine(slots=8, max_seq=256, kv_quant=True)`` on the
+     ``kernel`` backend: 16 requests, prompts of 16-128 tokens,
      ``max_new=32``, greedy plus a few temperature/top-k requests.  Launch
      counters are zeroed just before and read just after; each must
      equal the count the path implies.  Two requests served
@@ -77,12 +78,13 @@ toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
      that tolerance: per-tensor ``Q_f`` turns the two backends' float32
      round-off into whole-code flips, and the JAX package's own backends
      differ as much at this width (tests/test_torch_fullwidth.py).
-  5. Paged serving, granite-3-2b at full width and depth:
+  5. Paged serving, granite-3-2b at full width and ``GRANITE_LAYERS``
+     (20) layers:
      ``ServeEngine(paged=True, page_size=16)`` with the same 8 slots,
      ``max_seq``, warm-up and 16 requests as 4, whole-prompt prefill, spec
      decode off.  Its tokens must equal the dense engine's (a one-token
      paged step is the dense step, arithmetically); ``kv_gather_pages_kv``
-     launches exactly 40 times per paged forward (K and V of a layer in
+     launches once per layer per paged forward (K and V of a layer in
      one launch) and the single-side KV kernels never; a replay through
      its plain version gives the same tokens and logits.  Then the paged
      features at full width: requests sharing a 64-token system prompt and
@@ -96,13 +98,15 @@ toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
      backend="kernel")``: paged tokens equal the dense engine's with
      whole-prompt and chunked prefill, prefix reuse, preemption and spec
      decode.
-  6. Serving from bit-packed weights, granite-3-2b at full width and depth
+  6. Serving from bit-packed weights, granite-3-2b at full width and
+     ``GRANITE_LAYERS`` (20) layers
      (``ServeEngine(weight_bits=...)``: every dense kernel quantized once
      at load and packed): at 8 bits, the dense phase's 8 slots, warm-up
      and 16 requests; tokens must equal the dense engine's and each
      prompt's prefill logits must be bit-identical to it (the same codes,
      column sums and epilogue), ``fused_qlhs_packed_matmul`` launches
-     exactly 281 times per forward and ``fused_qlhs_matmul`` never;
+     once per GEMM of each forward (141 at 20 layers) and
+     ``fused_qlhs_matmul`` never;
      resident GEMM-weight bytes are printed beside fp32's.  At 4 bits, the
      same workload (fused), and a 4-request workload under
      ``fused=False`` through ``packed_matmul``; each against its replay
@@ -204,6 +208,31 @@ toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
      statquant-tx (16 draws) against its QAT gradient under
      ``fqt(psq,8)`` and ``fqt(bhq,5)`` (Theorem 1 on the card).
 
+ 13. ``[moe serve]`` (``serve_moe``): granite-moe-1b-a400m at full width
+     and depth (24 layers, d=1024, 32 experts top-8, d_ff 512, 1.385 B
+     parameters, random weights from the seed) through the dense, the
+     paged (pages of 16) and the ``weight_bits=4`` engine, 8 slots,
+     ``max_seq=256``, int8 KV, 16 requests of 16-128 prompt and 16 new
+     tokens: exact launch counts (every router and expert GEMM on every
+     forward), paged tokens equal to the dense engine's or parting at a
+     near-tie; for each engine, one request of each prefill bucket
+     through the kernels and through their plain versions: the same
+     tokens and every forward's logits bit for bit, the kernels handed
+     every argument shape of the main run (recorded there); every GEMM of
+     one prefill within tolerance of ``simulate``; tok/s, p50/p95 step
+     and resident GEMM-weight bytes of each, a profiled decode step of
+     the dense and the 4-bit engine.
+ 14. ``[moe train]`` (``train_moe``): granite-moe-1b-a400m at full width
+     with its depth cut to 2 layers, 8 x 64 tokens, AdamW: 2 steps under
+     ``fqt(psq,8)`` and 1 under ``fqt(bhq,5)``: exact launch counts,
+     (loss, aux, grad norm) identical through the plain versions, every
+     backward GEMM of the first step within tolerance of ``simulate``;
+     the step wall and a profiled ``fqt(psq,8)`` step.
+ 15. ``[ops]`` (``ops_phase``): ``kernels/ops.py`` through the kernels
+     against the plain versions bit for bit: ``fused_qlinear`` at (512,
+     512, 10240) and ``fused_qlinear_bwd`` under ptq, psq and bhq at
+     (512, 512, 512).
+
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Any failed phase exits non-zero.
@@ -236,6 +265,16 @@ GRAD_ATOL_FRAC = 5e-3
 # (K, N) of every fused_qlhs_matmul on granite-3-2b's serving path
 GRANITE_KN = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048),
               (2048, 49408)]
+# the granite serving phases' depth (full width; the config has 40
+# layers): cut so the whole run, MoE phases included, fits its limit
+GRANITE_LAYERS = 20
+
+
+def granite_config():
+    """granite-3-2b at full width, depth cut to ``GRANITE_LAYERS``."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("granite-3-2b"),
+                               n_layers=GRANITE_LAYERS)
 
 
 class PhaseError(RuntimeError):
@@ -301,25 +340,38 @@ def main(argv=None) -> int:
     report["int8_mma_build"] = int8_mma_build(built)
     report["quantize_sr_build"] = quantize_sr_build(built)
 
-    errs = kernel_vs_plain(torch, report)
-    errs.update(train_kernel_vs_plain(torch, report))
-    serve, granite_engine, workload = serve_granite(torch, args.seed, report)
-    paged, paged_engine = serve_granite_paged(torch, args.seed, report,
-                                              granite_engine, workload)
-    errs.update(packed_kernel_vs_plain(torch, report))
-    packed, packed_engines = serve_granite_packed(torch, args.seed, report,
-                                                  granite_engine, workload)
-    paged_features(torch, args.seed, report, granite_engine.params)
-    paged_reduced_exact(torch, args.seed, report)
-    serve_statquant(torch, args.seed, report)
-    train = train_statquant(torch, args.seed, report)
-    unfused = train_unfused(torch, args.seed, report)
-    packed_train = train_packed(torch, args.seed, report)
-    serve_from = ckpt_train(torch, args.seed, report)
-    ckpt_serve(torch, args.seed, report, serve_from)
-    native_train(torch, args.seed, report)
-    theory_phase(torch, args.seed, report)
-    timings = time_kernels(torch, report)
+    def phase(fn, *a):
+        """``fn(torch, *a)``, its seconds printed and kept."""
+        t0 = time.perf_counter()
+        out = fn(torch, *a)
+        s = time.perf_counter() - t0
+        report.setdefault("phase_s", {})[fn.__name__] = s
+        log(f"[phase] {fn.__name__} {s:.1f}s")
+        return out
+
+    seed = args.seed
+    errs = phase(kernel_vs_plain, report)
+    errs.update(phase(train_kernel_vs_plain, report))
+    serve, granite_engine, workload = phase(serve_granite, seed, report)
+    paged, paged_engine = phase(serve_granite_paged, seed, report,
+                                granite_engine, workload)
+    errs.update(phase(packed_kernel_vs_plain, report))
+    packed, packed_engines = phase(serve_granite_packed, seed, report,
+                                   granite_engine, workload)
+    phase(paged_features, seed, report, granite_engine.params)
+    phase(paged_reduced_exact, seed, report)
+    phase(serve_statquant, seed, report)
+    train = phase(train_statquant, seed, report)
+    unfused = phase(train_unfused, seed, report)
+    packed_train = phase(train_packed, seed, report)
+    serve_from = phase(ckpt_train, seed, report)
+    phase(ckpt_serve, seed, report, serve_from)
+    phase(native_train, seed, report)
+    phase(theory_phase, seed, report)
+    moe = phase(serve_moe, seed, report)["launches"]
+    moe_train = phase(train_moe, seed, report)["launches"]
+    phase(ops_phase, seed, report)
+    timings = phase(time_kernels, report)
     serve["profile_decode_step"] = _profile_decode(torch, granite_engine,
                                                    share=KV_SHARE)
     paged["profile_decode_step"] = _profile_paged_decode(torch, paged_engine)
@@ -338,28 +390,35 @@ def main(argv=None) -> int:
                     replaces=replaces, launches=launches,
                     max_abs_err=errs[key], **timings[key])
     csrc = "src/repro_torch/csrc/"
+    # the MoE phases' launches join each kernel's (serving: dense, paged and
+    # 4-bit engines; training: both policies)
     kernels = [
         entry("fused_qlhs_matmul", "fused_qlhs_matmul",
               csrc + "fused_qlhs_fwd.cu", "src/repro/kernels/fused_fqt.py:93",
-              serve["launches"]["fused_qlhs_matmul"]),
+              serve["launches"]["fused_qlhs_matmul"]
+              + moe["fused_qlhs_matmul"] + moe_train["fused_qlhs_matmul"]),
         entry("kv_dequant_rows", "kv_dequant_rows", csrc + "kv_dequant.cu",
               "src/repro/kernels/kv_dequant.py:31",
               serve["launches"]["kv_dequant_rows"]
-              + serve["launches"]["kv_dequant_rows_kv"]),
+              + serve["launches"]["kv_dequant_rows_kv"]
+              + moe["kv_dequant_rows"] + moe["kv_dequant_rows_kv"]),
         entry("fused_qlhs_matmul (dX, SR)", "fused_qlhs_matmul_dx",
               csrc + "fused_qlhs_dx.cu", "src/repro/kernels/fused_fqt.py:93",
-              train["launches"]["fused_qlhs_matmul_dx"]),
+              train["launches"]["fused_qlhs_matmul_dx"]
+              + moe_train["fused_qlhs_matmul_dx"]),
         entry("q8_matmul", "q8_matmul", csrc + "q8_matmul.cu",
               "src/repro/kernels/q8_matmul.py:38",
               train["launches"]["q8_matmul"]
-              + unfused["launches"]["q8_matmul"]),
+              + unfused["launches"]["q8_matmul"] + moe_train["q8_matmul"]),
         entry("fused_qboth_tn_matmul", "fused_qboth_tn_matmul",
               csrc + "fused_qboth_tn.cu", "src/repro/kernels/fused_fqt.py:215",
-              train["launches"]["fused_qboth_tn_matmul"]),
+              train["launches"]["fused_qboth_tn_matmul"]
+              + moe_train["fused_qboth_tn_matmul"]),
         entry("kv_gather_pages", "kv_gather_pages", csrc + "kv_gather.cu",
               "src/repro/kernels/kv_gather.py:43",
               paged["launches"]["kv_gather_pages"]
-              + paged["launches"]["kv_gather_pages_kv"]),
+              + paged["launches"]["kv_gather_pages_kv"]
+              + moe["kv_gather_pages"] + moe["kv_gather_pages_kv"]),
         entry("quantize_sr_rows", "quantize_sr_rows", csrc + "quantize_sr.cu",
               "src/repro/kernels/quantize_sr.py:34",
               unfused["launches"]["quantize_sr_rows"]),
@@ -370,7 +429,8 @@ def main(argv=None) -> int:
               csrc + "fused_qlhs_packed.cu",
               "src/repro/kernels/fused_fqt.py:328",
               packed["launches"]["fused_qlhs_packed_matmul"]
-              + packed_train["launches"]["fused_qlhs_packed_matmul"]),
+              + packed_train["launches"]["fused_qlhs_packed_matmul"]
+              + moe["fused_qlhs_packed_matmul"]),
         entry("packed_matmul", "packed_matmul", csrc + "packed_matmul.cu",
               "src/repro/kernels/q4_matmul.py:71",
               packed["launches"]["packed_matmul"]
@@ -1379,8 +1439,11 @@ def _prefill_logits(torch, model, params, prompt, backend, policy=None):
 
 def _gemms_per_forward(cfg) -> int:
     """Quantized GEMMs in one forward: q, k, v, o and the MLP's two
-    (gelu, relu2) or three (swiglu) projections per layer, and lm_head."""
-    return cfg.n_layers * (4 + (3 if cfg.act == "swiglu" else 2)) + 1
+    (gelu, relu2) or three (swiglu) projections per layer (a MoE layer:
+    its router and every expert's projections), and lm_head."""
+    mlp = 3 if cfg.act == "swiglu" else 2
+    ffn = 1 + cfg.moe_experts * mlp if cfg.moe_experts else mlp
+    return cfg.n_layers * (4 + ffn) + 1
 
 
 def _prefill_gemms(torch, model, params, prompt, policy=None):
@@ -1608,11 +1671,10 @@ def _profile(torch, step, label, share=None):
 
 def serve_granite(torch, seed, report):
     import numpy as np
-    from repro_torch.configs import get_config
     from repro_torch.core import QuantPolicy
     from repro_torch.models import build_model
     from repro_torch.serve import ServeEngine
-    cfg = get_config("granite-3-2b")
+    cfg = granite_config()
     t0 = time.perf_counter()
     params = build_model(cfg).init(seed, device="cuda")
     torch.cuda.synchronize()
@@ -1703,21 +1765,9 @@ def _paged_engine(cfg, params, policy, seed, **kw):
 def _plain_gather():
     """A context in which the paged attention gathers through
     ``kv_gather_pages_kv``'s plain version (on the card)."""
-    import contextlib
-    import importlib
     from repro_torch.kernels import kv_gather_pages_kv_plain
-    # the module, not the function ``repro_torch.layers.attention``
-    attention = importlib.import_module("repro_torch.layers.attention")
-
-    @contextlib.contextmanager
-    def ctx():
-        saved = attention.kv_gather_pages_kv
-        attention.kv_gather_pages_kv = kv_gather_pages_kv_plain
-        try:
-            yield
-        finally:
-            attention.kv_gather_pages_kv = saved
-    return ctx()
+    return _swapped("kv_gather_pages_kv", kv_gather_pages_kv_plain,
+                    "repro_torch.layers.attention")
 
 
 def serve_granite_paged(torch, seed, report, dense_eng, workload):
@@ -1770,7 +1820,8 @@ def serve_granite_paged(torch, seed, report, dense_eng, workload):
                    mean=float(np.mean(host)) * 1e3),
                pool=eng.pool_stats(), launches=counts,
                expected_launches=want)
-    log(f"[paged] granite full width, 8 slots, page 16: {len(done)} "
+    log(f"[paged] granite full width, {cfg.n_layers} layers, 8 slots, "
+        f"page 16: {len(done)} "
         f"requests, {n_tok} tokens in {wall:.2f}s ({res['tok_per_s']:.1f} "
         f"tok/s), {fwd} paged forwards, p50 {res['p50_step_ms']:.2f} ms "
         f"p95 {res['p95_step_ms']:.2f} ms, host outside the forward "
@@ -1816,10 +1867,9 @@ def _feature_workload(cfg, seed):
 def paged_features(torch, seed, report, params):
     """Prefix reuse, copy-on-write, chunked prefill, preemption and spec
     decode at full width; see the module docstring."""
-    from repro_torch.configs import get_config
     from repro_torch.core import QuantPolicy
     from repro_torch.serve import ServeEngine
-    cfg = get_config("granite-3-2b")
+    cfg = granite_config()
     policy = QuantPolicy.qat(backend="kernel")
     rounds = _feature_workload(cfg, seed)
     kw = dict(slots=4, max_seq=256, page_size=16, pages=17,
@@ -1855,7 +1905,8 @@ def paged_features(torch, seed, report, params):
     fwd = st["paged_forwards"]
     want = {"fused_qlhs_matmul": _gemms_per_forward(cfg) * (prefills + fwd),
             "kv_gather_pages_kv": cfg.n_layers * fwd}
-    log(f"[paged features] granite full width, 4 slots, page 16, pool "
+    log(f"[paged features] granite full width, {cfg.n_layers} layers, 4 "
+        f"slots, page 16, pool "
         f"{st['n_pages']} pages, chunk 32, spec k=3: {len(tokens)} "
         f"requests in {steps} steps, {wall:.2f}s; prefix hits "
         f"{st['prefix_hits']}, cow copies {st['cow_copies']}, preemptions "
@@ -2117,20 +2168,68 @@ def _gemm_weight_bytes(params) -> int:
     return 0
 
 
-def _swapped(name, fn):
-    """A context in which ``core/backend.py`` calls ``fn`` for ``name``."""
+def _swapped(name, fn, module="repro_torch.core.backend"):
+    """A context in which ``module`` calls ``fn`` for ``name``."""
     import contextlib
-    import repro_torch.core.backend as backend
+    import importlib
+    mod = importlib.import_module(module)
 
     @contextlib.contextmanager
     def ctx():
-        saved = getattr(backend, name)
-        setattr(backend, name, fn)
+        saved = getattr(mod, name)
+        setattr(mod, name, fn)
         try:
             yield
         finally:
-            setattr(backend, name, saved)
+            setattr(mod, name, saved)
     return ctx()
+
+
+def _shapes(t):
+    """The shapes of the tensors in ``t`` (nested tuples and lists), None
+    for anything else."""
+    if isinstance(t, (tuple, list)):
+        return tuple(_shapes(x) for x in t)
+    return tuple(t.shape) if hasattr(t, "shape") else None
+
+
+def _shape_spy(name, module, seen):
+    """A context in which ``module``'s ``name`` adds the shapes of each
+    call's arguments to the set ``seen``, then runs as before."""
+    import importlib
+    fn = getattr(importlib.import_module(module), name)
+
+    def spy(*a, **kw):
+        seen.add(_shapes(a))
+        return fn(*a, **kw)
+    return _swapped(name, spy, module)
+
+
+def _in_contexts(contexts):
+    """One context entering each of ``contexts`` in turn."""
+    import contextlib
+    stack = contextlib.ExitStack()
+    for c in contexts:
+        stack.enter_context(c)
+    return stack
+
+
+def _record_forwards(eng):
+    """The logits of every forward ``eng`` runs (prefills, decode steps,
+    paged forwards), in order, cloned."""
+    out = []
+
+    def keep(fn):
+        def call(*a, **kw):
+            logits, cache = fn(*a, **kw)
+            out.append(logits.clone())
+            return logits, cache
+        return call
+    m = eng.model
+    eng.model = dataclasses.replace(m, prefill=keep(m.prefill),
+                                    decode=keep(m.decode),
+                                    paged_decode=keep(m.paged_decode))
+    return out
 
 
 def serve_granite_packed(torch, seed, report, dense_eng, workload):
@@ -2187,7 +2286,8 @@ def serve_granite_packed(torch, seed, report, dense_eng, workload):
                  launches=counts, expected_launches=want,
                  gemm_weight_bytes=_gemm_weight_bytes(eng.params),
                  gemm_weight_bytes_fp32=_gemm_weight_bytes(params))
-        log(f"[{tag}] granite full width, 8 slots: packed at load in "
+        log(f"[{tag}] granite full width, {cfg.n_layers} layers, 8 slots: "
+            f"packed at load in "
             f"{pack_s:.2f}s, GEMM weights {r['gemm_weight_bytes'] / 1e9:.3f}"
             f" GB resident (fp32 {r['gemm_weight_bytes_fp32'] / 1e9:.3f} "
             f"GB); {len(tokens)} requests, {n_tok} tokens in {wall:.2f}s "
@@ -2298,17 +2398,18 @@ def _train_engine(cfg, quant, bits, backend, seed, fused=None, overrides=(),
                   device="cuda", log_every=1, log_fn=log)
 
 
-def _replay(torch, eng, steps=TRAIN_STEPS):
+def _replay(torch, eng, steps=TRAIN_STEPS, metrics=("loss", "grad_norm")):
     """``steps`` steps of the engine's own step from its initial state:
-    [(loss, grad_norm)] per step."""
+    a tuple of ``metrics`` (default (loss, grad_norm)) per step."""
     state, out = eng.init_state(), []
     for s in range(steps):
         state, m = eng.step_fn(state, eng.loader.get(s))
-        out.append((float(m["loss"]), float(m["grad_norm"])))
+        out.append(tuple(float(m[k]) for k in metrics))
     return out
 
 
-def _replay_plain(torch, eng, steps=TRAIN_STEPS):
+def _replay_plain(torch, eng, steps=TRAIN_STEPS,
+                  metrics=("loss", "grad_norm")):
     """``_replay`` with every training kernel's wrapper swapped for its
     plain version (on the card): same device, same ops around them."""
     import repro_torch.core.backend as backend
@@ -2320,7 +2421,7 @@ def _replay_plain(torch, eng, steps=TRAIN_STEPS):
     for n in names:
         setattr(backend, n, getattr(kernels, n + "_plain"))
     try:
-        return _replay(torch, eng, steps)
+        return _replay(torch, eng, steps, metrics)
     finally:
         for n, fn in saved.items():
             setattr(backend, n, fn)
@@ -2869,7 +2970,6 @@ def native_train(torch, seed, report) -> None:
     from repro_torch.configs import get_config
     from repro_torch.engine import Engine
     cfg = get_config("statquant-tx")
-    t_phase = time.perf_counter()
     engines = [_train_engine(cfg, "psq", 8, b, seed, steps=NATIVE_STEPS)
                for b in ("simulate", "native", "kernel")]
     sim, got, kern = _carried_steps(torch, engines, NATIVE_STEPS)
@@ -2918,8 +3018,7 @@ def native_train(torch, seed, report) -> None:
         walls[backend] = dict(median_ms=float(np.median(ms[2:])), ms=ms[2:])
     log(f"[native] step wall, median of 10: native "
         f"{walls['native']['median_ms']:.2f} ms, kernel "
-        f"{walls['kernel']['median_ms']:.2f} ms; phase "
-        f"{time.perf_counter() - t_phase:.2f} s")
+        f"{walls['kernel']['median_ms']:.2f} ms")
     report["native"] = dict(native=got, simulate=sim, kernel=kern,
                             launches=counts, backward_gemms_vs_simulate=gemms,
                             reduced=dict(native=reduced[1],
@@ -3020,7 +3119,6 @@ def theory_phase(torch, seed, report) -> None:
     from repro_torch.core.theory import (empirical_mean_and_variance,
                                          fqt_gradient_stats,
                                          quantizer_variance)
-    t_phase = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     M, N = 512, 10240
     x = torch.randn(M, N, generator=gen, device="cuda") * 1e-3
@@ -3058,8 +3156,6 @@ def theory_phase(torch, seed, report) -> None:
                   f"[theory] {bits} bits: {what} variances {d} not ordered "
                   f"bhq < psq < ptq")
     res["fqt"] = _theorem1_on_card(torch, seed, fqt_gradient_stats)
-    res["phase_s"] = time.perf_counter() - t_phase
-    log(f"[theory] phase {res['phase_s']:.2f} s")
     report["theory"] = res
 
 
@@ -3104,6 +3200,370 @@ def _theorem1_on_card(torch, seed, fqt_gradient_stats) -> dict:
         out[f"{quant}{bits}"] = dict(variance=v_hat, sq_err=err, ratio=r,
                                      qat_sq_norm=qat_sq)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the MoE family, and the standalone ops
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "granite-moe-1b-a400m"
+MOE_NEW_TOKENS = 16
+# the MoE training phase's depth cut (full width): a full-depth step runs
+# about 7,300 host-dispatched GEMM launches
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_STEPS = {"psq": 2, "bhq": 1}
+# the profiled decode steps' kernels: the forward GEMMs (fused and packed)
+# and the dense KV read
+MOE_SHARE = ("qlhs", "kv_dequant")
+
+
+def moe_workload(cfg, seed):
+    """The 16 MoE requests: prompts of 16-128 tokens from the seed,
+    ``max_new=MOE_NEW_TOKENS``, greedy but for every fifth (temperature
+    0.8, top-k 40)."""
+    return [(p, dict(kw, max_new=MOE_NEW_TOKENS))
+            for p, kw in granite_workload(cfg, seed)]
+
+
+def _moe_sites(kw):
+    """The kernels an MoE engine built with ``kw`` launches, as (module
+    that calls it, name there, plain version): its forward GEMM and its
+    KV read."""
+    from repro_torch.kernels import (fused_qlhs_matmul_plain,
+                                     fused_qlhs_packed_matmul_plain,
+                                     kv_dequant_rows_kv_plain,
+                                     kv_gather_pages_kv_plain)
+    backend = "repro_torch.core.backend"
+    gemm = ((backend, "fused_qlhs_packed_matmul",
+             fused_qlhs_packed_matmul_plain) if kw.get("weight_bits")
+            else (backend, "fused_qlhs_matmul", fused_qlhs_matmul_plain))
+    kv = (("repro_torch.layers.attention", "kv_gather_pages_kv",
+           kv_gather_pages_kv_plain) if kw.get("paged")
+          else ("repro_torch.core.kv_cache", "kv_dequant_rows_kv",
+                kv_dequant_rows_kv_plain))
+    return [gemm, kv]
+
+
+def _engine_vs_plain(torch, make, requests, sites, main_shapes, tag):
+    """``requests`` through an engine from ``make()``, then through another
+    with each kernel of ``sites`` replaced by its plain version, on the
+    card: the same tokens, and the logits of every forward bit for bit.
+    The run through the kernels must hand each kernel every argument shape
+    that ``main_shapes`` saw it given on the main path."""
+    def run(plain):
+        eng = make()
+        logits = _record_forwards(eng)
+        seen = {name: set() for _, name, _ in sites}
+        with _in_contexts(_swapped(name, fn, module) if plain
+                          else _shape_spy(name, module, seen[name])
+                          for module, name, fn in sites):
+            for prompt, kw in requests:
+                eng.submit(prompt, **kw)
+            done = eng.run()
+        torch.cuda.synchronize()
+        return {r: c.tokens for r, c in done.items()}, logits, seen
+
+    tok_k, log_k, seen = run(False)
+    tok_p, log_p, _ = run(True)
+    same = len(log_k) == len(log_p) and all(
+        torch.equal(a, b) for a, b in zip(log_k, log_p))
+    names = [name for _, name, _ in sites]
+    log(f"[{tag}] {len(requests)} requests through {names} and through "
+        f"their plain versions: tokens equal {tok_k == tok_p}, logits of all "
+        f"{len(log_k)} forwards bit-identical {same}; argument shapes "
+        f"{ {n: len(seen[n]) for n in names} } (main path "
+        f"{ {n: len(main_shapes[n]) for n in names} })")
+    check(tok_k == tok_p and same, f"{tag}: the kernels differ from their "
+                                   f"plain versions")
+    for n in names:
+        check(main_shapes[n] <= seen[n],
+              f"{tag}: the replay misses {n}'s main-path shapes "
+              f"{main_shapes[n] - seen[n]}")
+    return dict(requests=len(requests), forwards=len(log_k),
+                shapes={n: len(seen[n]) for n in names},
+                tokens_equal=True, logits_bit_identical=True)
+
+
+def serve_moe(torch, seed, report):
+    """[moe serve]: granite-moe-1b-a400m at full width and depth (24
+    layers, d=1024, 32 experts top-8, d_ff 512; random weights from the
+    seed) through ``ServeEngine`` with 8 slots, ``max_seq=256`` and int8
+    KV: dense lanes, paged (pages of 16) and ``weight_bits=4``, the 16
+    requests of ``moe_workload`` each.
+
+    Checked: exact launch counts (every layer's router and all 32 experts'
+    three GEMMs run on every forward, static shapes); every request
+    completes in the vocabulary; the paged engine's tokens equal the dense
+    engine's, or part at a near-tie (``_explain_divergence``); for each
+    engine, one request of each prefill bucket through the kernels and
+    through their plain versions gives the same tokens and the same logits
+    of every forward, bit for bit, and hands each kernel every argument
+    shape the main run did (``_engine_vs_plain``); every quantized GEMM of
+    one full-width prefill within tolerance of ``simulate`` on the input
+    the kernel path gave it (``_full_width_vs_simulate``).  Printed:
+    tok/s, p50/p95 decode-step wall, the resident GEMM-weight bytes, one
+    profiled decode step of the dense and of the 4-bit engine, the 4-bit
+    engine's token agreement with the dense one."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import QuantPolicy
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.engine import _bucket
+    cfg = get_config(MOE_ARCH)
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(seed, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(int(np.prod(t.shape)) for t in _leaves(params))
+    log(f"[moe serve] {cfg.name} full width and depth: {cfg.n_layers} "
+        f"layers, {cfg.moe_experts} experts top-{cfg.moe_topk}, "
+        f"{n_params / 1e9:.3f} B params, init "
+        f"{time.perf_counter() - t0:.1f}s")
+    policy = QuantPolicy.qat(backend="kernel")
+    workload = moe_workload(cfg, seed)
+    # the replay's requests: the first prompt of each prefill bucket
+    firsts = {}
+    for prompt, _ in workload:
+        firsts.setdefault(_bucket(len(prompt)), prompt)
+    replay = [(firsts[b], dict(max_new=3)) for b in sorted(firsts)]
+    per_fwd = _gemms_per_forward(cfg)
+    res, tokens, seen = {}, {}, {}
+
+    def make(**kw):
+        return ServeEngine(cfg, params, policy=policy, slots=8, max_seq=256,
+                           kv_quant=True, seed=seed, device="cuda", **kw)
+
+    def serve(tag, **kw):
+        t0 = time.perf_counter()
+        eng = make(**kw)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        for prompt, skw in workload:
+            eng.submit(prompt, **skw)
+        rec = _record_sampling_logits(eng)
+        paged = kw.get("paged", False)
+        f0 = eng.paged_forwards if paged else 0
+        sites = _moe_sites(kw)
+        shapes = {name: set() for _, name, _ in sites}
+        with _in_contexts(_shape_spy(name, module, shapes[name])
+                          for module, name, _ in sites):
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            done = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _read_counts()
+        steps = len(eng.step_times)
+        fwd = eng.paged_forwards - f0 if paged else steps
+        gemm = ("fused_qlhs_packed_matmul" if kw.get("weight_bits")
+                else "fused_qlhs_matmul")
+        want = {gemm: per_fwd * (len(workload) + fwd),
+                ("kv_gather_pages_kv" if paged else "kv_dequant_rows_kv"):
+                    cfg.n_layers * fwd}
+        toks = {r: c.tokens for r, c in done.items()}
+        n_tok = sum(len(t) for t in toks.values())
+        dts = np.asarray([dt for dt, _ in eng.step_times])
+        r = dict(requests=len(done), tokens=n_tok, wall_s=wall,
+                 tok_per_s=n_tok / wall, decode_steps=steps, forwards=fwd,
+                 build_s=build_s,
+                 p50_step_ms=float(np.percentile(dts, 50)) * 1e3,
+                 p95_step_ms=float(np.percentile(dts, 95)) * 1e3,
+                 launches=counts, expected_launches=want,
+                 gemm_weight_bytes=_gemm_weight_bytes(eng.params),
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        log(f"[moe serve] {tag}: {len(done)} requests, {n_tok} tokens in "
+            f"{wall:.2f}s ({r['tok_per_s']:.1f} tok/s), {steps} decode "
+            f"steps, p50 {r['p50_step_ms']:.2f} ms p95 "
+            f"{r['p95_step_ms']:.2f} ms, GEMM weights "
+            f"{r['gemm_weight_bytes'] / 1e9:.3f} GB resident (engine built "
+            f"in {build_s:.2f}s), peak {r['peak_mem_gb']:.1f} GB")
+        log(f"[moe serve] {tag}: launches {counts} expected {want}")
+        _check_counts(counts, want, f"moe serve {tag}")
+        check(len(done) == len(workload) and all(
+            len(t) == MOE_NEW_TOKENS and all(0 <= v < cfg.vocab_size
+                                             for v in t)
+            for t in toks.values()),
+            f"moe serve {tag}: requests did not complete in the vocabulary")
+        r["vs_plain"] = _engine_vs_plain(
+            torch, lambda: make(**kw), replay, sites, shapes,
+            f"moe serve {tag}")
+        res[tag], tokens[tag], seen[tag] = r, toks, rec
+        return eng
+
+    # no warm-up: the earlier phases launched every kernel, and requests
+    # then take the same ids (and sampling keys) in every engine
+    dense = serve("dense")
+    res["dense"]["profile_decode_step"] = _profile_decode(
+        torch, dense, "moe dense", share=MOE_SHARE)
+    del dense
+    paged = serve("paged", paged=True, page_size=16)
+    res["paged"]["pool"] = paged.pool_stats()
+    del paged
+    same = tokens["paged"] == tokens["dense"]
+    log(f"[moe serve] paged tokens equal the dense engine's: {same}")
+    partings = _explain_divergence("moe serve paged", tokens["dense"],
+                                   tokens["paged"], seen["dense"],
+                                   seen["paged"], cfg.vocab_size)
+    res["paged"]["partings"] = partings
+    w4 = serve("w4", weight_bits=4)
+    res["w4"]["profile_decode_step"] = _profile_decode(
+        torch, w4, "moe w4 packed", share=MOE_SHARE)
+    del w4
+    d = tokens["dense"]
+    agree = sum(a == b for r in d for a, b in zip(d[r], tokens["w4"][r]))
+    n = sum(len(t) for t in d.values())
+    log(f"[moe serve] w4 token agreement with the dense (8-bit) engine: "
+        f"{agree}/{n} (measured, not held: 4-bit weights are another "
+        f"model); GEMM weights fp32 {_gemm_weight_bytes(params) / 1e9:.3f}"
+        f" GB")
+    res["w4"]["dense_token_agreement"] = [agree, n]
+    res["gemm_weight_bytes_fp32"] = _gemm_weight_bytes(params)
+    res["vs_simulate"] = _full_width_vs_simulate(
+        torch, cfg, params, workload[0][0], "moe serve")
+    res["launches"] = {k: sum(r["launches"][k] for r in
+                              (res["dense"], res["paged"], res["w4"]))
+                       for k in res["dense"]["launches"]}
+    res["tokens"] = tokens
+    report["moe_serve"] = res
+    return res
+
+
+def train_moe(torch, seed, report):
+    """[moe train]: granite-moe-1b-a400m at full width, depth cut to
+    MOE_TRAIN_LAYERS layers, batch 8 x seq 64, AdamW, through the engine
+    ``launch/train.py`` builds: MOE_TRAIN_STEPS steps under ``fqt(psq,8)``
+    and ``fqt(bhq,5)``.  Checked: each GEMM (attention, router, every
+    expert's gate/up/down, lm_head) launches its forward, dW and dX kernel
+    once a step; finite losses; the steps replayed through the kernels'
+    plain versions give the same loss, ``aux`` and gradient norm; every
+    backward GEMM of the first step against ``simulate`` from its (x, w,
+    key, g) (``_backward_vs``).  Printed: loss, ``aux``, gradient norm,
+    the step wall, and one profiled ``fqt(psq,8)`` step."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
+    n = _gemms_per_forward(cfg)
+    res, total = {}, {}
+    for quant, bits in (("psq", 8), ("bhq", 5)):
+        steps = MOE_TRAIN_STEPS[quant]
+        tag = f"moe train {quant}{bits}"
+        eng = _train_engine(cfg, quant, bits, "kernel", seed, steps=steps)
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        history = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        want = {"fused_qlhs_matmul": n * steps,
+                "fused_qboth_tn_matmul": n * steps,
+                ("fused_qlhs_matmul_dx" if quant == "psq" else "q8_matmul"):
+                    n * steps}
+        log(f"[{tag}] {cfg.name} full width (d={cfg.d_model}, "
+            f"{cfg.moe_experts} experts top-{cfg.moe_topk}), depth cut "
+            f"{full.n_layers} -> {cfg.n_layers} layers: {steps} step(s) of "
+            f"8 x 64 tokens in {wall:.2f}s, launches {counts} expected "
+            f"{want}")
+        _check_counts(counts, want, tag)
+        for name, c in counts.items():
+            total[name] = total.get(name, 0) + c
+        losses = [loss for _, loss in history]
+        check(len(losses) == steps and all(np.isfinite(v) for v in losses),
+              f"{tag}: losses {losses}")
+        metrics = ("loss", "aux", "grad_norm")
+        kern = _replay(torch, eng, steps, metrics)
+        check([k[0] for k in kern] == losses,
+              f"{tag}: the engine's run and its replay differ: {losses} vs "
+              f"{[k[0] for k in kern]}")
+        plain = _replay_plain(torch, eng, steps, metrics)
+        log(f"[{tag}] (loss, aux, grad norm) a step through the kernels "
+            f"{kern}, through their plain versions {plain}")
+        check(kern == plain, f"{tag}: the steps through the kernels differ "
+                             f"from the plain versions")
+        gemms = _backward_vs(torch, eng, quant, bits, tag)
+        res[quant] = dict(wall_s=wall, step_s=wall / steps, launches=counts,
+                          expected_launches=want, kernel=kern, plain=plain,
+                          backward_gemms_vs_simulate=gemms,
+                          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if quant == "psq":
+            res[quant]["profile_step"] = _profile(
+                torch, _one_step(eng), f"one training step, {tag}")
+        del eng
+    res["launches"] = total
+    res["layers"] = [full.n_layers, cfg.n_layers]
+    report["moe_train"] = res
+    return res
+
+
+OPS_QLINEAR_MKN = (512, 512, 10240)     # statquant-tx's lm_head forward
+OPS_BWD_MKN = (512, 512, 512)
+
+
+def ops_phase(torch, seed, report) -> dict:
+    """[ops]: the standalone ops of ``kernels/ops.py`` through the kernels
+    against the same ops through the plain versions, on the card, bit for
+    bit: ``fused_qlinear`` at statquant-tx's lm_head shape (one
+    ``quantize_sr_rows`` and one ``q8_matmul`` launch a call; codes,
+    scales and ``y``), ``fused_qlinear_bwd`` under ``ptq``, ``psq`` and
+    ``bhq`` (bhq_block 256) at a 512-wide shape (dW and dX)."""
+    from repro_torch import prng
+    from repro_torch.kernels import (ops, q8_matmul_plain,
+                                     quantize_sr_rows_plain,
+                                     quantize_sr_tensor_plain)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+    M, K, N = OPS_QLINEAR_MKN
+    x = torch.randn((M, K), generator=gen, device="cuda")
+    w = torch.randn((K, N), generator=gen, device="cuda") * 0.05
+    key = prng.PRNGKey(seed + 21)
+    _reset_counts()
+    y, aux = ops.fused_qlinear(x, w, key)
+    counts = _read_counts()
+    check(counts["quantize_sr_rows"] == 1 and counts["q8_matmul"] == 1
+          and sum(counts.values()) == 2,
+          f"ops: fused_qlinear launched {counts}, not one quantize_sr_rows "
+          f"and one q8_matmul")
+    y_p, aux_p = ops.fused_qlinear(x, w, key, use_kernels=False)
+    same = torch.equal(y, y_p) and all(torch.equal(aux[k], aux_p[k])
+                                       for k in aux)
+    err = {"fused_qlinear": float((y - y_p).abs().max())}
+    log(f"[ops] fused_qlinear {OPS_QLINEAR_MKN} kernels vs plain: codes, "
+        f"scales and y bit-identical {same} (max|d| "
+        f"{err['fused_qlinear']:.3g}); vs x @ w max rel |d| "
+        f"{float((y - x @ w).abs().max() / (x @ w).abs().max()):.3g}")
+    check(same, "ops: fused_qlinear through the kernels differs from the "
+                "plain versions")
+    M, K, N = OPS_BWD_MKN
+    x = torch.randn((M, K), generator=gen, device="cuda")
+    w = torch.randn((K, N), generator=gen, device="cuda") * 0.05
+    g = torch.randn((M, N), generator=gen, device="cuda") * 1e-3
+    for quant in ("ptq", "psq", "bhq"):
+        kb = prng.fold_in(key, 3)
+        _reset_counts()
+        dw, dx = ops.fused_qlinear_bwd(x, w, g, kb, grad_quantizer=quant,
+                                       bhq_block=256)
+        counts = _read_counts()
+        with _swapped("q8_matmul", q8_matmul_plain), \
+                _swapped("quantize_sr_rows", quantize_sr_rows_plain), \
+                _swapped("quantize_sr_tensor", quantize_sr_tensor_plain):
+            dw_p, dx_p = ops.fused_qlinear_bwd(x, w, g, kb,
+                                               grad_quantizer=quant,
+                                               bhq_block=256)
+        same = torch.equal(dw, dw_p) and torch.equal(dx, dx_p)
+        err[f"bwd_{quant}"] = max(float((dw - dw_p).abs().max()),
+                                  float((dx - dx_p).abs().max()))
+        want_sr = {"ptq": 2, "psq": 2, "bhq": 1}[quant]
+        log(f"[ops] fused_qlinear_bwd {quant} {OPS_BWD_MKN}: launches "
+            f"{ {k: v for k, v in counts.items() if v} }; dW and dX through "
+            f"the kernels vs plain bit-identical {same}")
+        check(counts["q8_matmul"] == 2 and counts["quantize_sr_tensor"]
+              + counts["quantize_sr_rows"] == want_sr,
+              f"ops: fused_qlinear_bwd {quant} launched {counts}")
+        check(same, f"ops: fused_qlinear_bwd {quant} through the kernels "
+                    f"differs from the plain versions")
+    report["ops"] = dict(max_abs_err=err)
+    return err
 
 
 # ---------------------------------------------------------------------------

@@ -9,10 +9,11 @@ from .bhq import (BHQTensor, bhq_exact_variance, bhq_variance_bound,
 from .exempt import (clear_exemptions, exemption_registry, fp_exempt,
                      key_scope, quant_scope)
 from .fqt import fqt_matmul
-from .kv_cache import (dequant_kv_rows, dequant_kv_rows_kv, kv_fresh_code,
+from .kv_cache import (dequant_kv_rows, dequant_kv_rows_kv,
+                       kv_cache_bytes_per_row, kv_fresh_code,
                        quantize_kv_rows)
-from .policy import (QuantPolicy, RoleOverride, overrides_from_json,
-                     overrides_to_json)
+from .policy import (EXACT, FQT8_BHQ, QAT, QuantPolicy, RoleOverride,
+                     overrides_from_json, overrides_to_json)
 from .quantizers import (QTensor, dynamic_range, num_bins,
                          psq_variance_bound, ptq_variance_bound,
                          quantize_psq_stoch, quantize_ptq_det,
@@ -29,10 +30,10 @@ __all__ = ["affine_factors", "apply_epilogue", "epilogue_coeffs",
            "BHQTensor", "bhq_exact_variance", "bhq_variance_bound",
            "quantize_bhq_stoch", "clear_exemptions", "exemption_registry",
            "fp_exempt", "key_scope", "quant_scope", "fqt_matmul",
-           "dequant_kv_rows", "dequant_kv_rows_kv", "kv_fresh_code",
-           "quantize_kv_rows",
-           "QuantPolicy", "RoleOverride", "overrides_from_json",
-           "overrides_to_json", "QTensor", "dynamic_range", "num_bins",
+           "dequant_kv_rows", "dequant_kv_rows_kv", "kv_cache_bytes_per_row",
+           "kv_fresh_code", "quantize_kv_rows",
+           "EXACT", "FQT8_BHQ", "QAT", "QuantPolicy", "RoleOverride",
+           "overrides_from_json", "overrides_to_json", "QTensor", "dynamic_range", "num_bins",
            "psq_variance_bound", "ptq_variance_bound", "sr_variance_exact",
            "quantize_psq_stoch", "quantize_ptq_det", "quantize_ptq_stoch",
            "row_dynamic_range", "sr_uniform", "stochastic_round",

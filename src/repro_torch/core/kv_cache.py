@@ -20,7 +20,7 @@ from ..kernels.kv_dequant import (kv_dequant_rows, kv_dequant_rows_kv,
 from .quantizers import num_bins, range_scale
 
 __all__ = ["quantize_kv_rows", "dequant_kv_rows", "dequant_kv_rows_kv",
-           "kv_fresh_code"]
+           "kv_cache_bytes_per_row", "kv_fresh_code"]
 
 _EPS = 1e-12
 
@@ -81,3 +81,12 @@ def dequant_kv_rows_kv(k, v, bits: int = 8, *, backend: str = "simulate"):
         *((c.reshape(-1, d), s.reshape(-1, 1), z.reshape(-1, 1))
           for c, s, z in (k, v)), bits=bits)
     return tuple(o.reshape(shape) for o in out)
+
+
+def kv_cache_bytes_per_row(d_flat: int, quantized: bool,
+                           dtype_bytes: int = 4) -> int:
+    """Device bytes one cached row costs: the resident-slot arithmetic of
+    serving (an int8 row is its codes plus a float32 scale and zero)."""
+    if quantized:
+        return d_flat + 2 * 4
+    return d_flat * dtype_bytes

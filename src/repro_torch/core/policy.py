@@ -33,8 +33,8 @@ from typing import Optional
 from .registry import (BACKENDS, EXACT_NAME, ROLES, GemmQuantConfig,
                        QuantizerSpec, get_quantizer)
 
-__all__ = ["QuantPolicy", "RoleOverride", "BACKENDS", "overrides_to_json",
-           "overrides_from_json"]
+__all__ = ["QuantPolicy", "RoleOverride", "BACKENDS", "EXACT", "QAT",
+           "FQT8_BHQ", "overrides_to_json", "overrides_from_json"]
 
 _BIT_FIELDS = ("act_bits", "weight_bits", "wgrad_bits", "grad_bits")
 
@@ -230,6 +230,11 @@ class QuantPolicy:
                            act_bits=act_bits, weight_bits=weight_bits,
                            backend=QuantPolicy._resolve_backend(backend, mode),
                            **kw)
+
+
+EXACT = QuantPolicy.exact()
+QAT = QuantPolicy.qat()
+FQT8_BHQ = QuantPolicy.fqt("bhq", 8)
 
 
 def _spec_to_json(spec: Optional[QuantizerSpec]):

@@ -20,6 +20,12 @@ ones.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
         --full --weight-bits 4
     PYTHONPATH=src python -m repro_torch.launch.serve --ckpt-dir /ckpts
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch granite-moe-1b-a400m --full --paged --page-size 16
+
+``generate`` is the static-batch helper without the engine (prefill once,
+decode the whole batch in lockstep); it stops early once every row has
+emitted ``eos_id``.
 """
 
 from __future__ import annotations
@@ -28,13 +34,48 @@ import argparse
 import time
 
 import numpy as np
+import torch
 
 from ..configs import get_config
 from ..core import QuantPolicy
 from ..models import build_model
 from ..serve import ServeEngine, weight_nbytes
 
-__all__ = ["main"]
+__all__ = ["generate", "main"]
+
+
+def generate(model, params, batch, policy: QuantPolicy, *, max_new: int,
+             max_seq: int, eos_id=None):
+    """Prefill the prompt then greedy-decode up to ``max_new`` tokens.
+
+    Returns (B, n) int64 with n <= max_new: decoding stops as soon as
+    every row has emitted ``eos_id`` (rows that finish early keep emitting
+    ``eos_id`` while the rest of the batch drains).  ``eos_id=None``
+    disables early stopping and always returns (B, max_new)."""
+    cfg = model.cfg
+    if cfg.family == "vlm":
+        raise NotImplementedError(
+            f"{cfg.name}: generate for the vlm family (decode steps fed "
+            f"token embeddings) comes with that family's slice of the port")
+    with torch.no_grad():
+        logits, cache = model.prefill(params, batch, policy, max_seq)
+        out = []
+        tok = torch.argmax(logits[:, -1, :cfg.vocab_size], dim=-1)[:, None]
+        finished = torch.zeros((tok.shape[0],), dtype=torch.bool,
+                               device=tok.device)
+        for _ in range(max_new):
+            if eos_id is not None:
+                finished = finished | (tok[:, 0] == eos_id)
+                tok = torch.where(finished[:, None],
+                                  torch.full_like(tok, eos_id), tok)
+            out.append(tok)
+            if eos_id is not None and bool(finished.all()):
+                break
+            logits, cache = model.decode(
+                params, cache, {"tokens": tok.to(torch.int32)}, policy)
+            tok = torch.argmax(logits[:, -1, :cfg.vocab_size],
+                               dim=-1)[:, None]
+    return torch.cat(out, dim=1)
 
 
 def _latency_stats(step_times):

@@ -1,4 +1,4 @@
-"""Layers of the dense transformer family (forward path)."""
+"""Layers of the dense and MoE transformer families."""
 
 from .attention import (attention, decode_attention, init_attention,
                         init_kv_cache, init_kv_cache_quant,
@@ -8,6 +8,7 @@ from .common import dense, init_dense, qkey
 from .embeddings import (apply_rope, embed, init_embedding, init_lm_head,
                          lm_head, rope_freqs)
 from .mlp import init_mlp, mlp
+from .moe import expert_capacity, init_moe, moe_block
 from .norms import apply_norm, init_norm, layernorm, rmsnorm
 
 __all__ = ["attention", "decode_attention", "init_attention", "init_kv_cache",
@@ -15,5 +16,6 @@ __all__ = ["attention", "decode_attention", "init_attention", "init_kv_cache",
            "paged_decode_attention", "paged_write_index", "dense",
            "init_dense", "qkey", "apply_rope",
            "embed", "init_embedding", "init_lm_head", "lm_head", "rope_freqs",
-           "init_mlp", "mlp", "apply_norm", "init_norm", "layernorm",
+           "init_mlp", "mlp", "expert_capacity", "init_moe", "moe_block",
+           "apply_norm", "init_norm", "layernorm",
            "rmsnorm"]

@@ -24,7 +24,7 @@ from .embeddings import apply_rope
 
 __all__ = ["init_attention", "attention", "decode_attention",
            "init_kv_cache", "init_kv_cache_quant", "init_paged_kv_pool",
-           "paged_write_index", "paged_decode_attention"]
+           "paged_write_index", "last_write", "paged_decode_attention"]
 
 _NEG = -1e30
 
@@ -193,6 +193,16 @@ def decode_attention(p: dict, x: torch.Tensor, cache: dict,
     return y, cache
 
 
+def last_write(flat: torch.Tensor, size: int) -> torch.Tensor:
+    """For each write to the flat targets ``flat`` (in ``[0, size)``), the
+    index of the last write to the same target.  Writes that take their
+    value through it all carry one value, so a CUDA scatter, which lets
+    any of them win, leaves what an in-order scatter leaves."""
+    order = torch.arange(flat.numel(), device=flat.device)
+    last = torch.full((size,), -1, dtype=torch.int64, device=flat.device)
+    return last.scatter_reduce_(0, flat, order, reduce="amax")[flat]
+
+
 def paged_write_index(table: torch.Tensor, start: torch.Tensor, C: int,
                       n_pages: int, P: int):
     """Where a ``C``-token paged step writes into a pool of ``n_pages``
@@ -200,13 +210,14 @@ def paged_write_index(table: torch.Tensor, start: torch.Tensor, C: int,
 
     ``offs`` (B, C): the positions ``start + c``; ``pids``/``rows`` (B, C):
     the page and row of each, positions clamped to ``nb * P - 1``.  Rows of
-    one step can share a target — padding rows of a chunk that fall in
-    unallocated blocks all land on the garbage page — and a CUDA scatter
-    lets any of them win, so ``src`` (B*C,) names, for every write, the
-    last write (in ``(b, c)`` order) to its target: all writes to a row
-    then carry that value, and the pool is the same from run to run, as
-    after the reference's in-order scatter.  ``None`` for ``C = 1``, where
-    only idle lanes share a target (page 0, row 0) and write equal rows.
+    one step can share a target: padding rows of a chunk that fall in
+    unallocated blocks all land on the garbage page, and at ``C = 1``
+    every idle lane writes page 0, row 0.  Their values can differ (a MoE
+    layer's capacity drops idle lanes' tokens unequally), and a CUDA
+    scatter lets any of them win, so ``src`` (B*C,) names, for every
+    write, the last write (in ``(b, c)`` order) to its target
+    (:func:`last_write`): the pool is then the same from run to run, as
+    after the reference's in-order scatter.
     """
     B, nb = table.shape
     dev = table.device
@@ -215,12 +226,7 @@ def paged_write_index(table: torch.Tensor, start: torch.Tensor, C: int,
     offs_w = torch.clamp_max(offs, nb * P - 1)
     pids = torch.gather(table.to(torch.int64), 1, offs_w // P)
     rows = offs_w % P
-    src = None
-    if C > 1:
-        flat = (pids * P + rows).reshape(-1)
-        order = torch.arange(flat.numel(), device=dev)
-        last = torch.full((n_pages * P,), -1, dtype=torch.int64, device=dev)
-        src = last.scatter_reduce_(0, flat, order, reduce="amax")[flat]
+    src = last_write((pids * P + rows).reshape(-1), n_pages * P)
     return offs, pids, rows, src
 
 
@@ -264,8 +270,7 @@ def paged_decode_attention(p: dict, x: torch.Tensor, pool: dict,
     flat = KV * hd
     for side, new in (("k", k_new), ("v", v_new)):
         codes, scale, zero = qz.quantize_rows(new.reshape(B * C, flat), bits)
-        if src is not None:
-            codes, scale, zero = codes[src], scale[src], zero[src]
+        codes, scale, zero = codes[src], scale[src], zero[src]
         pool[side]["codes"][pids, rows] = codes.reshape(B, C, flat)
         pool[side]["scale"][pids, rows] = scale.reshape(B, C)
         pool[side]["zero"][pids, rows] = zero.reshape(B, C)

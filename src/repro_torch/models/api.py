@@ -1,7 +1,7 @@
 """Unified model API: ``build_model(cfg)`` -> :class:`Model`.
 
-Port of ``repro.models.api`` for the dense family: init / loss / prefill /
-decode / paged decode plus the cache and page-pool constructors,
+Port of ``repro.models.api`` for the dense and MoE families: init / loss /
+prefill / decode / paged decode plus the cache and page-pool constructors,
 ``quant_paths`` and ``input_specs`` (meta-device tensors in place of the
 reference's ``ShapeDtypeStruct``).  Other families raise until their
 slice.
@@ -25,12 +25,14 @@ _ATTN = ("wq", "wk", "wv", "wo")
 
 
 def model_quant_paths(cfg: ArchConfig) -> tuple:
-    """The logical paths of every quantized GEMM of a dense model, the
-    strings ``QuantPolicy.resolve`` and its overrides match against."""
+    """The logical paths of every quantized GEMM of a dense or MoE model,
+    the strings ``QuantPolicy.resolve`` and its overrides match against."""
     mlp_names = (("gate", "up", "down") if cfg.act == "swiglu"
                  else ("fc1", "fc2"))
-    return tuple([f"layers.attn.{w}" for w in _ATTN]
-                 + [f"layers.mlp.{n}" for n in mlp_names] + ["lm_head"])
+    ffn = (["layers.moe.router"]
+           + [f"layers.moe.expert.{n}" for n in mlp_names]
+           if cfg.moe_experts else [f"layers.mlp.{n}" for n in mlp_names])
+    return tuple([f"layers.attn.{w}" for w in _ATTN] + ffn + ["lm_head"])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,7 +84,7 @@ class Model:
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    lm.check_dense(cfg)
+    lm.check_ported(cfg)
     return Model(
         cfg=cfg,
         loss=lambda params, batch, key, policy, **kw:

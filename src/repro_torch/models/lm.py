@@ -1,15 +1,17 @@
-"""Decoder-only LM, dense family: init, training loss, prefill, one-token
-decode and the paged multi-token decode.
+"""Decoder-only LM, dense and MoE families: init, training loss, prefill,
+one-token decode and the paged multi-token decode.
 
-Port of the dense branch of ``repro.models.lm``.  Per-layer parameters stay
-stacked ``(L, ...)`` with the JAX package's leaf names, and the stack runs
-as a Python loop over layer views (the counterpart of ``lax.scan``).  The
-training loss threads a PRNG key through the stack as the reference does
-(layer ``i`` takes ``split(key, n_layers)[i]``; the head takes ``key``, or
-``fold_in(key, chunk)`` per loss chunk): the backward's stochastic
-quantizers draw from it.  The forward quantizers are deterministic, so
-prefill and decode draw no randomness: their key is ``None``.  MoE, RWKV6,
-hybrid and VLM families come in later slices and raise here.
+Port of the dense and MoE branches of ``repro.models.lm``.  Per-layer
+parameters stay stacked ``(L, ...)`` with the JAX package's leaf names,
+and the stack runs as a Python loop over layer views (the counterpart of
+``lax.scan``).  The training loss threads a PRNG key through the stack as
+the reference does (layer ``i`` takes ``split(key, n_layers)[i]``; the
+head takes ``key``, or ``fold_in(key, chunk)`` per loss chunk): the
+backward's stochastic quantizers draw from it.  The forward quantizers are deterministic, so
+prefill and decode draw no randomness: their key is ``None``.  A MoE
+layer's ``moe_block`` takes the layer's key in place of the MLP and adds
+its load-balance loss to the stack's ``aux``.  RWKV6, hybrid, VLM and
+audio families come in later slices and raise here.
 """
 
 from __future__ import annotations
@@ -24,21 +26,23 @@ from ..core import QuantPolicy
 from ..layers import (apply_norm, attention, decode_attention, embed,
                       init_attention, init_embedding, init_kv_cache,
                       init_kv_cache_quant, init_lm_head, init_mlp, init_norm,
-                      init_paged_kv_pool, lm_head, mlp,
+                      init_moe, init_paged_kv_pool, lm_head, mlp, moe_block,
                       paged_decode_attention, paged_write_index)
 
 __all__ = ["init_lm_params", "lm_loss", "lm_prefill", "lm_decode",
            "init_lm_cache", "init_lm_cache_quant", "init_lm_paged_pool",
            "lm_paged_decode", "cross_entropy", "chunked_head_loss",
-           "layer_view", "check_dense"]
+           "layer_view", "check_ported"]
 
 
-def check_dense(cfg: ArchConfig) -> None:
-    """Raise unless ``cfg`` is a dense-family token LM this slice serves."""
-    if cfg.family != "dense" or cfg.moe_experts or cfg.ssm_kind:
+def check_ported(cfg: ArchConfig) -> None:
+    """Raise unless ``cfg`` is a token LM of a ported family: dense, or
+    MoE (``moe_experts`` > 0)."""
+    ported = {"dense": not cfg.moe_experts, "moe": cfg.moe_experts > 0}
+    if not ported.get(cfg.family) or cfg.ssm_kind:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; this "
-            f"slice of the port covers the dense transformer family")
+            f"{cfg.name}: family {cfg.family!r} is not ported yet; the "
+            f"port covers the dense and MoE transformer families")
 
 
 def layer_view(tree, i: int):
@@ -51,24 +55,37 @@ def layer_view(tree, i: int):
 def init_lm_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
     """Random parameters on the generator's device (same distributions as
     ``repro.models.lm.init_lm_params``, other draws)."""
-    check_dense(cfg)
+    check_ported(cfg)
     L, dev = (cfg.n_layers,), gen.device
-    return {
+    # draw order: embedding, head, then the layers' attention and FFN
+    params = {
         "embed": init_embedding(gen, cfg),
         "final_norm": init_norm(cfg.d_model, cfg.norm, device=dev),
         "lm_head": init_lm_head(gen, cfg),
-        "layers": {
-            "ln1": init_norm(cfg.d_model, cfg.norm, lead=L, device=dev),
-            "attn": init_attention(gen, cfg, lead=L),
-            "ln2": init_norm(cfg.d_model, cfg.norm, lead=L, device=dev),
-            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, lead=L),
-        },
     }
+    layers = {
+        "ln1": init_norm(cfg.d_model, cfg.norm, lead=L, device=dev),
+        "attn": init_attention(gen, cfg, lead=L),
+        "ln2": init_norm(cfg.d_model, cfg.norm, lead=L, device=dev),
+    }
+    if cfg.moe_experts:
+        layers["moe"] = init_moe(gen, cfg, lead=L)
+    else:
+        layers["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, lead=L)
+    params["layers"] = layers
+    return params
+
+
+def _ffn(p, x, key, policy, cfg, path="layers"):
+    """The layer's MLP, or its MoE block.  Returns (y, aux)."""
+    if cfg.moe_experts:
+        return moe_block(p["moe"], x, key, policy, cfg, path=f"{path}.moe")
+    return mlp(p["mlp"], x, key, policy, cfg.act, path=f"{path}.mlp"), 0.0
 
 
 def _tx_layer(p, h, key, policy, cfg, positions, want_kv: bool,
               path="layers"):
-    """Pre-norm attention + MLP.  Returns (h, kv or None)."""
+    """Pre-norm attention + MLP/MoE.  Returns (h, aux, kv or None)."""
     x = apply_norm(p["ln1"], h, cfg.norm)
     kv = None
     if want_kv:
@@ -81,27 +98,30 @@ def _tx_layer(p, h, key, policy, cfg, positions, want_kv: bool,
                         path=f"{path}.attn")
     h = h + att.to(h.dtype)
     x = apply_norm(p["ln2"], h, cfg.norm)
-    y = mlp(p["mlp"], x, key, policy, cfg.act, path=f"{path}.mlp")
-    return h + y.to(h.dtype), kv
+    y, aux = _ffn(p, x, key, policy, cfg, path)
+    return h + y.to(h.dtype), aux, kv
 
 
 def _forward_seq(params, h, key, policy: QuantPolicy, cfg: ArchConfig,
                  positions, want_cache: bool):
-    """Run the layer stack over a full sequence.  Returns (h, cache) with
-    cache ``{"k", "v"}`` stacked (L, B, T, flat) or ``None``.  ``key``:
-    ``None`` (forward only) or the key layer ``i`` splits off as
+    """Run the layer stack over a full sequence.  Returns (h, aux, cache):
+    ``aux`` the layers' summed MoE load-balance loss (0.0 for a dense
+    model), cache ``{"k", "v"}`` stacked (L, B, T, flat) or ``None``.
+    ``key``: ``None`` (forward only) or the key layer ``i`` splits off as
     ``split(key, n_layers)[i]``."""
-    check_dense(cfg)
+    check_ported(cfg)
     keys = (None if key is None else prng.split(key, cfg.n_layers))
-    kvs = []
+    kvs, aux = [], 0.0
     for i in range(cfg.n_layers):
-        h, kv = _tx_layer(layer_view(params["layers"], i), h,
-                          None if keys is None else keys[i], policy, cfg,
-                          positions, want_cache)
+        h, a, kv = _tx_layer(layer_view(params["layers"], i), h,
+                             None if keys is None else keys[i], policy, cfg,
+                             positions, want_cache)
+        aux = aux + a
         kvs.append(kv)
     if not want_cache:
-        return h, None
-    return h, {s: torch.stack([kv[s] for kv in kvs]) for s in ("k", "v")}
+        return h, aux, None
+    return h, aux, {s: torch.stack([kv[s] for kv in kvs])
+                    for s in ("k", "v")}
 
 
 def _mask_padded_vocab(logits: torch.Tensor, vocab_size: int):
@@ -152,24 +172,29 @@ def chunked_head_loss(params, h, labels, key, policy, cfg,
 def lm_loss(params, batch, key, policy: QuantPolicy, cfg: ArchConfig,
             remat: bool = False, dtype=None, loss_chunks: int = 1):
     """Full-sequence training loss (teacher forcing).  Returns
-    ``(loss, {"ce": loss, "aux": 0.0})``.  ``remat`` is accepted and
-    ignored: the port keeps every activation the backward needs."""
+    ``(loss, {"ce": loss, "aux": aux})``; a MoE model adds ``0.01 * aux /
+    n_layers`` to the loss (``aux`` summed over the layers), a dense one
+    reports ``aux`` 0.0.  ``remat`` is accepted and ignored: the port
+    keeps every activation the backward needs."""
     del remat
     h = embed(params["embed"], batch["tokens"])
     if dtype is not None:
         h = h.to(dtype)
     B, T = h.shape[0], h.shape[1]
     pos = torch.arange(T, device=h.device).expand(B, T)
-    h, _ = _forward_seq(params, h, key, policy, cfg, pos, want_cache=False)
+    h, aux, _ = _forward_seq(params, h, key, policy, cfg, pos,
+                             want_cache=False)
     h = apply_norm(params["final_norm"], h, cfg.norm)
     loss = chunked_head_loss(params, h, batch["labels"], key, policy, cfg,
                              loss_chunks)
-    return loss, {"ce": loss, "aux": 0.0}
+    if cfg.moe_experts:
+        loss = loss + 0.01 * aux / cfg.n_layers
+    return loss, {"ce": loss, "aux": aux}
 
 
 def init_lm_cache(cfg: ArchConfig, batch: int, max_seq: int,
                   device=None) -> dict:
-    check_dense(cfg)
+    check_ported(cfg)
     return {"kv": init_kv_cache(cfg, batch, max_seq, lead=(cfg.n_layers,),
                                 device=device),
             "index": torch.zeros((), dtype=torch.int32, device=device)}
@@ -178,7 +203,7 @@ def init_lm_cache(cfg: ArchConfig, batch: int, max_seq: int,
 def init_lm_cache_quant(cfg: ArchConfig, batch: int, max_seq: int,
                         device=None) -> dict:
     """int8 KV cache for serving decode; ``index`` is per slot."""
-    check_dense(cfg)
+    check_ported(cfg)
     return {"kv": init_kv_cache_quant(cfg, batch, max_seq,
                                       lead=(cfg.n_layers,), device=device),
             "index": torch.zeros((batch,), dtype=torch.int32, device=device)}
@@ -196,8 +221,8 @@ def lm_prefill(params, batch, policy: QuantPolicy, cfg: ArchConfig,
     B, T = h.shape[0], h.shape[1]
     max_seq = max_seq or T
     pos = torch.arange(T, device=h.device).expand(B, T)
-    h, cache = _forward_seq(params, h, None, policy, cfg, pos,
-                            want_cache=True)
+    h, _, cache = _forward_seq(params, h, None, policy, cfg, pos,
+                               want_cache=True)
     h = apply_norm(params["final_norm"], h, cfg.norm)
     if last_pos is None:
         h_last = h[:, -1:]
@@ -220,7 +245,7 @@ def lm_decode(params, cache, batch, policy: QuantPolicy, cfg: ArchConfig,
     cache's ``index``.  The cache (fp or int8 layout) is updated in place
     and returned with ``index + 1``.  Returns (logits (B, 1, Vp), cache).
     """
-    check_dense(cfg)
+    check_ported(cfg)
     h = embed(params["embed"], batch["tokens"]).to(torch.float32)
     index = cache["index"] if positions is None else positions
     for i in range(cfg.n_layers):
@@ -231,8 +256,7 @@ def lm_decode(params, cache, batch, policy: QuantPolicy, cfg: ArchConfig,
                                   path="layers.attn", kv_quant=kv_quant)
         h = h + att.to(h.dtype)
         x = apply_norm(lp["ln2"], h, cfg.norm)
-        h = h + mlp(lp["mlp"], x, None, policy, cfg.act,
-                    path="layers.mlp").to(h.dtype)
+        h = h + _ffn(lp, x, None, policy, cfg)[0].to(h.dtype)
     h = apply_norm(params["final_norm"], h, cfg.norm)
     logits = lm_head(params["lm_head"], h, None, policy)
     return logits, {"kv": cache["kv"], "index": index + 1}
@@ -243,7 +267,7 @@ def init_lm_paged_pool(cfg: ArchConfig, n_pages: int, page_size: int,
     """Stacked ``(L, n_pages, page_size, ...)`` int8 KV page pool for the
     paged serving engine: page id ``i`` names row ``i`` of every layer's
     pool, so one block table serves all layers."""
-    check_dense(cfg)
+    check_ported(cfg)
     return init_paged_kv_pool(cfg, n_pages, page_size, lead=(cfg.n_layers,),
                               device=device)
 
@@ -258,7 +282,7 @@ def lm_paged_decode(params, pool, batch, policy: QuantPolicy,
     (:func:`~repro_torch.layers.paged_decode_attention`).  The pool is
     updated in place.  Returns (logits (B, C, Vp), pool).
     """
-    check_dense(cfg)
+    check_ported(cfg)
     h = embed(params["embed"], batch["tokens"]).to(torch.float32)
     table = torch.as_tensor(table, device=h.device).to(
         torch.int32).contiguous()
@@ -273,8 +297,7 @@ def lm_paged_decode(params, pool, batch, policy: QuantPolicy,
                                         write=write)
         h = h + att.to(h.dtype)
         x = apply_norm(lp["ln2"], h, cfg.norm)
-        h = h + mlp(lp["mlp"], x, None, policy, cfg.act,
-                    path="layers.mlp").to(h.dtype)
+        h = h + _ffn(lp, x, None, policy, cfg)[0].to(h.dtype)
     h = apply_norm(params["final_norm"], h, cfg.norm)
     logits = lm_head(params["lm_head"], h, None, policy)
     return logits, pool

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ..core import quantize_kv_rows
+from ..layers.attention import last_write
 from .engine import ServeEngine, _Slot
 from .sampling import sample_tokens, slot_keys
 from .spec import SpecStats, default_draft_policy, greedy_accept
@@ -287,19 +288,22 @@ class PagedServeEngine(ServeEngine):
         """Scatter a prefill bucket (L, 1, lb, flat) into the slot's pages,
         quantizing rows as the dense engine's lane insert does.  Rows past
         the real context land in the tail page or the garbage page and
-        stay masked until overwritten."""
+        stay masked until overwritten; rows that share a garbage-page row
+        all carry the last one's value (``last_write``), as the
+        reference's in-order scatter leaves it."""
         lb = kv["k"].shape[2]
         P = self.page_size
         offs = np.arange(lb)
         pids = self._tensor(table_row[offs // P].astype(np.int64))
         rows = self._tensor(offs % P)
+        src = last_write(pids * P + rows, self.n_pages * P)
         bits = self.kv_spec.bits or 8
         for side in ("k", "v"):
             codes, scale, zero = quantize_kv_rows(kv[side], bits)
             dst = self._cache[side]
-            dst["codes"][:, pids, rows] = codes[:, 0]
-            dst["scale"][:, pids, rows] = scale[:, 0]
-            dst["zero"][:, pids, rows] = zero[:, 0]
+            dst["codes"][:, pids, rows] = codes[:, 0, src]
+            dst["scale"][:, pids, rows] = scale[:, 0, src]
+            dst["zero"][:, pids, rows] = zero[:, 0, src]
 
     def _copy_page(self, src: int, dst: int) -> None:
         """Copy one page across all layers and both sides: the

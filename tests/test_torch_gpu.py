@@ -1283,3 +1283,103 @@ def test_native_backend_matches_simulate_on_the_card(cuda):
         mets.append((float(m["loss"]), float(m["grad_norm"])))
     for a, b in zip(*mets):
         assert abs(a - b) <= 5e-3 + 1e-3 * abs(b)
+
+
+@pytest.mark.parametrize("mkn", [(512, 512, 10240), (33, 50, 9)])
+def test_fused_qlinear_kernels_vs_plain(cuda, mkn):
+    """``kernels/ops.py``'s standalone forward: one ``quantize_sr_rows``
+    and one ``q8_matmul`` launch a call, codes, scales and ``y`` equal to
+    ``use_kernels=False`` (the plain versions), and both backward GEMMs
+    of ``fused_qlinear_bwd`` under ptq, psq and bhq equal to the same ops
+    through the plain versions."""
+    import contextlib
+    import repro_torch.core.backend as backend
+    from repro_torch import prng
+    from repro_torch.kernels import (ops, q8_matmul, q8_matmul_plain,
+                                     quantize_sr_rows, quantize_sr_rows_plain,
+                                     quantize_sr_tensor_plain)
+    M, K, N = mkn
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x = torch.randn(M, K, generator=gen, device=cuda)
+    w = torch.randn(K, N, generator=gen, device=cuda) * 0.05
+    g = torch.randn(M, N, generator=gen, device=cuda) * 1e-3
+    q8_matmul.launches = quantize_sr_rows.launches = 0
+    y, aux = ops.fused_qlinear(x, w, prng.PRNGKey(7))
+    assert q8_matmul.launches == quantize_sr_rows.launches == 1
+    y_p, aux_p = ops.fused_qlinear(x, w, prng.PRNGKey(7), use_kernels=False)
+    assert torch.equal(y, y_p)
+    assert all(torch.equal(aux[k], aux_p[k]) for k in aux)
+
+    @contextlib.contextmanager
+    def plain():
+        names = {"q8_matmul": q8_matmul_plain,
+                 "quantize_sr_rows": quantize_sr_rows_plain,
+                 "quantize_sr_tensor": quantize_sr_tensor_plain}
+        saved = {n: getattr(backend, n) for n in names}
+        for n, fn in names.items():
+            setattr(backend, n, fn)
+        try:
+            yield
+        finally:
+            for n, fn in saved.items():
+                setattr(backend, n, fn)
+    for quant in ("ptq", "psq", "bhq"):
+        got = ops.fused_qlinear_bwd(x, w, g, prng.PRNGKey(3),
+                                    grad_quantizer=quant, bhq_block=256)
+        with plain():
+            want = ops.fused_qlinear_bwd(x, w, g, prng.PRNGKey(3),
+                                         grad_quantizer=quant, bhq_block=256)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), quant
+
+
+def test_moe_serving_and_training_run_through_the_kernels(cuda):
+    """Reduced granite-moe on the card: the dense and paged engines launch
+    the int8 forward for every router and expert GEMM of every forward
+    and emit the tokens of the same run on the CPU (plain versions); one
+    ``fqt(psq,8)`` step launches the forward, dX and dW kernels once per
+    GEMM, with the loss and ``aux`` of the CPU step within the
+    cross-backend tolerance."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import QuantPolicy
+    from repro_torch.data import make_batch_for
+    from repro_torch.engine import init_train_state, make_step_fn
+    from repro_torch.kernels import fused_qboth_tn_matmul, fused_qlhs_matmul
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.serve import ServeEngine
+    cfg = get_config("granite-moe-1b-a400m", smoke=True)
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    per_fwd = cfg.n_layers * (4 + 1 + 3 * cfg.moe_experts) + 1
+    for kw in ({}, dict(paged=True, page_size=8)):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            eng = ServeEngine(cfg, _tree_to(params, dev), slots=2,
+                              max_seq=32, kv_quant=True, device=dev, **kw)
+            fused_qlhs_matmul.launches = 0
+            eng.submit([1, 2, 3], max_new=4)
+            eng.submit(list(range(5, 20)), max_new=4)
+            out[dev] = {r: c.tokens for r, c in eng.run().items()}
+        fwd = eng.paged_forwards if kw else len(eng.step_times)
+        assert fused_qlhs_matmul.launches == per_fwd * (2 + fwd)
+        assert out["cuda"] == out["cpu"]
+    mets = {}
+    for dev in ("cpu", "cuda"):
+        step = make_step_fn(model, QuantPolicy.fqt("psq", 8,
+                                                   backend="kernel"),
+                            adamw(), cosine_schedule(3e-3, 4, 1))
+        state = init_train_state(model, adamw(), 0, device="cpu")
+        state = type(state)(params=_tree_to(state.params, dev),
+                            opt_state={k: (v if k == "t" else
+                                           _tree_to(v, dev))
+                                       for k, v in state.opt_state.items()},
+                            step=state.step, rng=state.rng)
+        fused_qlhs_matmul.launches = fused_qboth_tn_matmul.launches = 0
+        fused_qlhs_matmul.launches_dx = 0
+        _, m = step(state, _tree_to(make_batch_for(cfg, 4, 16, step=0), dev))
+        mets[dev] = (float(m["loss"]), float(m["aux"]))
+    assert fused_qlhs_matmul.launches == 2 * per_fwd
+    assert fused_qlhs_matmul.launches_dx == per_fwd
+    assert fused_qboth_tn_matmul.launches == per_fwd
+    for a, b in zip(mets["cuda"], mets["cpu"]):
+        assert abs(a - b) <= 5e-3 + 1e-3 * abs(b)

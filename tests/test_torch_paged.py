@@ -277,9 +277,10 @@ def test_cli_serves_paged_on_cpu(capsys):
 
 def test_paged_write_index_last_write_wins():
     """Rows of one step that share a pool row (a chunk's padding rows in
-    unallocated blocks, all on the garbage page) all carry the last one's
-    value, as the reference's in-order scatter leaves it; positions clamp
-    to the table's span."""
+    unallocated blocks, all on the garbage page; idle lanes' one-token
+    rows, all on page 0 row 0) all carry the last one's value, as the
+    reference's in-order scatter leaves it; positions clamp to the
+    table's span."""
     from repro_torch.layers import paged_write_index
     table = torch.tensor([[3, 0, 0, 0]], dtype=torch.int32)
     offs, pids, rows, src = paged_write_index(table, torch.tensor([0]), 8,
@@ -295,4 +296,35 @@ def test_paged_write_index_last_write_wins():
     got[pids, rows] = torch.arange(8.0)[src].reshape(1, 8)
     np.testing.assert_array_equal(got.numpy(), want)
     _, pids, rows, src = paged_write_index(table, torch.tensor([9]), 1, 5, 2)
-    assert src is None and pids.tolist() == [[0]] and rows.tolist() == [[1]]
+    assert src.tolist() == [0] and pids.tolist() == [[0]]
+    assert rows.tolist() == [[1]]
+    # a live lane between two idle ones: the idle lanes write page 0 row 0
+    lanes = torch.tensor([[0, 0, 0, 0], [3, 0, 0, 0], [0, 0, 0, 0]],
+                         dtype=torch.int32)
+    _, pids, rows, src = paged_write_index(lanes, torch.tensor([0, 1, 0]),
+                                           1, 5, 2)
+    assert pids.tolist() == [[0], [3], [0]] and rows.tolist() == [[0], [1],
+                                                                  [0]]
+    assert src.tolist() == [2, 1, 2]
+
+
+def test_last_write_makes_every_scatter_order_in_order():
+    """Values taken through ``last_write`` leave the same pool whichever
+    of the writes to a shared target lands last (a CUDA scatter promises
+    none): the in-order scatter's pool."""
+    import itertools
+
+    from repro_torch.layers.attention import last_write
+    flat = torch.tensor([3, 0, 3, 1, 0, 3])
+    vals = torch.arange(1.0, 7.0)
+    src = last_write(flat, 5)
+    assert src.tolist() == [5, 4, 5, 3, 4, 5]
+    want = torch.zeros(5)
+    for i in range(6):
+        want[flat[i]] = vals[i]
+    for perm in itertools.permutations(range(6)):
+        p = torch.tensor(perm)
+        got = torch.zeros(5)
+        for i in p.tolist():
+            got[flat[i]] = vals[src][i]
+        assert torch.equal(got, want), perm
