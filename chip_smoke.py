@@ -3,12 +3,16 @@
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --step-wall TREE [TREE ...]
+    python3 chip_smoke.py --phases PHASE [PHASE ...]
 
 The second form only times the GEMM wrappers' host cost a call, the KV
 reads' and SR quantizers' device time, the training step's wall and
 profiles granite's decode step (dense, paged, from packed weights) and
 the unfused training step for the package of each checkout TREE, one
-process each, in the order given (``step_wall_trees``).
+process each, in the order given (``step_wall_trees``).  The third
+builds the kernels and runs only the named phases (``ONLY_PHASES``: vlm,
+hybrid, rwkv, moe_serve, moe_train), to iterate on them; it prints no
+result line.
 
 From the root of a checkout, on a machine with one CUDA card and the CUDA
 toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
@@ -209,8 +213,9 @@ toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
      ``fqt(psq,8)`` and ``fqt(bhq,5)`` (Theorem 1 on the card).
 
  13. ``[moe serve]`` (``serve_moe``): granite-moe-1b-a400m at full width
-     and depth (24 layers, d=1024, 32 experts top-8, d_ff 512, 1.385 B
-     parameters, random weights from the seed) through the dense, the
+     (d=1024, 32 experts top-8, d_ff 512), its depth cut from 24 to 12
+     layers (``MOE_SERVE_LAYERS``; random weights from the seed) so that
+     the whole run fits its limit, through the dense, the
      paged (pages of 16) and the ``weight_bits=4`` engine, 8 slots,
      ``max_seq=256``, int8 KV, 16 requests of 16-128 prompt and 16 new
      tokens: exact launch counts (every router and expert GEMM on every
@@ -228,7 +233,25 @@ toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
      (loss, aux, grad norm) identical through the plain versions, every
      backward GEMM of the first step within tolerance of ``simulate``;
      the step wall and a profiled ``fqt(psq,8)`` step.
- 15. ``[ops]`` (``ops_phase``): ``kernels/ops.py`` through the kernels
+ 15. ``[vlm]``, ``[hybrid]``, ``[rwkv]`` (``vlm_phase``, ``hybrid_phase``,
+     ``rwkv_phase``): qwen2-vl-2b (M-RoPE, stub vision embeddings; 28
+     layers, d=1536), zamba2-2.7b (54 Mamba2 layers in 9 outer blocks,
+     each followed by the one shared attention block; d=2560) and
+     rwkv6-1.6b (24 layers, d=2048) at full width and depth, random
+     weights from the seed, under ``qat`` on the ``kernel`` backend:
+     prefill 4 prompts (128 stub embeddings whose M-RoPE positions span
+     four frames of a 4 x 4 patch grid, then text; 256 tokens, two SSD
+     chunks; 64 tokens), ``generate`` 8 tokens, and for the VLM 8 decode
+     steps on the int8 cache and one 16-token paged chunk; exact launch
+     counts; the same sequence through the kernels' plain versions gives
+     bit-identical logits and equal tokens and hands each kernel every
+     argument shape of the kernel run; a profiled decode step.  Then each
+     trains at full width with its depth cut (4, 12 = two outer blocks,
+     4 layers; 4 x 64, 2 x 128, 2 x 64 tokens): 2 steps under
+     ``fqt(psq,8)`` and 1 under ``fqt(bhq,5)``, with ``[moe train]``'s
+     checks (``_train_cut``) and one profiled psq step, with the device
+     time inside the SSD and WKV markers.
+ 16. ``[ops]`` (``ops_phase``): ``kernels/ops.py`` through the kernels
      against the plain versions bit for bit: ``fused_qlinear`` at (512,
      512, 10240) and ``fused_qlinear_bwd`` under ptq, psq and bhq at
      (512, 512, 512).
@@ -298,6 +321,10 @@ def main(argv=None) -> int:
                          "wrappers' host time a call, for the package of "
                          "each checkout TREE in turn (one process each)")
     ap.add_argument("--step-wall-of", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--phases", nargs="+", metavar="PHASE",
+                    choices=sorted(ONLY_PHASES),
+                    help="build, then run only these phases (to iterate on "
+                         "them); prints no result line")
     args = ap.parse_args(argv)
 
     if args.step_wall:
@@ -350,6 +377,14 @@ def main(argv=None) -> int:
         return out
 
     seed = args.seed
+    if args.phases:
+        for name in args.phases:
+            phase(globals()[ONLY_PHASES[name]], seed, report)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_phases.json").write_text(
+            json.dumps(report, indent=1, default=str))
+        return 0
     errs = phase(kernel_vs_plain, report)
     errs.update(phase(train_kernel_vs_plain, report))
     serve, granite_engine, workload = phase(serve_granite, seed, report)
@@ -370,6 +405,9 @@ def main(argv=None) -> int:
     phase(theory_phase, seed, report)
     moe = phase(serve_moe, seed, report)["launches"]
     moe_train = phase(train_moe, seed, report)["launches"]
+    families = [phase(fn, seed, report)
+                for fn in (vlm_phase, hybrid_phase, rwkv_phase)]
+    fam = {k: sum(f[k] for f in families) for k in families[0]}
     phase(ops_phase, seed, report)
     timings = phase(time_kernels, report)
     serve["profile_decode_step"] = _profile_decode(torch, granite_engine,
@@ -391,34 +429,41 @@ def main(argv=None) -> int:
                     max_abs_err=errs[key], **timings[key])
     csrc = "src/repro_torch/csrc/"
     # the MoE phases' launches join each kernel's (serving: dense, paged and
-    # 4-bit engines; training: both policies)
+    # 4-bit engines; training: both policies), and the VLM, hybrid and
+    # RWKV6 phases' (serving and training)
     kernels = [
         entry("fused_qlhs_matmul", "fused_qlhs_matmul",
               csrc + "fused_qlhs_fwd.cu", "src/repro/kernels/fused_fqt.py:93",
               serve["launches"]["fused_qlhs_matmul"]
-              + moe["fused_qlhs_matmul"] + moe_train["fused_qlhs_matmul"]),
+              + moe["fused_qlhs_matmul"] + moe_train["fused_qlhs_matmul"]
+              + fam["fused_qlhs_matmul"]),
         entry("kv_dequant_rows", "kv_dequant_rows", csrc + "kv_dequant.cu",
               "src/repro/kernels/kv_dequant.py:31",
               serve["launches"]["kv_dequant_rows"]
               + serve["launches"]["kv_dequant_rows_kv"]
-              + moe["kv_dequant_rows"] + moe["kv_dequant_rows_kv"]),
+              + moe["kv_dequant_rows"] + moe["kv_dequant_rows_kv"]
+              + fam["kv_dequant_rows_kv"]),
         entry("fused_qlhs_matmul (dX, SR)", "fused_qlhs_matmul_dx",
               csrc + "fused_qlhs_dx.cu", "src/repro/kernels/fused_fqt.py:93",
               train["launches"]["fused_qlhs_matmul_dx"]
-              + moe_train["fused_qlhs_matmul_dx"]),
+              + moe_train["fused_qlhs_matmul_dx"]
+              + fam["fused_qlhs_matmul_dx"]),
         entry("q8_matmul", "q8_matmul", csrc + "q8_matmul.cu",
               "src/repro/kernels/q8_matmul.py:38",
               train["launches"]["q8_matmul"]
-              + unfused["launches"]["q8_matmul"] + moe_train["q8_matmul"]),
+              + unfused["launches"]["q8_matmul"] + moe_train["q8_matmul"]
+              + fam["q8_matmul"]),
         entry("fused_qboth_tn_matmul", "fused_qboth_tn_matmul",
               csrc + "fused_qboth_tn.cu", "src/repro/kernels/fused_fqt.py:215",
               train["launches"]["fused_qboth_tn_matmul"]
-              + moe_train["fused_qboth_tn_matmul"]),
+              + moe_train["fused_qboth_tn_matmul"]
+              + fam["fused_qboth_tn_matmul"]),
         entry("kv_gather_pages", "kv_gather_pages", csrc + "kv_gather.cu",
               "src/repro/kernels/kv_gather.py:43",
               paged["launches"]["kv_gather_pages"]
               + paged["launches"]["kv_gather_pages_kv"]
-              + moe["kv_gather_pages"] + moe["kv_gather_pages_kv"]),
+              + moe["kv_gather_pages"] + moe["kv_gather_pages_kv"]
+              + fam["kv_gather_pages_kv"]),
         entry("quantize_sr_rows", "quantize_sr_rows", csrc + "quantize_sr.cu",
               "src/repro/kernels/quantize_sr.py:34",
               unfused["launches"]["quantize_sr_rows"]),
@@ -1440,8 +1485,16 @@ def _prefill_logits(torch, model, params, prompt, backend, policy=None):
 def _gemms_per_forward(cfg) -> int:
     """Quantized GEMMs in one forward: q, k, v, o and the MLP's two
     (gelu, relu2) or three (swiglu) projections per layer (a MoE layer:
-    its router and every expert's projections), and lm_head."""
+    its router and every expert's projections), and lm_head.  The hybrid:
+    5 projections a Mamba2 layer, and after each of its outer blocks the
+    fuse and the shared block's attention and MLP; RWKV6: 8 a layer (r, k,
+    v, g, o and the channel mix's 3)."""
     mlp = 3 if cfg.act == "swiglu" else 2
+    if cfg.family == "hybrid":
+        n_outer = cfg.n_layers // cfg.hybrid_period
+        return cfg.n_layers * 5 + n_outer * (1 + 4 + mlp) + 1
+    if cfg.ssm_kind == "rwkv6":
+        return cfg.n_layers * 8 + 1
     ffn = 1 + cfg.moe_experts * mlp if cfg.moe_experts else mlp
     return cfg.n_layers * (4 + ffn) + 1
 
@@ -1606,14 +1659,17 @@ def _profile_decode(torch, eng, what="dense", share=None):
                     share)
 
 
-def _profile(torch, step, label, share=None):
+def _profile(torch, step, label, share=None, ranges=()):
     """``step``'s wall time (median of 5 runs without the profiler), and
     from one profiled run (torch.profiler) the device's busy time (the sum
     over kernels and copies on the card), the idle share, and the device
     time by kernel and by the PyTorch op that launched it; with ``share``
     (a name fragment or a tuple of them), also the device time and
     launches of every kernel whose name holds one (of the op so named, for
-    an ``aten::`` name), by fragment and in all."""
+    an ``aten::`` name), by fragment and in all; with ``ranges`` (marker
+    names such as ``fp[rwkv.wkv]``, ``core/exempt.py``), the device time
+    of the kernels launched inside each range on the host (a backward's
+    kernels run outside them)."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1639,6 +1695,11 @@ def _profile(torch, step, label, share=None):
         (kernels if on_card else ops).append((dev_ms, e.count, e.key))
     kernels.sort(reverse=True)
     ops.sort(reverse=True)
+    inside = {}
+    for e in prof.key_averages():
+        if e.key in ranges and e.device_type != DeviceType.CUDA:
+            inside[e.key] = dict(ms=e.device_time_total / 1e3,
+                                 count=e.count)
     busy = sum(r[0] for r in kernels)
     log(f"[profile] {label}: wall {wall:.2f} ms (median of 5, no profiler), "
         f"device busy {busy:.2f} ms, idle share {1 - busy / wall:.3f}, "
@@ -1647,7 +1708,10 @@ def _profile(torch, step, label, share=None):
         log(f"[profile]   op     {ms:9.3f} ms {n:6d}x {name[:80]}")
     for ms, n, name in kernels[:10]:
         log(f"[profile]   kernel {ms:9.3f} ms {n:6d}x {name[:80]}")
-    res = {}
+    for key, r in inside.items():
+        log(f"[profile]   inside {key}: {r['ms']:.3f} ms of {busy:.2f} ms "
+            f"busy ({r['count']} ranges)")
+    res = {"ranges": inside} if ranges else {}
     if share:
         keys = (share,) if isinstance(share, str) else tuple(share)
         by = {}
@@ -1658,7 +1722,7 @@ def _profile(torch, step, label, share=None):
                            launches=sum(r[1] for r in mine))
             log(f"[profile]   kernels of *{key}*: {by[key]['ms']:.3f} ms "
                 f"({by[key]['launches']} launches) of {busy:.2f} ms busy")
-        res = dict(share_key="|".join(keys), shares=by,
+        res.update(share_key="|".join(keys), shares=by,
                    share_ms=sum(v["ms"] for v in by.values()),
                    share_launches=sum(v["launches"] for v in by.values()))
     return dict(res, wall_ms=wall, walls_ms=walls, device_busy_ms=busy,
@@ -2388,13 +2452,13 @@ def _train_policy(quant, bits, backend, fused=None, overrides=()):
 
 
 def _train_engine(cfg, quant, bits, backend, seed, fused=None, overrides=(),
-                  steps=TRAIN_STEPS):
+                  steps=TRAIN_STEPS, batch=8, seq=64):
     """The engine ``python -m repro_torch.launch.train --full --quant
     QUANT --grad-bits BITS --backend BACKEND [--override ...]`` builds
-    (batch 8, seq 64), with the policy's ``fused`` knob."""
+    (default batch 8, seq 64), with the policy's ``fused`` knob."""
     from repro_torch.engine import Engine
     return Engine(cfg, _train_policy(quant, bits, backend, fused, overrides),
-                  steps=steps, batch_size=8, seq_len=64, seed=seed,
+                  steps=steps, batch_size=batch, seq_len=seq, seed=seed,
                   device="cuda", log_every=1, log_fn=log)
 
 
@@ -3208,6 +3272,10 @@ def _theorem1_on_card(torch, seed, fqt_gradient_stats) -> dict:
 
 MOE_ARCH = "granite-moe-1b-a400m"
 MOE_NEW_TOKENS = 16
+# the MoE serving phase's depth (full width; the config has 24 layers):
+# cut so that the whole run, the VLM, hybrid and RWKV6 phases included,
+# fits its limit
+MOE_SERVE_LAYERS = 12
 # the MoE training phase's depth cut (full width): a full-depth step runs
 # about 7,300 host-dispatched GEMM launches
 MOE_TRAIN_LAYERS = 2
@@ -3285,9 +3353,10 @@ def _engine_vs_plain(torch, make, requests, sites, main_shapes, tag):
 
 
 def serve_moe(torch, seed, report):
-    """[moe serve]: granite-moe-1b-a400m at full width and depth (24
-    layers, d=1024, 32 experts top-8, d_ff 512; random weights from the
-    seed) through ``ServeEngine`` with 8 slots, ``max_seq=256`` and int8
+    """[moe serve]: granite-moe-1b-a400m at full width (d=1024, 32 experts
+    top-8, d_ff 512), its depth cut from 24 to MOE_SERVE_LAYERS (12)
+    layers (random weights from the seed), through ``ServeEngine`` with 8
+    slots, ``max_seq=256`` and int8
     KV: dense lanes, paged (pages of 16) and ``weight_bits=4``, the 16
     requests of ``moe_workload`` each.
 
@@ -3310,13 +3379,15 @@ def serve_moe(torch, seed, report):
     from repro_torch.models import build_model
     from repro_torch.serve import ServeEngine
     from repro_torch.serve.engine import _bucket
-    cfg = get_config(MOE_ARCH)
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_SERVE_LAYERS)
     t0 = time.perf_counter()
     params = build_model(cfg).init(seed, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(int(np.prod(t.shape)) for t in _leaves(params))
-    log(f"[moe serve] {cfg.name} full width and depth: {cfg.n_layers} "
-        f"layers, {cfg.moe_experts} experts top-{cfg.moe_topk}, "
+    log(f"[moe serve] {cfg.name} full width, depth cut {full.n_layers} -> "
+        f"{cfg.n_layers} layers, {cfg.moe_experts} experts "
+        f"top-{cfg.moe_topk}, "
         f"{n_params / 1e9:.3f} B params, init "
         f"{time.perf_counter() - t0:.1f}s")
     policy = QuantPolicy.qat(backend="kernel")
@@ -3429,27 +3500,25 @@ def serve_moe(torch, seed, report):
     return res
 
 
-def train_moe(torch, seed, report):
-    """[moe train]: granite-moe-1b-a400m at full width, depth cut to
-    MOE_TRAIN_LAYERS layers, batch 8 x seq 64, AdamW, through the engine
-    ``launch/train.py`` builds: MOE_TRAIN_STEPS steps under ``fqt(psq,8)``
-    and ``fqt(bhq,5)``.  Checked: each GEMM (attention, router, every
-    expert's gate/up/down, lm_head) launches its forward, dW and dX kernel
-    once a step; finite losses; the steps replayed through the kernels'
-    plain versions give the same loss, ``aux`` and gradient norm; every
+def _train_cut(torch, cfg, full_layers, tag, seed, steps, batch, seq,
+               metrics=("loss", "grad_norm"), ranges=()) -> dict:
+    """``steps[quant]`` training steps of ``cfg`` (full width, its depth
+    cut from ``full_layers``) through the engine ``launch/train.py`` builds
+    (AdamW, batch x seq tokens) under ``fqt(psq,8)`` and ``fqt(bhq,5)``.
+    Checked: each GEMM launches its forward, dW and dX kernel once a step
+    and no other kernel launches; finite losses; the steps replayed
+    through the kernels' plain versions give the same ``metrics``; every
     backward GEMM of the first step against ``simulate`` from its (x, w,
-    key, g) (``_backward_vs``).  Printed: loss, ``aux``, gradient norm,
-    the step wall, and one profiled ``fqt(psq,8)`` step."""
+    key, g) (``_backward_vs``).  Printed: the metrics, the step wall, and
+    one profiled ``fqt(psq,8)`` step."""
     import numpy as np
-    from repro_torch.configs import get_config
-    full = get_config(MOE_ARCH)
-    cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
     n = _gemms_per_forward(cfg)
     res, total = {}, {}
     for quant, bits in (("psq", 8), ("bhq", 5)):
-        steps = MOE_TRAIN_STEPS[quant]
-        tag = f"moe train {quant}{bits}"
-        eng = _train_engine(cfg, quant, bits, "kernel", seed, steps=steps)
+        k = steps[quant]
+        qtag = f"{tag} {quant}{bits}"
+        eng = _train_engine(cfg, quant, bits, "kernel", seed, steps=k,
+                            batch=batch, seq=seq)
         _reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3457,44 +3526,329 @@ def train_moe(torch, seed, report):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = _read_counts()
-        want = {"fused_qlhs_matmul": n * steps,
-                "fused_qboth_tn_matmul": n * steps,
+        want = {"fused_qlhs_matmul": n * k, "fused_qboth_tn_matmul": n * k,
                 ("fused_qlhs_matmul_dx" if quant == "psq" else "q8_matmul"):
-                    n * steps}
-        log(f"[{tag}] {cfg.name} full width (d={cfg.d_model}, "
-            f"{cfg.moe_experts} experts top-{cfg.moe_topk}), depth cut "
-            f"{full.n_layers} -> {cfg.n_layers} layers: {steps} step(s) of "
-            f"8 x 64 tokens in {wall:.2f}s, launches {counts} expected "
-            f"{want}")
-        _check_counts(counts, want, tag)
+                    n * k}
+        log(f"[{qtag}] {cfg.name} full width (d={cfg.d_model}), depth cut "
+            f"{full_layers} -> {cfg.n_layers} layers: {k} step(s) of "
+            f"{batch} x {seq} tokens in {wall:.2f}s, launches {counts} "
+            f"expected {want}")
+        _check_counts(counts, want, qtag)
         for name, c in counts.items():
             total[name] = total.get(name, 0) + c
         losses = [loss for _, loss in history]
-        check(len(losses) == steps and all(np.isfinite(v) for v in losses),
-              f"{tag}: losses {losses}")
-        metrics = ("loss", "aux", "grad_norm")
-        kern = _replay(torch, eng, steps, metrics)
-        check([k[0] for k in kern] == losses,
-              f"{tag}: the engine's run and its replay differ: {losses} vs "
-              f"{[k[0] for k in kern]}")
-        plain = _replay_plain(torch, eng, steps, metrics)
-        log(f"[{tag}] (loss, aux, grad norm) a step through the kernels "
-            f"{kern}, through their plain versions {plain}")
-        check(kern == plain, f"{tag}: the steps through the kernels differ "
+        check(len(losses) == k and all(np.isfinite(v) for v in losses),
+              f"{qtag}: losses {losses}")
+        kern = _replay(torch, eng, k, metrics)
+        check([r[0] for r in kern] == losses,
+              f"{qtag}: the engine's run and its replay differ: {losses} "
+              f"vs {[r[0] for r in kern]}")
+        plain = _replay_plain(torch, eng, k, metrics)
+        log(f"[{qtag}] {metrics} a step through the kernels {kern}, "
+            f"through their plain versions {plain}")
+        check(kern == plain, f"{qtag}: the steps through the kernels differ "
                              f"from the plain versions")
-        gemms = _backward_vs(torch, eng, quant, bits, tag)
-        res[quant] = dict(wall_s=wall, step_s=wall / steps, launches=counts,
+        gemms = _backward_vs(torch, eng, quant, bits, qtag)
+        res[quant] = dict(wall_s=wall, step_s=wall / k, launches=counts,
                           expected_launches=want, kernel=kern, plain=plain,
                           backward_gemms_vs_simulate=gemms,
                           peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
         if quant == "psq":
             res[quant]["profile_step"] = _profile(
-                torch, _one_step(eng), f"one training step, {tag}")
+                torch, _one_step(eng), f"one training step, {qtag}",
+                ranges=ranges)
         del eng
     res["launches"] = total
-    res["layers"] = [full.n_layers, cfg.n_layers]
+    res["layers"] = [full_layers, cfg.n_layers]
+    return res
+
+
+def train_moe(torch, seed, report):
+    """[moe train]: granite-moe-1b-a400m at full width, depth cut to
+    MOE_TRAIN_LAYERS layers, batch 8 x seq 64, AdamW, through the engine
+    ``launch/train.py`` builds: MOE_TRAIN_STEPS steps under ``fqt(psq,8)``
+    and ``fqt(bhq,5)`` (``_train_cut``: exact launch counts for attention,
+    router, every expert's gate/up/down and lm_head; finite losses; loss,
+    ``aux`` and gradient norm identical through the plain versions; every
+    backward GEMM of the first step against ``simulate``; the step wall
+    and one profiled ``fqt(psq,8)`` step)."""
+    from repro_torch.configs import get_config
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
+    res = _train_cut(torch, cfg, full.n_layers, "moe train", seed,
+                     MOE_TRAIN_STEPS, 8, 64, ("loss", "aux", "grad_norm"))
     report["moe_train"] = res
     return res
+
+
+# ---------------------------------------------------------------------------
+# the VLM, Mamba2-hybrid and RWKV6 families
+# ---------------------------------------------------------------------------
+
+FAMILY_NEW_TOKENS = 8
+FAMILY_TRAIN_STEPS = {"psq": 2, "bhq": 1}
+# prompts (batch, length) served at full width and depth; the training
+# phase's depth cut (full width) and (batch, seq).  The hybrid's prompts
+# are two 128-token SSD chunks, so the inter-chunk recurrence runs; its
+# training keeps two outer blocks, so the shared block's gradient sums
+# two uses.
+FAMILIES = {
+    "vlm": dict(arch="qwen2-vl-2b", prompt=(4, 128), train_layers=4,
+                train=(4, 64), ranges=("fp[attn.sdpa]",)),
+    "hybrid": dict(arch="zamba2-2.7b", prompt=(4, 256), train_layers=12,
+                   train=(2, 128),
+                   ranges=("fp[mamba.ssd]", "fp[attn.sdpa]")),
+    "rwkv": dict(arch="rwkv6-1.6b", prompt=(4, 64), train_layers=4,
+                 train=(2, 64),
+                 ranges=("fp[rwkv.wkv]", "fp[rwkv.ddlerp]",
+                         "fp[rwkv.decay]")),
+}
+# the vlm phase's decode steps on the int8 cache (each slot from its own
+# position) and its paged chunk (16 tokens, 16-row pages)
+VLM_INT8_STEPS = 8
+VLM_INT8_START = (0, 5, 17, 40)
+VLM_PAGE, VLM_CHUNK = 16, 16
+# the profiled decode steps' forward GEMMs
+FAMILY_SHARE = "qlhs"
+
+
+# the phases ``--phases`` can run alone
+ONLY_PHASES = {"vlm": "vlm_phase", "hybrid": "hybrid_phase",
+               "rwkv": "rwkv_phase", "moe_serve": "serve_moe",
+               "moe_train": "train_moe"}
+
+
+def family_config(arch, layers=None):
+    """``arch`` at full width, its depth cut to ``layers`` if given."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def _vlm_prompt(torch, cfg, B, T, seed):
+    """Stub vision-frontend prompts: ``embeds`` (B, T, d) random from the
+    seed, and M-RoPE ``positions`` (3, B, T) with distinct axes: four
+    frames of a 4 x 4 patch grid (t, h, w), then text, whose three axes
+    advance together from the grid's largest position + 1."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    embeds = torch.randn((B, T, cfg.d_model), generator=gen,
+                         device="cuda") * 0.02
+    n_img = min(64, T)
+    i = torch.arange(n_img)
+    pos = torch.empty((3, T), dtype=torch.int64)
+    pos[0, :n_img], pos[1, :n_img], pos[2, :n_img] = (i // 16,
+                                                     (i % 16) // 4, i % 4)
+    pos[:, n_img:] = 4 + torch.arange(T - n_img)
+    return {"embeds": embeds,
+            "positions": pos[:, None].expand(3, B, T).contiguous().to(
+                "cuda")}
+
+
+def _token_prompt(torch, cfg, B, T, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    return {"tokens": torch.randint(0, cfg.vocab_size, (B, T),
+                                    generator=gen, device="cuda")}
+
+
+def _family_sites(vlm):
+    """The serving path's kernels as (module that calls it, name there,
+    plain version): the forward GEMM, and a VLM's KV reads (dense int8
+    cache and page pool)."""
+    from repro_torch.kernels import (fused_qlhs_matmul_plain,
+                                     kv_dequant_rows_kv_plain,
+                                     kv_gather_pages_kv_plain)
+    sites = [("repro_torch.core.backend", "fused_qlhs_matmul",
+              fused_qlhs_matmul_plain)]
+    if vlm:
+        sites += [("repro_torch.core.kv_cache", "kv_dequant_rows_kv",
+                   kv_dequant_rows_kv_plain),
+                  ("repro_torch.layers.attention", "kv_gather_pages_kv",
+                   kv_gather_pages_kv_plain)]
+    return sites
+
+
+def _decode_batch(cfg, params, tok):
+    """One decode step's input for the greedy tokens ``tok`` (B,): a VLM's
+    token embeddings (the stub frontend), else the tokens."""
+    if cfg.family == "vlm":
+        return {"embeds": params["embed"]["table"][tok][:, None]}
+    return {"tokens": tok[:, None]}
+
+
+def _family_serve(torch, cfg, params, prompt, tag, ranges=()) -> dict:
+    """Serve ``prompt`` at full width and depth under ``qat`` on the
+    ``kernel`` backend: prefill, ``generate`` FAMILY_NEW_TOKENS tokens
+    and, for a VLM, VLM_INT8_STEPS decode steps on the int8 cache and one
+    paged chunk.  Checked: exact launch counts; finite logits, tokens in
+    the vocabulary; the same sequence with every kernel of the path
+    swapped for its plain version (on the card) gives bit-identical
+    logits and equal tokens, and hands each kernel every argument shape
+    the kernel run did.  Printed: prefill wall, ``generate``'s tok/s, one
+    profiled decode step."""
+    import numpy as np
+    from repro_torch.core import QuantPolicy
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+    model = build_model(cfg)
+    policy = QuantPolicy.qat(backend="kernel")
+    vlm = cfg.family == "vlm"
+    B, T = next(iter(prompt.values())).shape[:2]
+    max_seq = T + FAMILY_NEW_TOKENS + 8
+    sites = _family_sites(vlm)
+
+    def run(plain):
+        seen = {name: set() for _, name, _ in sites}
+
+        def contexts():
+            for module, name, fn in sites:
+                if plain:
+                    yield _swapped(name, fn, module)
+                yield _shape_spy(name, module, seen[name])
+        out = {}
+        with _in_contexts(contexts()), torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = model.prefill(params, prompt, policy, max_seq)
+            torch.cuda.synchronize()
+            out["prefill_s"] = time.perf_counter() - t0
+            out["logits"] = [logits.clone()]
+            t0 = time.perf_counter()
+            toks = generate(model, params, prompt, policy,
+                            max_new=FAMILY_NEW_TOKENS, max_seq=max_seq)
+            torch.cuda.synchronize()
+            out["generate_s"] = time.perf_counter() - t0
+            out["tokens"] = toks.tolist()
+            if vlm:
+                cache = model.init_cache_quant(cfg, B, max_seq,
+                                               device="cuda")
+                start = torch.tensor(VLM_INT8_START[:B], device="cuda")
+                embeds = prompt["embeds"]
+                for i in range(VLM_INT8_STEPS):
+                    logits, cache = model.decode(
+                        params, cache, {"embeds": embeds[:, i:i + 1]},
+                        policy, positions=start + i, kv_quant=True)
+                    out["logits"].append(logits.clone())
+                nb = max_seq // VLM_PAGE
+                pool = model.init_paged_pool(cfg, B * nb + 1, VLM_PAGE,
+                                             device="cuda")
+                table = torch.arange(1, B * nb + 1, dtype=torch.int32,
+                                     device="cuda").reshape(B, nb)
+                logits, _ = model.paged_decode(
+                    params, pool, {"embeds": embeds[:, :VLM_CHUNK]},
+                    policy, table, torch.zeros((B,), dtype=torch.int32,
+                                               device="cuda"))
+                out["logits"].append(logits.clone())
+        torch.cuda.synchronize()
+        return out, seen
+
+    per_fwd = _gemms_per_forward(cfg)
+    _reset_counts()
+    main, shapes = run(False)
+    counts = _read_counts()
+    fwds = 2 + FAMILY_NEW_TOKENS + (VLM_INT8_STEPS + 1 if vlm else 0)
+    want = {"fused_qlhs_matmul": per_fwd * fwds}
+    if vlm:
+        want.update(kv_dequant_rows_kv=cfg.n_layers * VLM_INT8_STEPS,
+                    kv_gather_pages_kv=cfg.n_layers)
+    log(f"[{tag}] {cfg.name} full width and depth ({cfg.n_layers} layers, "
+        f"d={cfg.d_model}): prefill {B} x {T} in {main['prefill_s']:.3f}s, "
+        f"generate {FAMILY_NEW_TOKENS} tokens in {main['generate_s']:.3f}s "
+        f"({B * FAMILY_NEW_TOKENS / main['generate_s']:.1f} tok/s); "
+        f"launches {counts} expected {want}")
+    _check_counts(counts, want, tag)
+    check(all(bool(torch.isfinite(x).all()) for x in main["logits"]),
+          f"{tag}: non-finite logits")
+    check(all(0 <= v < cfg.vocab_size for row in main["tokens"]
+              for v in row), f"{tag}: tokens outside the vocabulary")
+    plain, pshapes = run(True)
+    same = all(torch.equal(a, b) for a, b in zip(main["logits"],
+                                                 plain["logits"]))
+    names = [name for _, name, _ in sites]
+    log(f"[{tag}] through {names} and through their plain versions: tokens "
+        f"equal {main['tokens'] == plain['tokens']}, logits of all "
+        f"{len(main['logits'])} checked forwards bit-identical {same}; "
+        f"argument shapes { {n: len(shapes[n]) for n in names} } (replay "
+        f"{ {n: len(pshapes[n]) for n in names} })")
+    check(same and main["tokens"] == plain["tokens"],
+          f"{tag}: the kernels differ from their plain versions")
+    for n in names:
+        check(shapes[n] <= pshapes[n], f"{tag}: the replay misses {n}'s "
+                                       f"shapes {shapes[n] - pshapes[n]}")
+    # one decode step from a prefilled cache, profiled
+    with torch.no_grad():
+        logits, cache = model.prefill(params, prompt, policy, max_seq)
+        dbatch = _decode_batch(cfg, params, logits[:, -1].argmax(-1))
+        prof = _profile(torch, lambda: model.decode(params, cache, dbatch,
+                                                    policy),
+                        f"one decode step ({B} rows, {tag})", FAMILY_SHARE,
+                        ranges)
+    return dict(prompt=[B, T], prefill_s=main["prefill_s"],
+                generate_s=main["generate_s"],
+                tok_per_s=B * FAMILY_NEW_TOKENS / main["generate_s"],
+                launches=counts, expected_launches=want,
+                shapes={n: len(shapes[n]) for n in names},
+                tokens=main["tokens"], profile_decode_step=prof,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _family_phase(torch, seed, report, name) -> dict:
+    """[``name``]: FAMILIES[name]'s model at full width and depth, random
+    weights from the seed, served (``_family_serve``), then trained at
+    full width with its depth cut (``_train_cut``).  Returns the launches
+    of both."""
+    import numpy as np
+    spec = FAMILIES[name]
+    cfg = family_config(spec["arch"])
+    t0 = time.perf_counter()
+    from repro_torch.models import build_model
+    params = build_model(cfg).init(seed, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(int(np.prod(t.shape)) for t in _leaves(params))
+    log(f"[{name}] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B params, init "
+        f"{time.perf_counter() - t0:.1f}s")
+    B, T = spec["prompt"]
+    prompt = (_vlm_prompt if cfg.family == "vlm" else _token_prompt)(
+        torch, cfg, B, T, seed)
+    serve = _family_serve(torch, cfg, params, prompt, name, spec["ranges"])
+    del params, prompt
+    torch.cuda.empty_cache()
+    train = _train_cut(torch, family_config(spec["arch"],
+                                            spec["train_layers"]),
+                       cfg.n_layers, f"{name} train", seed,
+                       FAMILY_TRAIN_STEPS, *spec["train"],
+                       ranges=spec["ranges"])
+    torch.cuda.empty_cache()
+    launches = {k: serve["launches"][k] + train["launches"][k]
+                for k in serve["launches"]}
+    report[name] = dict(serve=serve, train=train, launches=launches,
+                        params=n_params)
+    return launches
+
+
+def vlm_phase(torch, seed, report):
+    """[vlm]: qwen2-vl-2b (M-RoPE, stub vision embeddings) at full width
+    and depth: prefill 4 prompts of 128 stub embeddings whose positions
+    span a patch grid, ``generate``, decode steps on the int8 cache and a
+    paged chunk (the KV kernels read M-RoPE-rotated rows); training at
+    full width, 4 layers, 4 x 64 tokens."""
+    return _family_phase(torch, seed, report, "vlm")
+
+
+def hybrid_phase(torch, seed, report):
+    """[hybrid]: zamba2-2.7b (Mamba2 with the shared attention block) at
+    full width and depth (9 outer blocks of 6 Mamba2 layers): prefill 4
+    prompts of 256 tokens (two SSD chunks), ``generate``; training at full
+    width, 12 layers (2 outer blocks), 2 x 128 tokens."""
+    return _family_phase(torch, seed, report, "hybrid")
+
+
+def rwkv_phase(torch, seed, report):
+    """[rwkv]: rwkv6-1.6b at full width and depth: prefill 4 prompts of
+    64 tokens, ``generate``; training at full width, 4 layers, 2 x 64
+    tokens."""
+    return _family_phase(torch, seed, report, "rwkv")
 
 
 OPS_QLINEAR_MKN = (512, 512, 10240)     # statquant-tx's lm_head forward

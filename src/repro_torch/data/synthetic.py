@@ -46,10 +46,23 @@ class SyntheticLM:
 def make_batch_for(cfg: ArchConfig, batch_size: int, seq_len: int,
                    step: int = 0, seed: int = 0, host: int = 0,
                    n_hosts: int = 1) -> dict:
-    """Arch-aware batch; this slice covers token LMs (the dense family)."""
-    if cfg.family in ("vlm", "audio"):
+    """Arch-aware batch.  A VLM batch is the stub vision frontend's
+    output: ``embeds`` (B, T, d) drawn ``normal(fold_in(PRNGKey(seed +
+    7), step)) * 0.02`` (``prng.normal``, within about an ulp of
+    ``jax.random.normal``), the ``labels`` and ``positions`` (3, B, T),
+    ``arange(T)`` on every M-RoPE axis.  The audio family's frames come
+    with its slice of the port."""
+    if cfg.family == "audio":
         raise NotImplementedError(
-            f"{cfg.name}: batches of the {cfg.family!r} family (stub "
-            f"frontends) come with that family's slice of the port")
-    return SyntheticLM(cfg.vocab_size, seq_len, batch_size, seed).batch(
+            f"{cfg.name}: batches of the 'audio' family (stub frame "
+            f"frontend) come with the whisper slice of the port")
+    batch = SyntheticLM(cfg.vocab_size, seq_len, batch_size, seed).batch(
         step, host, n_hosts)
+    if cfg.family != "vlm":
+        return batch
+    key = prng.fold_in(prng.PRNGKey(seed + 7), step)
+    pos = torch.arange(seq_len, dtype=torch.int32)
+    return {"embeds": prng.normal(key, (batch_size, seq_len, cfg.d_model))
+            * 0.02,
+            "labels": batch["labels"],
+            "positions": pos.expand(3, batch_size, seq_len).contiguous()}

@@ -25,13 +25,18 @@ DISTRIBUTION_SLICE = "the distribution slice of the port"
 
 
 def split_microbatches(batch: dict, accum_steps: int) -> list:
-    """The batch as ``accum_steps`` microbatches along dim 0."""
+    """The batch as ``accum_steps`` microbatches along its batch dim: dim
+    0 of every leaf but the VLM's M-RoPE ``positions`` (3, B, T), split
+    along dim 1, as the reference splits it.  Raises ValueError naming the
+    first leaf whose batch dim does not divide."""
     out = [{} for _ in range(accum_steps)]
     for name, x in batch.items():
-        if x.shape[0] % accum_steps:
-            raise ValueError(f"batch leaf {name!r} dim 0 ({x.shape[0]}) not "
-                             f"divisible by accum_steps={accum_steps}")
-        for i, part in enumerate(x.chunk(accum_steps)):
+        dim = 1 if name == "positions" and x.dim() == 3 else 0
+        if x.shape[dim] % accum_steps:
+            raise ValueError(f"batch leaf {name!r} dim {dim} "
+                             f"({x.shape[dim]}) not divisible by "
+                             f"accum_steps={accum_steps}")
+        for i, part in enumerate(x.chunk(accum_steps, dim=dim)):
             out[i][name] = part
     return out
 

@@ -39,6 +39,7 @@ import torch
 from ..configs import get_config
 from ..core import QuantPolicy
 from ..models import build_model
+from ..models.lm import check_ported
 from ..serve import ServeEngine, weight_nbytes
 
 __all__ = ["generate", "main"]
@@ -47,16 +48,15 @@ __all__ = ["generate", "main"]
 def generate(model, params, batch, policy: QuantPolicy, *, max_new: int,
              max_seq: int, eos_id=None):
     """Prefill the prompt then greedy-decode up to ``max_new`` tokens.
+    A VLM's prompt is its ``embeds`` and ``positions``; its decode steps
+    take each new token's embedding (the stub frontend).
 
     Returns (B, n) int64 with n <= max_new: decoding stops as soon as
     every row has emitted ``eos_id`` (rows that finish early keep emitting
     ``eos_id`` while the rest of the batch drains).  ``eos_id=None``
     disables early stopping and always returns (B, max_new)."""
     cfg = model.cfg
-    if cfg.family == "vlm":
-        raise NotImplementedError(
-            f"{cfg.name}: generate for the vlm family (decode steps fed "
-            f"token embeddings) comes with that family's slice of the port")
+    check_ported(cfg)
     with torch.no_grad():
         logits, cache = model.prefill(params, batch, policy, max_seq)
         out = []
@@ -71,8 +71,12 @@ def generate(model, params, batch, policy: QuantPolicy, *, max_new: int,
             out.append(tok)
             if eos_id is not None and bool(finished.all()):
                 break
-            logits, cache = model.decode(
-                params, cache, {"tokens": tok.to(torch.int32)}, policy)
+            dbatch = {"tokens": tok.to(torch.int32)}
+            if cfg.family == "vlm":
+                # stub frontend: decode steps feed the token embeddings
+                table = params["embed"]["table"]
+                dbatch = {"embeds": table[tok[:, 0]][:, None]}
+            logits, cache = model.decode(params, cache, dbatch, policy)
             tok = torch.argmax(logits[:, -1, :cfg.vocab_size],
                                dim=-1)[:, None]
     return torch.cat(out, dim=1)

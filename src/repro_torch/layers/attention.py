@@ -1,7 +1,8 @@
 """GQA attention with FQT projections, the dense-lane decode KV cache and
 the paged int8 KV pool.
 
-Port of the dense path of ``repro.layers.attention``.  The four
+Port of the self-attention path of ``repro.layers.attention``, with
+standard RoPE or Qwen2-VL's M-RoPE (positions ``(3, B, T)``).  The four
 projections are FQT linear layers; the attention math (scores, softmax,
 value mix) stays full precision, as in the paper's transformer setting.
 KV caches are stored flattened as ``(B, S, n_kv*head_dim)``, paged pools
@@ -20,7 +21,7 @@ from ..core import (QuantPolicy, get_quantizer, kv_fresh_code,
 from ..core.exempt import fp_exempt
 from ..kernels.kv_gather import kv_gather_pages_kv, kv_gather_pages_kv_plain
 from .common import dense, init_dense
-from .embeddings import apply_rope
+from .embeddings import apply_mrope, apply_rope
 
 __all__ = ["init_attention", "attention", "decode_attention",
            "init_kv_cache", "init_kv_cache_quant", "init_paged_kv_pool",
@@ -52,11 +53,18 @@ def _qkv(p, x, key, policy, cfg, positions, path="attn"):
     if cfg.rope == "standard":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.rope == "mrope":
+        q = apply_mrope(q, positions, cfg.rope_theta)
+        k = apply_mrope(k, positions, cfg.rope_theta)
     elif cfg.rope != "none":
-        raise NotImplementedError(
-            f"rope={cfg.rope!r} is not ported yet (the VLM family comes in a "
-            f"later slice)")
+        raise ValueError(f"unknown rope {cfg.rope!r}")
     return q, k, v
+
+
+def _step_positions(cfg: ArchConfig, offs: torch.Tensor) -> torch.Tensor:
+    """A decode step's rotary positions from its (B, C) offsets: broadcast
+    to the three M-RoPE axes, (3, B, C), for an ``mrope`` model."""
+    return offs.expand(3, *offs.shape) if cfg.rope == "mrope" else offs
 
 
 def _sdpa(q, k, v, mask):
@@ -156,7 +164,8 @@ def decode_attention(p: dict, x: torch.Tensor, cache: dict,
     G = H // KV
     pos = torch.as_tensor(index, dtype=torch.int64,
                           device=x.device).reshape(-1).expand(B)
-    q, k_new, v_new = _qkv(p, x, key, policy, cfg, pos[:, None], path)
+    q, k_new, v_new = _qkv(p, x, key, policy, cfg,
+                           _step_positions(cfg, pos[:, None]), path)
     flat = KV * hd
     bidx = torch.arange(B, device=x.device)
     rows_k = k_new.reshape(B, flat)
@@ -262,7 +271,8 @@ def paged_decode_attention(p: dict, x: torch.Tensor, pool: dict,
     dev = x.device
     offs, pids, rows, src = (write if write is not None else
                              paged_write_index(table, start, C, n_pages, P))
-    q, k_new, v_new = _qkv(p, x, key, policy, cfg, offs, path)
+    q, k_new, v_new = _qkv(p, x, key, policy, cfg,
+                           _step_positions(cfg, offs), path)
 
     spec = resolve_kv_cache_spec(True if kv_quant is None else kv_quant)
     qz = get_quantizer(spec.name)

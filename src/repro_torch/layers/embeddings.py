@@ -1,4 +1,5 @@
-"""Token embeddings (padded vocab) and standard rotary embeddings.
+"""Token embeddings (padded vocab), standard rotary embeddings and
+Qwen2-VL's sectioned multimodal variant (M-RoPE).
 
 The embedding gather and the rotary math stay full precision; the LM head
 is a linear layer and therefore FQT-quantized.
@@ -15,7 +16,7 @@ from ..core import QuantPolicy, fqt_matmul
 from .common import qkey, randn
 
 __all__ = ["init_embedding", "embed", "init_lm_head", "lm_head",
-           "rope_freqs", "apply_rope"]
+           "rope_freqs", "apply_rope", "apply_mrope", "mrope_bounds"]
 
 
 def init_embedding(gen: torch.Generator, cfg: ArchConfig) -> dict:
@@ -54,5 +55,34 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """x: (B, T, H, hd); positions: (B, T) int."""
     freqs = rope_freqs(x.shape[-1], theta, x.device)            # (hd/2,)
     ang = positions[..., None].to(torch.float32) * freqs        # (B, T, hd/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    return _rotate(x, cos, sin).to(x.dtype)
+
+
+def mrope_bounds(n: int, sections=(16, 24, 24)) -> list:
+    """The first frequency slot of each section after the first, for
+    ``n = hd / 2`` slots: the sections scaled to ``n`` with Python's
+    ``round`` (half to even, as the reference rounds them)."""
+    total, bounds, acc = sum(sections), [], 0
+    for s in sections[:-1]:
+        acc += round(n * s / total)
+        bounds.append(acc)
+    return bounds
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections=(16, 24, 24)) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  x: (B, T, H, hd); positions: (3, B, T)
+    for the (t, h, w) axes.  Frequency slot ``j`` of the ``hd / 2`` takes
+    its angle from the position of its section's axis."""
+    hd = x.shape[-1]
+    n = hd // 2
+    freqs = rope_freqs(hd, theta, x.device)                      # (hd/2,)
+    sec = torch.zeros((n,), dtype=torch.int64, device=x.device)
+    slots = torch.arange(n, device=x.device)
+    for b in mrope_bounds(n, sections):
+        sec = sec + (slots >= b)
+    pos = positions.to(x.device)[sec]                            # (n, B, T)
+    ang = pos.permute(1, 2, 0).to(torch.float32) * freqs         # (B, T, n)
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     return _rotate(x, cos, sin).to(x.dtype)

@@ -1,16 +1,18 @@
 """Unified model API: ``build_model(cfg)`` -> :class:`Model`.
 
-Port of ``repro.models.api`` for the dense and MoE families: init / loss /
-prefill / decode / paged decode plus the cache and page-pool constructors,
-``quant_paths`` and ``input_specs`` (meta-device tensors in place of the
-reference's ``ShapeDtypeStruct``).  Other families raise until their
-slice.
+Port of ``repro.models.api`` for the decoder families (dense, MoE, VLM,
+the Mamba2 hybrid, RWKV6): init / loss / prefill / decode / paged decode
+plus the cache and page-pool constructors, ``quant_paths`` and
+``input_specs`` (meta-device tensors in place of the reference's
+``ShapeDtypeStruct``).  As in the reference, the recurrent families have
+no int8 cache, paged decode or page pool (``None``).  The audio family
+raises until its slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -25,14 +27,28 @@ _ATTN = ("wq", "wk", "wv", "wo")
 
 
 def model_quant_paths(cfg: ArchConfig) -> tuple:
-    """The logical paths of every quantized GEMM of a dense or MoE model,
-    the strings ``QuantPolicy.resolve`` and its overrides match against."""
+    """The logical paths of every quantized GEMM of the model, the strings
+    ``QuantPolicy.resolve`` and its overrides match against."""
     mlp_names = (("gate", "up", "down") if cfg.act == "swiglu"
                  else ("fc1", "fc2"))
-    ffn = (["layers.moe.router"]
-           + [f"layers.moe.expert.{n}" for n in mlp_names]
-           if cfg.moe_experts else [f"layers.mlp.{n}" for n in mlp_names])
-    return tuple([f"layers.attn.{w}" for w in _ATTN] + ffn + ["lm_head"])
+
+    def block(prefix):
+        return ([f"{prefix}.attn.{w}" for w in _ATTN]
+                + ([f"{prefix}.moe.router"]
+                   + [f"{prefix}.moe.expert.{n}" for n in mlp_names]
+                   if cfg.moe_experts
+                   else [f"{prefix}.mlp.{n}" for n in mlp_names]))
+
+    if cfg.family == "hybrid":
+        paths = ([f"layers.mamba.{n}" for n in
+                  ("z_proj", "x_proj", "bc_proj", "dt_proj", "out_proj")]
+                 + ["layers.fuse"] + block("shared"))
+    elif cfg.ssm_kind == "rwkv6":
+        paths = [f"layers.rwkv.{n}" for n in
+                 ("wr", "wk", "wv", "wg", "wo", "cm_wk", "cm_wv", "cm_wr")]
+    else:
+        paths = block("layers")
+    return tuple(paths + ["lm_head"])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,10 +58,14 @@ class Model:
     prefill: Callable          # (params, batch, policy, max_seq) -> (logits, cache)
     decode: Callable           # (params, cache, batch, policy, [positions]) -> (logits, cache)
     init_cache: Callable       # (cfg, batch, max_seq, device) -> cache
-    init_cache_quant: Callable  # (cfg, batch, max_seq, device) -> int8 cache
-    # paged serving (serve/paged.py)
-    paged_decode: Callable      # (params, pool, batch, policy, table, start) -> (logits, pool)
-    init_paged_pool: Callable   # (cfg, n_pages, page_size, device) -> pool
+    # the int8 cache and paged serving (serve/paged.py), None for the
+    # recurrent families, which keep no transformer KV cache in every layer:
+    # (cfg, batch, max_seq, device) -> int8 cache
+    init_cache_quant: Optional[Callable]
+    # (params, pool, batch, policy, table, start) -> (logits, pool)
+    paged_decode: Optional[Callable]
+    # (cfg, n_pages, page_size, device) -> pool
+    init_paged_pool: Optional[Callable]
 
     def init(self, seed: int, device=None) -> dict:
         """Random parameters from ``seed`` on ``device`` (CUDA unless the
@@ -68,23 +88,35 @@ class Model:
         tensors of the reference's shapes and dtypes: train -> kwargs for
         ``loss``; prefill -> kwargs for ``prefill``; decode -> kwargs for
         ``decode`` (cache included; the port's caches are float32)."""
+        cfg = self.cfg
         B, T = shape.global_batch, shape.seq_len
 
         def tok(b, t):
             return torch.empty((b, t), dtype=torch.int32, device="meta")
 
+        def inputs(b, t):
+            if cfg.family != "vlm":
+                return {"tokens": tok(b, t)}
+            return {"embeds": torch.empty((b, t, cfg.d_model), dtype=dtype,
+                                          device="meta"),
+                    "positions": torch.empty((3, b, t), dtype=torch.int32,
+                                             device="meta")}
+
         if shape.kind == "train":
-            return {"batch": {"labels": tok(B, T), "tokens": tok(B, T)}}
+            return {"batch": {"labels": tok(B, T), **inputs(B, T)}}
         if shape.kind == "prefill":
-            return {"batch": {"tokens": tok(B, T)}}
+            return {"batch": inputs(B, T)}
         if dtype != torch.float32:
             raise ValueError(f"the port's caches are float32, not {dtype}")
-        cache = self.init_cache(self.cfg, B, T, device="meta")
-        return {"cache": cache, "batch": {"tokens": tok(B, 1)}}
+        cache = self.init_cache(cfg, B, T, device="meta")
+        batch = inputs(B, 1)
+        batch.pop("positions", None)       # decode steps rotate by index
+        return {"cache": cache, "batch": batch}
 
 
 def build_model(cfg: ArchConfig) -> Model:
     lm.check_ported(cfg)
+    kv = lm.has_kv_cache(cfg)
     return Model(
         cfg=cfg,
         loss=lambda params, batch, key, policy, **kw:
@@ -94,9 +126,10 @@ def build_model(cfg: ArchConfig) -> Model:
         decode=lambda params, cache, batch, policy, **kw:
             lm.lm_decode(params, cache, batch, policy, cfg, **kw),
         init_cache=lm.init_lm_cache,
-        init_cache_quant=lm.init_lm_cache_quant,
-        paged_decode=lambda params, pool, batch, policy, table, start, **kw:
-            lm.lm_paged_decode(params, pool, batch, policy, cfg, table,
-                               start, **kw),
-        init_paged_pool=lm.init_lm_paged_pool,
+        init_cache_quant=lm.init_lm_cache_quant if kv else None,
+        paged_decode=(
+            (lambda params, pool, batch, policy, table, start, **kw:
+             lm.lm_paged_decode(params, pool, batch, policy, cfg, table,
+                                start, **kw)) if kv else None),
+        init_paged_pool=lm.init_lm_paged_pool if kv else None,
     )

@@ -32,11 +32,23 @@ from typing import Sequence, Union
 import torch
 
 __all__ = ["PRNGKey", "threefry2x32", "fold_in", "split", "bits", "uniform",
-           "randint", "gumbel", "categorical"]
+           "normal", "randint", "gumbel", "categorical"]
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _F32_TINY = torch.finfo(torch.float32).tiny
+# the largest float32 below -1's neighbour towards 0: jax.random.normal
+# draws its uniforms on [nextafter(-1, 0), 1)
+_NORMAL_LO = -1.0 + 2.0 ** -24
+# XLA's single-precision erf_inv (Giles, "Approximating the erfinv
+# function"): a degree-8 polynomial in w - 2.5 for w = -log1p(-x^2) < 5,
+# else in sqrt(w) - 3, highest power first
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
 
 
 def PRNGKey(seed: int, device=None) -> torch.Tensor:
@@ -131,6 +143,29 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, f * (hi - lo) + lo)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``erf_inv`` (not ``torch.erfinv``, which rounds
+    differently for most inputs): Giles' polynomial, +-inf at +-1."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    coef = [torch.where(lt, torch.tensor(a, dtype=x.dtype, device=x.device),
+                        torch.tensor(b, dtype=x.dtype, device=x.device))
+            for a, b in zip(_ERFINV_LT5, _ERFINV_GE5)]
+    p = coef[0]
+    for c in coef[1:]:
+        p = c + p * w
+    return torch.where(x.abs() == 1.0, x * torch.finfo(x.dtype).max, p * x)
+
+
+def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.normal`` in float32: ``sqrt(2) * erf_inv(u)`` for ``u``
+    uniform on ``[nextafter(-1, 0), 1)``."""
+    u = uniform(key, shape, _NORMAL_LO, 1.0)
+    return torch.tensor(math.sqrt(2.0), dtype=torch.float32,
+                        device=u.device) * erf_inv(u)
 
 
 def randint(key: torch.Tensor, shape: Sequence[int], minval: int,

@@ -191,12 +191,13 @@ class ServeEngine:
         if cfg.family in ("vlm", "audio"):
             raise ValueError(
                 f"{cfg.name}: the serving engine drives token-input decoder "
-                f"LMs; family {cfg.family!r} needs a frontend")
+                f"LMs; family {cfg.family!r} needs a frontend the stub "
+                f"pipeline does not provide")
         if cfg.family == "hybrid" or cfg.ssm_kind:
             raise ValueError(
                 f"{cfg.name}: continuous batching needs per-slot KV-cache "
                 f"lanes; recurrent-state families (ssm/hybrid) are not "
-                f"supported")
+                f"supported yet")
         self.device = resolve_device(device)
         table = params["embed"]["table"]
         if table.device.type != self.device.type:

@@ -134,10 +134,10 @@ def test_generate_matches_reference_and_stops_at_eos(statquant):
 
 
 def test_generate_refuses_an_unported_family():
-    cfg = get_config("qwen2-vl-2b", smoke=True)
+    cfg = get_config("whisper-medium", smoke=True)
     model = dataclasses.replace(build_model(get_config("statquant-tx",
                                                        smoke=True)), cfg=cfg)
-    with pytest.raises(NotImplementedError, match="vlm"):
+    with pytest.raises(NotImplementedError, match="audio"):
         generate(model, {}, {}, core.QAT, max_new=1, max_seq=4)
 
 

@@ -107,7 +107,7 @@ def test_unported_engine_options_raise():
     with pytest.raises(FileNotFoundError, match="no checkpoints"):
         ServeEngine.from_checkpoint(cfg, "/nonexistent", device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(get_config("rwkv6-1.6b", smoke=True))
+        build_model(get_config("whisper-medium", smoke=True))
 
 
 def test_cli_runs_on_cpu(capsys):

@@ -180,8 +180,8 @@ def test_unported_training_options_raise(monkeypatch):
     with pytest.raises(NotImplementedError, match="distribution slice"):
         make_step_fn(build_model(cfg), QuantPolicy.fqt(), None, None,
                      compress_axis="data")
-    with pytest.raises(NotImplementedError, match="vlm"):
-        make_batch_for(get_config("qwen2-vl-2b", smoke=True), 2, 8)
+    with pytest.raises(NotImplementedError, match="audio"):
+        make_batch_for(get_config("whisper-medium", smoke=True), 2, 8)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(cfg, QuantPolicy.fqt(), steps=1, batch_size=2, seq_len=8)
