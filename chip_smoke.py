@@ -11,8 +11,8 @@ profiles granite's decode step (dense, paged, from packed weights) and
 the unfused training step for the package of each checkout TREE, one
 process each, in the order given (``step_wall_trees``).  The third
 builds the kernels and runs only the named phases (``ONLY_PHASES``: vlm,
-hybrid, rwkv, moe_serve, moe_train), to iterate on them; it prints no
-result line.
+hybrid, rwkv, audio, moe_serve, moe_train), to iterate on them; it prints
+no result line.
 
 From the root of a checkout, on a machine with one CUDA card and the CUDA
 toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
@@ -251,7 +251,18 @@ toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
      ``fqt(psq,8)`` and 1 under ``fqt(bhq,5)``, with ``[moe train]``'s
      checks (``_train_cut``) and one profiled psq step, with the device
      time inside the SSD and WKV markers.
- 16. ``[ops]`` (``ops_phase``): ``kernels/ops.py`` through the kernels
+ 16. ``[audio]`` (``audio_phase``): whisper-medium (encoder-decoder; 24
+     encoder and 24 decoder layers, d=1024, cross-attention over 1,500
+     stub frames) at full width and depth, random weights from the seed,
+     under ``qat`` on the ``kernel`` backend: prefill 4 rows of 1,500
+     frames and 32-token prompts, ``generate`` 8 tokens; exact launch
+     counts (385 GEMMs a prefill: 6 an encoder layer, 10 a decoder layer
+     and lm_head; 193 a decode step: 8 a decoder layer and lm_head); the
+     plain replay as in 15; every GEMM of one prefill within rtol 1e-3 /
+     atol 5e-3 of ``simulate`` from its input; a profiled decode step.
+     Then it trains at full width with 2 encoder and 2 decoder layers, 2
+     x 1,500 frames and 64 tokens, with ``_train_cut``'s checks.
+ 17. ``[ops]`` (``ops_phase``): ``kernels/ops.py`` through the kernels
      against the plain versions bit for bit: ``fused_qlinear`` at (512,
      512, 10240) and ``fused_qlinear_bwd`` under ptq, psq and bhq at
      (512, 512, 512).
@@ -406,7 +417,7 @@ def main(argv=None) -> int:
     moe = phase(serve_moe, seed, report)["launches"]
     moe_train = phase(train_moe, seed, report)["launches"]
     families = [phase(fn, seed, report)
-                for fn in (vlm_phase, hybrid_phase, rwkv_phase)]
+                for fn in (vlm_phase, hybrid_phase, rwkv_phase, audio_phase)]
     fam = {k: sum(f[k] for f in families) for k in families[0]}
     phase(ops_phase, seed, report)
     timings = phase(time_kernels, report)
@@ -429,8 +440,8 @@ def main(argv=None) -> int:
                     max_abs_err=errs[key], **timings[key])
     csrc = "src/repro_torch/csrc/"
     # the MoE phases' launches join each kernel's (serving: dense, paged and
-    # 4-bit engines; training: both policies), and the VLM, hybrid and
-    # RWKV6 phases' (serving and training)
+    # 4-bit engines; training: both policies), and the VLM, hybrid, RWKV6
+    # and audio phases' (serving and training)
     kernels = [
         entry("fused_qlhs_matmul", "fused_qlhs_matmul",
               csrc + "fused_qlhs_fwd.cu", "src/repro/kernels/fused_fqt.py:93",
@@ -482,6 +493,7 @@ def main(argv=None) -> int:
               + packed_train["launches"]["packed_matmul"]),
     ]
     report["kernels"] = kernels
+    report["profiler_repeats"] = PROFILER_REPEATS
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
@@ -1488,8 +1500,13 @@ def _gemms_per_forward(cfg) -> int:
     its router and every expert's projections), and lm_head.  The hybrid:
     5 projections a Mamba2 layer, and after each of its outer blocks the
     fuse and the shared block's attention and MLP; RWKV6: 8 a layer (r, k,
-    v, g, o and the channel mix's 3)."""
+    v, g, o and the channel mix's 3); the encoder-decoder: 6 an encoder
+    layer, 10 a decoder layer (the self-attention's 4, the
+    cross-attention's k and v of the encoder output and its q and o, the
+    MLP's 2)."""
     mlp = 3 if cfg.act == "swiglu" else 2
+    if cfg.family == "audio":
+        return cfg.enc_layers * (4 + mlp) + cfg.n_layers * (8 + mlp) + 1
     if cfg.family == "hybrid":
         n_outer = cfg.n_layers // cfg.hybrid_period
         return cfg.n_layers * 5 + n_outer * (1 + 4 + mlp) + 1
@@ -1499,28 +1516,49 @@ def _gemms_per_forward(cfg) -> int:
     return cfg.n_layers * (4 + ffn) + 1
 
 
-def _prefill_gemms(torch, model, params, prompt, policy=None):
-    """Every quantized GEMM of one prefill through the kernels (under
-    ``policy``, default ``QuantPolicy.qat(backend="kernel")``), as (path,
-    x, w, y) in call order."""
+def _decode_gemms(cfg) -> int:
+    """Quantized GEMMs in one decode step: a forward's, but the
+    encoder-decoder's step runs no encoder and reads the cross-attention's
+    K and V from its cache (6 + the MLP's a decoder layer, and lm_head)."""
+    if cfg.family == "audio":
+        return cfg.n_layers * (6 + (3 if cfg.act == "swiglu" else 2)) + 1
+    return _gemms_per_forward(cfg)
+
+
+def _gemms_vs_simulate(torch, run, n, tag, sim=None):
+    """``run()``, one forward through the kernels, with every quantized
+    GEMM of the layers and lm_head re-run on ``sim`` (default
+    ``QuantPolicy.qat`` on ``simulate``) from the very input the kernel
+    path gave it, as the forward goes: each within rtol 1e-3 / atol 5e-3,
+    and ``n`` of them.  Returns (``run()``'s result, the largest
+    max|d|)."""
     import repro_torch.layers.common as common
     import repro_torch.layers.embeddings as embeddings
-    from repro_torch.core import fqt_matmul
-    calls = []
+    from repro_torch.core import QuantPolicy, fqt_matmul
+    sim = sim or QuantPolicy.qat(backend="simulate")
+    seen = {"n": 0, "worst": 0.0}
 
     def spy(x, w, key, policy, path=""):
         y = fqt_matmul(x, w, key, policy, path=path)
-        calls.append((path, x, w, y))
+        ref = fqt_matmul(x, w, None, sim, path=path)
+        d = float((y - ref).abs().max())
+        check(within_tol(y, ref),
+              f"{tag}: GEMM {seen['n']} ({path}, x {tuple(x.shape)}) kernel "
+              f"vs simulate differ by {d} beyond rtol {RTOL}/atol {ATOL}")
+        seen["n"] += 1
+        seen["worst"] = max(seen["worst"], d)
         return y
 
     saved = common.fqt_matmul, embeddings.fqt_matmul
     common.fqt_matmul = embeddings.fqt_matmul = spy
     try:
-        logits = _prefill_logits(torch, model, params, prompt, "kernel",
-                                 policy)
+        with torch.no_grad():
+            out = run()
     finally:
         common.fqt_matmul, embeddings.fqt_matmul = saved
-    return logits, calls
+    check(seen["n"] == n, f"{tag}: {seen['n']} quantized GEMMs in one "
+                          f"forward, the path implies {n}")
+    return out, seen["worst"]
 
 
 def _full_width_vs_simulate(torch, cfg, params, prompt, tag) -> dict:
@@ -1534,23 +1572,12 @@ def _full_width_vs_simulate(torch, cfg, params, prompt, tag) -> dict:
     moves one activation code across a rounding boundary, the per-tensor
     ``Q_f`` of every later GEMM sees another input; the JAX package's own
     backends part the same way at this width (tests/test_torch_fullwidth.py)."""
-    from repro_torch.core import QuantPolicy, fqt_matmul
     from repro_torch.models import build_model
     model = build_model(cfg)
-    a, calls = _prefill_gemms(torch, model, params, prompt)
     n = _gemms_per_forward(cfg)
-    check(len(calls) == n, f"{tag}: {len(calls)} quantized GEMMs in one "
-                           f"prefill, the path implies {n}")
-    sim = QuantPolicy.qat(backend="simulate")
-    worst = 0.0
-    for i, (path, x, w, y) in enumerate(calls):
-        ref = fqt_matmul(x, w, None, sim, path=path)
-        worst = max(worst, float((y - ref).abs().max()))
-        check(within_tol(y, ref),
-              f"{tag}: GEMM {i} ({path}, x {tuple(x.shape)}) kernel vs "
-              f"simulate differ by {float((y - ref).abs().max())} beyond "
-              f"rtol {RTOL}/atol {ATOL}")
-    del calls
+    a, worst = _gemms_vs_simulate(
+        torch, lambda: _prefill_logits(torch, model, params, prompt,
+                                       "kernel"), n, tag)
     b = _prefill_logits(torch, model, params, prompt, "simulate")
     e = _prefill_logits(torch, model, params, prompt, "exact")
     check(bool(torch.isfinite(a).all()), f"{tag}: non-finite logits")
@@ -2301,7 +2328,7 @@ def serve_granite_packed(torch, seed, report, dense_eng, workload):
     the module docstring.  Returns the results and the 8- and 4-bit
     engines (profiled at the end)."""
     import numpy as np
-    from repro_torch.core import QuantPolicy, fqt_matmul
+    from repro_torch.core import QuantPolicy
     from repro_torch.kernels import (fused_qlhs_packed_matmul_plain,
                                      packed_matmul_plain)
     from repro_torch.serve import ServeEngine
@@ -2413,20 +2440,12 @@ def serve_granite_packed(torch, seed, report, dense_eng, workload):
     del eng4u
 
     # every GEMM of one prefill from the 4-bit weights vs simulate on them
-    sim = dataclasses.replace(eng4.policy, backend="simulate")
-    _, calls = _prefill_gemms(torch, eng4.model, eng4.params, workload[0][0],
-                              eng4.policy)
-    check(len(calls) == per_fwd, f"packed w4: {len(calls)} GEMMs in one "
-                                 f"prefill, the path implies {per_fwd}")
-    worst = 0.0
-    for i, (path, x, w, y) in enumerate(calls):
-        ref = fqt_matmul(x, w, None, sim, path=path)
-        worst = max(worst, float((y - ref).abs().max()))
-        check(within_tol(y, ref),
-              f"packed w4: GEMM {i} ({path}) kernel vs simulate differ by "
-              f"{float((y - ref).abs().max())} beyond rtol {RTOL}/atol "
-              f"{ATOL}")
-    del calls
+    _, worst = _gemms_vs_simulate(
+        torch, lambda: _prefill_logits(torch, eng4.model, eng4.params,
+                                       workload[0][0], "kernel",
+                                       eng4.policy),
+        per_fwd, "packed w4",
+        dataclasses.replace(eng4.policy, backend="simulate"))
     log(f"[packed w4] all {per_fwd} GEMMs of one prefill (prompt "
         f"{len(workload[0][0])}) vs simulate on the same packed weights: "
         f"max|d|={worst:.3g} (checked, rtol {RTOL}, atol {ATOL})")
@@ -3602,6 +3621,13 @@ FAMILIES = {
                  train=(2, 64),
                  ranges=("fp[rwkv.wkv]", "fp[rwkv.ddlerp]",
                          "fp[rwkv.decay]")),
+    # 1,500 stub frames a row, and every GEMM of one prefill held to
+    # ``simulate``; training cuts the encoder and the decoder to 2 layers
+    # each (at 4 + 4 the whole run took 1,156 s of its 1,200 on an NVIDIA
+    # H100 80GB HBM3 at 700 W)
+    "audio": dict(arch="whisper-medium", prompt=(4, 32), train_layers=2,
+                  train=(2, 64), ranges=("fp[attn.sdpa]",),
+                  vs_simulate=True),
 }
 # the vlm phase's decode steps on the int8 cache (each slot from its own
 # position) and its paged chunk (16 tokens, 16-row pages)
@@ -3614,16 +3640,22 @@ FAMILY_SHARE = "qlhs"
 
 # the phases ``--phases`` can run alone
 ONLY_PHASES = {"vlm": "vlm_phase", "hybrid": "hybrid_phase",
-               "rwkv": "rwkv_phase", "moe_serve": "serve_moe",
+               "rwkv": "rwkv_phase", "audio": "audio_phase",
+               "moe_serve": "serve_moe",
                "moe_train": "train_moe"}
 
 
 def family_config(arch, layers=None):
-    """``arch`` at full width, its depth cut to ``layers`` if given."""
+    """``arch`` at full width, its depth cut to ``layers`` if given (an
+    encoder-decoder's encoder too)."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
-    return cfg if layers is None else dataclasses.replace(cfg,
-                                                          n_layers=layers)
+    if layers is None:
+        return cfg
+    cut = dataclasses.replace(cfg, n_layers=layers)
+    if cfg.enc_layers:
+        cut = dataclasses.replace(cut, enc_layers=layers)
+    return cut
 
 
 def _vlm_prompt(torch, cfg, B, T, seed):
@@ -3646,9 +3678,15 @@ def _vlm_prompt(torch, cfg, B, T, seed):
 
 
 def _token_prompt(torch, cfg, B, T, seed):
+    """Random prompt tokens (B, T) from the seed; for an encoder-decoder
+    also the stub audio frontend's ``frames`` (B, enc_seq, d)."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 11)
-    return {"tokens": torch.randint(0, cfg.vocab_size, (B, T),
-                                    generator=gen, device="cuda")}
+    prompt = {"tokens": torch.randint(0, cfg.vocab_size, (B, T),
+                                      generator=gen, device="cuda")}
+    if cfg.family == "audio":
+        prompt["frames"] = torch.randn((B, cfg.enc_seq, cfg.d_model),
+                                       generator=gen, device="cuda") * 0.02
+    return prompt
 
 
 def _family_sites(vlm):
@@ -3693,7 +3731,8 @@ def _family_serve(torch, cfg, params, prompt, tag, ranges=()) -> dict:
     model = build_model(cfg)
     policy = QuantPolicy.qat(backend="kernel")
     vlm = cfg.family == "vlm"
-    B, T = next(iter(prompt.values())).shape[:2]
+    B, T = (prompt["tokens"] if "tokens" in prompt
+            else prompt["embeds"]).shape[:2]
     max_seq = T + FAMILY_NEW_TOKENS + 8
     sites = _family_sites(vlm)
 
@@ -3742,17 +3781,20 @@ def _family_serve(torch, cfg, params, prompt, tag, ranges=()) -> dict:
         torch.cuda.synchronize()
         return out, seen
 
-    per_fwd = _gemms_per_forward(cfg)
     _reset_counts()
     main, shapes = run(False)
     counts = _read_counts()
-    fwds = 2 + FAMILY_NEW_TOKENS + (VLM_INT8_STEPS + 1 if vlm else 0)
-    want = {"fused_qlhs_matmul": per_fwd * fwds}
+    fwds = 2 + (VLM_INT8_STEPS + 1 if vlm else 0)
+    want = {"fused_qlhs_matmul": _gemms_per_forward(cfg) * fwds
+            + _decode_gemms(cfg) * FAMILY_NEW_TOKENS}
     if vlm:
         want.update(kv_dequant_rows_kv=cfg.n_layers * VLM_INT8_STEPS,
                     kv_gather_pages_kv=cfg.n_layers)
-    log(f"[{tag}] {cfg.name} full width and depth ({cfg.n_layers} layers, "
-        f"d={cfg.d_model}): prefill {B} x {T} in {main['prefill_s']:.3f}s, "
+    enc = (f"{cfg.enc_layers} encoder layers over {cfg.enc_seq} frames, "
+           if cfg.family == "audio" else "")
+    log(f"[{tag}] {cfg.name} full width and depth ({enc}{cfg.n_layers} "
+        f"layers, d={cfg.d_model}): prefill {B} x {T} in "
+        f"{main['prefill_s']:.3f}s, "
         f"generate {FAMILY_NEW_TOKENS} tokens in {main['generate_s']:.3f}s "
         f"({B * FAMILY_NEW_TOKENS / main['generate_s']:.1f} tok/s); "
         f"launches {counts} expected {want}")
@@ -3795,12 +3837,15 @@ def _family_serve(torch, cfg, params, prompt, tag, ranges=()) -> dict:
 def _family_phase(torch, seed, report, name) -> dict:
     """[``name``]: FAMILIES[name]'s model at full width and depth, random
     weights from the seed, served (``_family_serve``), then trained at
-    full width with its depth cut (``_train_cut``).  Returns the launches
-    of both."""
+    full width with its depth cut (``_train_cut``); with ``vs_simulate``
+    in its FAMILIES entry, every GEMM of one prefill is also held to
+    ``simulate`` (``_gemms_vs_simulate``).  Returns the launches of
+    both."""
     import numpy as np
     spec = FAMILIES[name]
     cfg = family_config(spec["arch"])
     t0 = time.perf_counter()
+    from repro_torch.core import QuantPolicy
     from repro_torch.models import build_model
     params = build_model(cfg).init(seed, device="cuda")
     torch.cuda.synchronize()
@@ -3812,6 +3857,15 @@ def _family_phase(torch, seed, report, name) -> dict:
     prompt = (_vlm_prompt if cfg.family == "vlm" else _token_prompt)(
         torch, cfg, B, T, seed)
     serve = _family_serve(torch, cfg, params, prompt, name, spec["ranges"])
+    if spec.get("vs_simulate"):
+        n = _gemms_per_forward(cfg)
+        _, worst = _gemms_vs_simulate(
+            torch, lambda: build_model(cfg).prefill(
+                params, prompt, QuantPolicy.qat(backend="kernel")), n, name)
+        log(f"[{name}] kernel vs simulate, full width and depth: all {n} "
+            f"GEMMs of one prefill on shared inputs max|d|={worst:.3g} "
+            f"(checked, rtol {RTOL}, atol {ATOL})")
+        serve["vs_simulate"] = dict(gemms=n, gemms_max_abs_diff=worst)
     del params, prompt
     torch.cuda.empty_cache()
     train = _train_cut(torch, family_config(spec["arch"],
@@ -3849,6 +3903,16 @@ def rwkv_phase(torch, seed, report):
     64 tokens, ``generate``; training at full width, 4 layers, 2 x 64
     tokens."""
     return _family_phase(torch, seed, report, "rwkv")
+
+
+def audio_phase(torch, seed, report):
+    """[audio]: whisper-medium (encoder-decoder, cross-attention, stub
+    frames) at full width and depth (24 + 24 layers): prefill 4 rows of
+    1,500 frames and 32-token prompts, ``generate`` (decode steps feed
+    tokens and read the cross-attention's K/V from the cache), every GEMM
+    of one prefill against ``simulate``; training at full width, 2 + 2
+    layers, 2 x 1,500 frames and 64 tokens."""
+    return _family_phase(torch, seed, report, "audio")
 
 
 OPS_QLINEAR_MKN = (512, 512, 10240)     # statquant-tx's lm_head forward
@@ -4127,14 +4191,23 @@ def sr_sweep(torch, flush, x, rb, card) -> list:
     return out
 
 
+# the profiler sessions ``_kernels_per_call`` repeated, as (calls, device
+# kernels counted): kept in the report, so that a repeat can be told
+# apart from a kernel that skipped a launch
+PROFILER_REPEATS = []
+
+
 def _kernels_per_call(torch, fn) -> float:
     """Device kernels a call of ``fn`` runs: torch.profiler over a window of
     calls after a warm-up.  A session of a few short kernels has come back
     with no device kernel at all on the card (after a process's first few
-    sessions); no call runs none, so such a session is repeated over a
-    longer window (8, 64, then 256 calls)."""
+    sessions), and one with a kernel missing (63 of 64 calls); every call
+    runs the same kernels, so a session whose count is not a whole number
+    a call is repeated over a longer window (8, 64, then 256 calls), and
+    noted in PROFILER_REPEATS.  Returns the last window's count a call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    per_call = 0.0
     for calls in (8, 64, 256):
         fn()
         torch.cuda.synchronize()
@@ -4146,9 +4219,13 @@ def _kernels_per_call(torch, fn) -> float:
         n = sum(e.count for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA
                 and e.self_device_time_total > 0)
-        if n:
-            return n / calls
-    return 0.0
+        per_call = n / calls
+        if n and n % calls == 0:
+            return per_call
+        PROFILER_REPEATS.append(dict(calls=calls, kernels=n))
+        log(f"[profile] {n} device kernels in {calls} calls: the session "
+            f"lost or split events; repeated over a longer window")
+    return per_call
 
 
 def time_floor(torch, gen, flush) -> dict:

@@ -50,17 +50,17 @@ def make_batch_for(cfg: ArchConfig, batch_size: int, seq_len: int,
     output: ``embeds`` (B, T, d) drawn ``normal(fold_in(PRNGKey(seed +
     7), step)) * 0.02`` (``prng.normal``, within about an ulp of
     ``jax.random.normal``), the ``labels`` and ``positions`` (3, B, T),
-    ``arange(T)`` on every M-RoPE axis.  The audio family's frames come
-    with its slice of the port."""
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: batches of the 'audio' family (stub frame "
-            f"frontend) come with the whisper slice of the port")
+    ``arange(T)`` on every M-RoPE axis.  An audio batch adds the stub
+    audio frontend's ``frames`` (B, enc_seq, d), drawn the same way, to
+    the tokens and labels."""
     batch = SyntheticLM(cfg.vocab_size, seq_len, batch_size, seed).batch(
         step, host, n_hosts)
-    if cfg.family != "vlm":
+    if cfg.family not in ("vlm", "audio"):
         return batch
     key = prng.fold_in(prng.PRNGKey(seed + 7), step)
+    if cfg.family == "audio":
+        return {**batch, "frames": prng.normal(
+            key, (batch_size, cfg.enc_seq, cfg.d_model)) * 0.02}
     pos = torch.arange(seq_len, dtype=torch.int32)
     return {"embeds": prng.normal(key, (batch_size, seq_len, cfg.d_model))
             * 0.02,

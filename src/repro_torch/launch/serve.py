@@ -39,7 +39,6 @@ import torch
 from ..configs import get_config
 from ..core import QuantPolicy
 from ..models import build_model
-from ..models.lm import check_ported
 from ..serve import ServeEngine, weight_nbytes
 
 __all__ = ["generate", "main"]
@@ -49,14 +48,15 @@ def generate(model, params, batch, policy: QuantPolicy, *, max_new: int,
              max_seq: int, eos_id=None):
     """Prefill the prompt then greedy-decode up to ``max_new`` tokens.
     A VLM's prompt is its ``embeds`` and ``positions``; its decode steps
-    take each new token's embedding (the stub frontend).
+    take each new token's embedding (the stub frontend).  An audio
+    model's prompt is its ``frames`` and ``tokens``; its decode steps take
+    the tokens.
 
     Returns (B, n) int64 with n <= max_new: decoding stops as soon as
     every row has emitted ``eos_id`` (rows that finish early keep emitting
     ``eos_id`` while the rest of the batch drains).  ``eos_id=None``
     disables early stopping and always returns (B, max_new)."""
     cfg = model.cfg
-    check_ported(cfg)
     with torch.no_grad():
         logits, cache = model.prefill(params, batch, policy, max_seq)
         out = []

@@ -1,8 +1,8 @@
-"""GQA attention with FQT projections, the dense-lane decode KV cache and
-the paged int8 KV pool.
+"""GQA attention with FQT projections, cross-attention, the dense-lane
+decode KV cache and the paged int8 KV pool.
 
-Port of the self-attention path of ``repro.layers.attention``, with
-standard RoPE or Qwen2-VL's M-RoPE (positions ``(3, B, T)``).  The four
+Port of ``repro.layers.attention``, with standard RoPE, Qwen2-VL's M-RoPE
+(positions ``(3, B, T)``) or none (Whisper).  The four
 projections are FQT linear layers; the attention math (scores, softmax,
 value mix) stays full precision, as in the paper's transformer setting.
 KV caches are stored flattened as ``(B, S, n_kv*head_dim)``, paged pools
@@ -12,6 +12,8 @@ updated copy.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -23,9 +25,10 @@ from ..kernels.kv_gather import kv_gather_pages_kv, kv_gather_pages_kv_plain
 from .common import dense, init_dense
 from .embeddings import apply_mrope, apply_rope
 
-__all__ = ["init_attention", "attention", "decode_attention",
-           "init_kv_cache", "init_kv_cache_quant", "init_paged_kv_pool",
-           "paged_write_index", "last_write", "paged_decode_attention"]
+__all__ = ["init_attention", "attention", "cross_attention_kv",
+           "decode_attention", "init_kv_cache", "init_kv_cache_quant",
+           "init_paged_kv_pool", "paged_write_index", "last_write",
+           "paged_decode_attention"]
 
 _NEG = -1e30
 
@@ -44,21 +47,24 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig, lead=()) -> dict:
     }
 
 
+def _rotate(x, positions, cfg):
+    """``x`` (B, T, heads, hd) rotated by the config's positional scheme."""
+    if cfg.rope == "standard":
+        return apply_rope(x, positions, cfg.rope_theta)
+    if cfg.rope == "mrope":
+        return apply_mrope(x, positions, cfg.rope_theta)
+    if cfg.rope != "none":
+        raise ValueError(f"unknown rope {cfg.rope!r}")
+    return x
+
+
 def _qkv(p, x, key, policy, cfg, positions, path="attn"):
     B, T, _ = x.shape
     hd, H, KV = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     q = dense(p["wq"], x, key, policy, 1, f"{path}.wq").reshape(B, T, H, hd)
     k = dense(p["wk"], x, key, policy, 2, f"{path}.wk").reshape(B, T, KV, hd)
     v = dense(p["wv"], x, key, policy, 3, f"{path}.wv").reshape(B, T, KV, hd)
-    if cfg.rope == "standard":
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    elif cfg.rope == "mrope":
-        q = apply_mrope(q, positions, cfg.rope_theta)
-        k = apply_mrope(k, positions, cfg.rope_theta)
-    elif cfg.rope != "none":
-        raise ValueError(f"unknown rope {cfg.rope!r}")
-    return q, k, v
+    return _rotate(q, positions, cfg), _rotate(k, positions, cfg), v
 
 
 def _step_positions(cfg: ArchConfig, offs: torch.Tensor) -> torch.Tensor:
@@ -85,22 +91,54 @@ def _sdpa(q, k, v, mask):
 
 
 def attention(p: dict, x: torch.Tensor, key, policy: QuantPolicy,
-              cfg: ArchConfig, positions: torch.Tensor,
-              return_kv: bool = False, path: str = "attn"):
-    """Full-sequence causal attention (prefill).  return_kv: also return
-    the (rotated) k, v of shape (B, T, KV, hd) for cache initialization."""
+              cfg: ArchConfig, positions: torch.Tensor, causal: bool = True,
+              kv_override: Optional[tuple] = None, return_kv: bool = False,
+              path: str = "attn"):
+    """Full-sequence attention (training, prefill, an encoder).
+
+    ``causal=False``: every query sees every key (an all-true mask).
+    ``kv_override``: the (k, v) of shape (B, S, KV, hd) to attend over
+    (cross-attention); only ``wq`` (tag 1) and ``wo`` (tag 4) are then
+    quantized GEMMs, and q is rotated as in self-attention.
+    ``return_kv``: also return the (rotated) k, v for cache
+    initialization."""
     B, T, _ = x.shape
     hd, H, KV = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     G = H // KV
-    q, k, v = _qkv(p, x, key, policy, cfg, positions, path)
-    ar = torch.arange(T, device=x.device)
-    mask = (ar[:, None] >= ar[None, :])[None, None, None]
+    if kv_override is None:
+        q, k, v = _qkv(p, x, key, policy, cfg, positions, path)
+    else:
+        q = dense(p["wq"], x, key, policy, 1,
+                  f"{path}.wq").reshape(B, T, H, hd)
+        q = _rotate(q, positions, cfg)
+        k, v = kv_override
+    S = k.shape[1]
+    if causal:
+        mask = (torch.arange(T, device=x.device)[:, None]
+                >= torch.arange(S, device=x.device)[None, :])
+        mask = mask[None, None, None]
+    else:
+        mask = torch.ones((1, 1, 1, T, S), dtype=torch.bool, device=x.device)
     out = _sdpa(q.reshape(B, T, KV, G, hd), k, v, mask)
     y = dense(p["wo"], out.reshape(B, T, H * hd), key, policy, 4,
               f"{path}.wo")
     if return_kv:
         return y, (k, v)
     return y
+
+
+def cross_attention_kv(p: dict, enc_out: torch.Tensor, key,
+                       policy: QuantPolicy, cfg: ArchConfig,
+                       path: str = "attn"):
+    """The encoder-side K/V of a decoder's cross-attention, (B, S, KV, hd)
+    each: ``wk`` (tag 2) and ``wv`` (tag 3) of ``enc_out``, unrotated."""
+    B, S, _ = enc_out.shape
+    hd, KV = cfg.hd, cfg.n_kv_heads
+    k = dense(p["wk"], enc_out, key, policy, 2,
+              f"{path}.wk").reshape(B, S, KV, hd)
+    v = dense(p["wv"], enc_out, key, policy, 3,
+              f"{path}.wv").reshape(B, S, KV, hd)
+    return k, v
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, max_seq: int, lead=(),

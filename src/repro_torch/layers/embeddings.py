@@ -1,5 +1,6 @@
-"""Token embeddings (padded vocab), standard rotary embeddings and
-Qwen2-VL's sectioned multimodal variant (M-RoPE).
+"""Token embeddings (padded vocab), standard rotary embeddings,
+Qwen2-VL's sectioned multimodal variant (M-RoPE) and Whisper's fixed
+sinusoidal encoder positions.
 
 The embedding gather and the rotary math stay full precision; the LM head
 is a linear layer and therefore FQT-quantized.
@@ -16,7 +17,8 @@ from ..core import QuantPolicy, fqt_matmul
 from .common import qkey, randn
 
 __all__ = ["init_embedding", "embed", "init_lm_head", "lm_head",
-           "rope_freqs", "apply_rope", "apply_mrope", "mrope_bounds"]
+           "rope_freqs", "apply_rope", "apply_mrope", "mrope_bounds",
+           "sinusoidal_positions"]
 
 
 def init_embedding(gen: torch.Generator, cfg: ArchConfig) -> dict:
@@ -86,3 +88,25 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     ang = pos.permute(1, 2, 0).to(torch.float32) * freqs         # (B, T, n)
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     return _rotate(x, cos, sin).to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """Whisper's fixed encoder positions (seq, d): ``sin`` of ``pos /
+    10000 ** (2i / d)`` in the even columns, ``cos`` in the odd ones, in
+    float32 as the reference computes them.  The power is taken in
+    float64 and rounded (XLA's float32 ``pow`` gives the correctly rounded
+    value here, ``torch.pow`` in float32 does not at 4 of 512 exponents),
+    and the division is a multiply by the float32 reciprocal, as XLA
+    rewrites a division by a broadcast row."""
+    dim = torch.arange(0, d, 2, dtype=torch.int32, device=device)
+    exps = dim.to(torch.float32) / torch.tensor(float(d), device=device)
+    denom = torch.pow(torch.tensor(10_000.0, dtype=torch.float64,
+                                   device=device),
+                      exps.to(torch.float64)).to(torch.float32)
+    inv = torch.ones((), device=device) / denom
+    pos = torch.arange(seq, dtype=torch.int32, device=device)
+    ang = pos[:, None].to(torch.float32) * inv[None, :]
+    out = torch.empty((seq, d), dtype=torch.float32, device=device)
+    out[:, 0::2] = torch.sin(ang)
+    out[:, 1::2] = torch.cos(ang)
+    return out

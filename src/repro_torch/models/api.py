@@ -1,12 +1,13 @@
 """Unified model API: ``build_model(cfg)`` -> :class:`Model`.
 
-Port of ``repro.models.api`` for the decoder families (dense, MoE, VLM,
-the Mamba2 hybrid, RWKV6): init / loss / prefill / decode / paged decode
-plus the cache and page-pool constructors, ``quant_paths`` and
-``input_specs`` (meta-device tensors in place of the reference's
-``ShapeDtypeStruct``).  As in the reference, the recurrent families have
-no int8 cache, paged decode or page pool (``None``).  The audio family
-raises until its slice.
+Port of ``repro.models.api``: the decoder families (dense, MoE, VLM, the
+Mamba2 hybrid, RWKV6; ``models/lm.py``) and the audio family's
+encoder-decoder (``models/encdec.py``).  init / loss / prefill / decode /
+paged decode plus the cache and page-pool constructors, ``quant_paths``
+and ``input_specs`` (meta-device tensors in place of the reference's
+``ShapeDtypeStruct``).  As in the reference, the recurrent families and
+the encoder-decoder have no int8 cache, paged decode or page pool
+(``None``).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 from ..configs.base import ArchConfig, ShapeSpec
 from ..device import resolve_device
 from ..layers.common import MetaGenerator
-from . import lm
+from . import encdec, lm
 
 __all__ = ["Model", "build_model", "model_quant_paths"]
 
@@ -39,7 +40,13 @@ def model_quant_paths(cfg: ArchConfig) -> tuple:
                    if cfg.moe_experts
                    else [f"{prefix}.mlp.{n}" for n in mlp_names]))
 
-    if cfg.family == "hybrid":
+    if cfg.family == "audio":
+        paths = ([f"encoder.layers.attn.{w}" for w in _ATTN]
+                 + [f"encoder.layers.mlp.{n}" for n in mlp_names]
+                 + [f"decoder.layers.self_attn.{w}" for w in _ATTN]
+                 + [f"decoder.layers.cross_attn.{w}" for w in _ATTN]
+                 + [f"decoder.layers.mlp.{n}" for n in mlp_names])
+    elif cfg.family == "hybrid":
         paths = ([f"layers.mamba.{n}" for n in
                   ("z_proj", "x_proj", "bc_proj", "dt_proj", "out_proj")]
                  + ["layers.fuse"] + block("shared"))
@@ -54,6 +61,7 @@ def model_quant_paths(cfg: ArchConfig) -> tuple:
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ArchConfig
+    init_params: Callable      # (generator, cfg) -> params
     loss: Callable             # (params, batch, key, policy) -> (loss, metrics)
     prefill: Callable          # (params, batch, policy, max_seq) -> (logits, cache)
     decode: Callable           # (params, cache, batch, policy, [positions]) -> (logits, cache)
@@ -73,9 +81,9 @@ class Model:
         On the meta device: their shapes and dtypes only."""
         dev = resolve_device(device)
         if dev.type == "meta":
-            return lm.init_lm_params(MetaGenerator(), self.cfg)
+            return self.init_params(MetaGenerator(), self.cfg)
         gen = torch.Generator(device=dev).manual_seed(int(seed))
-        return lm.init_lm_params(gen, self.cfg)
+        return self.init_params(gen, self.cfg)
 
     def quant_paths(self) -> tuple:
         """Logical paths of this model's quantized GEMMs (policy overrides
@@ -95,6 +103,10 @@ class Model:
             return torch.empty((b, t), dtype=torch.int32, device="meta")
 
         def inputs(b, t):
+            if cfg.family == "audio":
+                return {"frames": torch.empty((b, cfg.enc_seq, cfg.d_model),
+                                              dtype=dtype, device="meta"),
+                        "tokens": tok(b, t)}
             if cfg.family != "vlm":
                 return {"tokens": tok(b, t)}
             return {"embeds": torch.empty((b, t, cfg.d_model), dtype=dtype,
@@ -110,15 +122,32 @@ class Model:
             raise ValueError(f"the port's caches are float32, not {dtype}")
         cache = self.init_cache(cfg, B, T, device="meta")
         batch = inputs(B, 1)
-        batch.pop("positions", None)       # decode steps rotate by index
+        # decode steps rotate by index; the encoder ran at prefill
+        batch.pop("positions", None)
+        batch.pop("frames", None)
         return {"cache": cache, "batch": batch}
 
 
 def build_model(cfg: ArchConfig) -> Model:
+    if cfg.family == "audio":
+        return Model(
+            cfg=cfg,
+            init_params=encdec.init_encdec_params,
+            loss=lambda params, batch, key, policy, **kw:
+                encdec.encdec_loss(params, batch, key, policy, cfg, **kw),
+            prefill=lambda params, batch, policy, max_seq=None, **kw:
+                encdec.encdec_prefill(params, batch, policy, cfg, max_seq,
+                                      **kw),
+            decode=lambda params, cache, batch, policy, **kw:
+                encdec.encdec_decode(params, cache, batch, policy, cfg,
+                                     **kw),
+            init_cache=encdec.init_encdec_cache,
+            init_cache_quant=None, paged_decode=None, init_paged_pool=None)
     lm.check_ported(cfg)
     kv = lm.has_kv_cache(cfg)
     return Model(
         cfg=cfg,
+        init_params=lm.init_lm_params,
         loss=lambda params, batch, key, policy, **kw:
             lm.lm_loss(params, batch, key, policy, cfg, **kw),
         prefill=lambda params, batch, policy, max_seq=None, **kw:

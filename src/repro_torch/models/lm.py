@@ -17,7 +17,8 @@ is ``None``.  A MoE layer's ``moe_block`` takes the layer's key in place
 of the MLP and adds its load-balance loss to the stack's ``aux``.  A VLM
 batch carries ``embeds`` (the stub vision frontend's output) and M-RoPE
 ``positions`` (3, B, T) in place of tokens.  The audio family
-(whisper-medium, an encoder-decoder) comes in a later slice and raises.
+(whisper-medium, an encoder-decoder) runs through ``models/encdec.py``;
+the entry points here refuse it.
 """
 
 from __future__ import annotations
@@ -46,19 +47,24 @@ __all__ = ["init_lm_params", "lm_loss", "lm_prefill", "lm_decode",
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise unless ``cfg`` is a decoder LM of a ported family: dense, MoE
-    (``moe_experts`` > 0), VLM, the Mamba2 hybrid or RWKV6."""
+    """Raise unless ``cfg`` is a decoder LM of a family this module runs:
+    dense, MoE (``moe_experts`` > 0), VLM, the Mamba2 hybrid or RWKV6.
+    The audio family is an encoder-decoder: ``build_model`` routes it to
+    ``models/encdec.py``."""
     ported = {"dense": not cfg.moe_experts and not cfg.ssm_kind,
               "moe": cfg.moe_experts > 0 and not cfg.ssm_kind,
               "vlm": not cfg.ssm_kind,
               "hybrid": cfg.ssm_kind == "mamba2" and cfg.hybrid_period > 0,
               "ssm": cfg.ssm_kind == "rwkv6"}
+    if cfg.family == "audio":
+        raise ValueError(
+            f"{cfg.name}: the audio family is an encoder-decoder; its "
+            f"entry points are models/encdec.py's (build_model routes "
+            f"there), not the decoder LM's")
     if not ported.get(cfg.family):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; the "
-            f"port covers the dense, MoE, VLM, Mamba2-hybrid and RWKV6 "
-            f"decoders, and the audio family (whisper-medium, "
-            f"models/encdec.py) is the next slice")
+            f"{cfg.name}: family {cfg.family!r} is not a decoder LM family "
+            f"of the port (dense, MoE, VLM, Mamba2-hybrid, RWKV6)")
 
 
 def has_kv_cache(cfg: ArchConfig) -> bool:

@@ -67,10 +67,10 @@ def _prefill_both(n_layers: int) -> dict:
     last = np.array([PROMPT_LEN - 1])
 
     def jax_logits(policy):
-        lg, _ = jm.prefill(jp, {"tokens": jnp.asarray(toks, jnp.int32)},
-                           policy, max_seq=bucket,
-                           last_pos=jnp.asarray(last, jnp.int32))
-        return np.asarray(lg)
+        prefill = jax.jit(lambda p, t, lp: jm.prefill(
+            p, {"tokens": t}, policy, max_seq=bucket, last_pos=lp)[0])
+        return np.asarray(prefill(jp, jnp.asarray(toks, jnp.int32),
+                                  jnp.asarray(last, jnp.int32)))
 
     out = {"jax_native": jax_logits(JAX_FUSED),
            "jax_simulate": jax_logits(JaxPolicy.qat(backend="simulate")),
@@ -120,8 +120,9 @@ def test_fullwidth_every_gemm_agrees_on_shared_inputs(one_layer):
             ref = fqt_matmul(x, w, None, sim, path=path)
         np.testing.assert_allclose(y.numpy(), ref.numpy(), rtol=RTOL,
                                    atol=ATOL, err_msg=path)
-        want = jax_fqt(jnp.asarray(x.numpy()), jnp.asarray(w.numpy()),
-                       jax.random.PRNGKey(0), JAX_FUSED, path=path)
+        want = jax.jit(lambda x, w, path=path: jax_fqt(
+            x, w, jax.random.PRNGKey(0), JAX_FUSED, path=path))(
+                jnp.asarray(x.numpy()), jnp.asarray(w.numpy()))
         np.testing.assert_allclose(y.numpy(), np.asarray(want), rtol=RTOL,
                                    atol=ATOL, err_msg=path)
 

@@ -134,11 +134,25 @@ def test_generate_matches_reference_and_stops_at_eos(statquant):
 
 
 def test_generate_refuses_an_unported_family():
+    """Every family is ported: ``generate`` runs a whisper-medium batch
+    from ``make_batch_for`` (``frames`` and prompt ``tokens``; decode
+    steps feed tokens), whose first token is the prefill's greedy one
+    (its tokens against the reference's: tests/test_torch_encdec.py); the
+    decoder LM's entry points refuse the encoder-decoder's config."""
+    from repro_torch.data import make_batch_for
+    from repro_torch.models import lm
     cfg = get_config("whisper-medium", smoke=True)
-    model = dataclasses.replace(build_model(get_config("statquant-tx",
-                                                       smoke=True)), cfg=cfg)
-    with pytest.raises(NotImplementedError, match="audio"):
-        generate(model, {}, {}, core.QAT, max_new=1, max_seq=4)
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    batch = make_batch_for(cfg, 2, 6)
+    prompt = {k: batch[k] for k in ("frames", "tokens")}
+    out = generate(model, params, prompt, core.QAT, max_new=3, max_seq=10)
+    assert out.shape == (2, 3)
+    assert bool(((out >= 0) & (out < cfg.vocab_size)).all())
+    logits, _ = model.prefill(params, prompt, core.QAT, 10)
+    assert torch.equal(out[:, 0], logits[:, -1, :cfg.vocab_size].argmax(-1))
+    with pytest.raises(ValueError, match="models/encdec.py"):
+        lm.init_lm_cache(cfg, 2, 10)
 
 
 @pytest.mark.parametrize("d_flat", [1, 64, 1024, 2050])

@@ -106,8 +106,15 @@ def test_unported_engine_options_raise():
     # directory without a checkpoint is refused
     with pytest.raises(FileNotFoundError, match="no checkpoints"):
         ServeEngine.from_checkpoint(cfg, "/nonexistent", device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(get_config("whisper-medium", smoke=True))
+    # the audio family is ported (tests/test_torch_encdec.py); the engine
+    # refuses it with the reference engine's message
+    wcfg = get_config("whisper-medium", smoke=True)
+    with pytest.raises(ValueError, match="needs a frontend") as got:
+        ServeEngine(wcfg, build_model(wcfg).init(0, device="cpu"),
+                    device="cpu")
+    with pytest.raises(ValueError) as want:
+        JaxEngine(jax_config("whisper-medium", smoke=True), {})
+    assert str(got.value) == str(want.value)
 
 
 def test_cli_runs_on_cpu(capsys):

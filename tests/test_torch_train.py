@@ -180,8 +180,12 @@ def test_unported_training_options_raise(monkeypatch):
     with pytest.raises(NotImplementedError, match="distribution slice"):
         make_step_fn(build_model(cfg), QuantPolicy.fqt(), None, None,
                      compress_axis="data")
-    with pytest.raises(NotImplementedError, match="audio"):
-        make_batch_for(get_config("whisper-medium", smoke=True), 2, 8)
+    # the audio family is ported (tests/test_torch_encdec.py): its batch
+    # carries the stub frontend's frames (B, enc_seq, d)
+    wcfg = get_config("whisper-medium", smoke=True)
+    wbatch = make_batch_for(wcfg, 2, 8)
+    assert sorted(wbatch) == ["frames", "labels", "tokens"]
+    assert wbatch["frames"].shape == (2, wcfg.enc_seq, wcfg.d_model)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(cfg, QuantPolicy.fqt(), steps=1, batch_size=2, seq_len=8)

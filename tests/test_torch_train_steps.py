@@ -81,11 +81,17 @@ def _record_clipped_grads(monkeypatch) -> list:
     return seen
 
 
+@jax.jit
+def _clipped_adamw(params, grads, opt_state, lr):
+    grads, _ = jax_clip(grads, 1.0)
+    return jax_adamw().apply(params, grads, opt_state, lr)
+
+
 def _reference_update(jstate, grads, lr_fn):
-    """The reference step's clip, schedule and AdamW on ``grads``."""
-    grads, _ = jax_clip(jax.tree.map(jnp.asarray, grads), 1.0)
-    return jax_adamw().apply(jstate.params, grads, jstate.opt_state,
-                             lr_fn(jstate.step))
+    """The reference step's clip, schedule and AdamW on ``grads`` (the
+    clip and AdamW compiled once for the module's tests)."""
+    return _clipped_adamw(jstate.params, jax.tree.map(jnp.asarray, grads),
+                          jstate.opt_state, lr_fn(jstate.step))
 
 
 def _assert_state(state, params, opt_state, what):
