@@ -11,8 +11,8 @@ profiles granite's decode step (dense, paged, from packed weights) and
 the unfused training step for the package of each checkout TREE, one
 process each, in the order given (``step_wall_trees``).  The third
 builds the kernels and runs only the named phases (``ONLY_PHASES``: vlm,
-hybrid, rwkv, audio, moe_serve, moe_train), to iterate on them; it prints
-no result line.
+hybrid, rwkv, audio, moe_serve, moe_train, dist), to iterate on them; it
+prints no result line.
 
 From the root of a checkout, on a machine with one CUDA card and the CUDA
 toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
@@ -266,6 +266,17 @@ toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
      against the plain versions bit for bit: ``fused_qlinear`` at (512,
      512, 10240) and ``fused_qlinear_bwd`` under ptq, psq and bhq at
      (512, 512, 512).
+ 18. ``[dist]`` (``dist_phase``): a one-rank NCCL process group and a
+     (1, 1) mesh on the card; statquant-tx at full width trains on the
+     mesh engine (every per-tensor range all-reduced, parameters and
+     moments as ``DTensor`` shards) against the flat engine from the same
+     seed: 3 steps each under ``fqt(psq,8)`` and ``fqt(bhq,5)`` and 2
+     unfused ``fqt(ptq,8)`` steps, losses, grad norms, parameters and
+     moments after each step bit-identical, launch counts exact; 2 steps
+     with ``compress_axis="data"``, 2 ``quantize_sr_rows`` a gradient leaf,
+     the exchange bit-identical with the plain quantize; ``quantize_sr_tensor``
+     given a range; ``quantize_sr_rows`` timed at the exchange's shapes;
+     one mesh step profiled beside the flat step's wall.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -277,6 +288,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -420,6 +432,10 @@ def main(argv=None) -> int:
                 for fn in (vlm_phase, hybrid_phase, rwkv_phase, audio_phase)]
     fam = {k: sum(f[k] for f in families) for k in families[0]}
     phase(ops_phase, seed, report)
+    dist = phase(dist_phase, seed, report)
+    errs["quantize_sr_rows"] = max(errs["quantize_sr_rows"],
+                                   dist["max_abs_err"])
+    dist = dist["launches"]
     timings = phase(time_kernels, report)
     serve["profile_decode_step"] = _profile_decode(torch, granite_engine,
                                                    share=KV_SHARE)
@@ -440,14 +456,14 @@ def main(argv=None) -> int:
                     max_abs_err=errs[key], **timings[key])
     csrc = "src/repro_torch/csrc/"
     # the MoE phases' launches join each kernel's (serving: dense, paged and
-    # 4-bit engines; training: both policies), and the VLM, hybrid, RWKV6
-    # and audio phases' (serving and training)
+    # 4-bit engines; training: both policies), the VLM, hybrid, RWKV6
+    # and audio phases' (serving and training), and [dist]'s mesh steps
     kernels = [
         entry("fused_qlhs_matmul", "fused_qlhs_matmul",
               csrc + "fused_qlhs_fwd.cu", "src/repro/kernels/fused_fqt.py:93",
               serve["launches"]["fused_qlhs_matmul"]
               + moe["fused_qlhs_matmul"] + moe_train["fused_qlhs_matmul"]
-              + fam["fused_qlhs_matmul"]),
+              + fam["fused_qlhs_matmul"] + dist["fused_qlhs_matmul"]),
         entry("kv_dequant_rows", "kv_dequant_rows", csrc + "kv_dequant.cu",
               "src/repro/kernels/kv_dequant.py:31",
               serve["launches"]["kv_dequant_rows"]
@@ -458,17 +474,17 @@ def main(argv=None) -> int:
               csrc + "fused_qlhs_dx.cu", "src/repro/kernels/fused_fqt.py:93",
               train["launches"]["fused_qlhs_matmul_dx"]
               + moe_train["fused_qlhs_matmul_dx"]
-              + fam["fused_qlhs_matmul_dx"]),
+              + fam["fused_qlhs_matmul_dx"] + dist["fused_qlhs_matmul_dx"]),
         entry("q8_matmul", "q8_matmul", csrc + "q8_matmul.cu",
               "src/repro/kernels/q8_matmul.py:38",
               train["launches"]["q8_matmul"]
               + unfused["launches"]["q8_matmul"] + moe_train["q8_matmul"]
-              + fam["q8_matmul"]),
+              + fam["q8_matmul"] + dist["q8_matmul"]),
         entry("fused_qboth_tn_matmul", "fused_qboth_tn_matmul",
               csrc + "fused_qboth_tn.cu", "src/repro/kernels/fused_fqt.py:215",
               train["launches"]["fused_qboth_tn_matmul"]
               + moe_train["fused_qboth_tn_matmul"]
-              + fam["fused_qboth_tn_matmul"]),
+              + fam["fused_qboth_tn_matmul"] + dist["fused_qboth_tn_matmul"]),
         entry("kv_gather_pages", "kv_gather_pages", csrc + "kv_gather.cu",
               "src/repro/kernels/kv_gather.py:43",
               paged["launches"]["kv_gather_pages"]
@@ -477,10 +493,12 @@ def main(argv=None) -> int:
               + fam["kv_gather_pages_kv"]),
         entry("quantize_sr_rows", "quantize_sr_rows", csrc + "quantize_sr.cu",
               "src/repro/kernels/quantize_sr.py:34",
-              unfused["launches"]["quantize_sr_rows"]),
+              unfused["launches"]["quantize_sr_rows"]
+              + dist["quantize_sr_rows"]),
         entry("quantize_sr_tensor", "quantize_sr_tensor",
               csrc + "quantize_sr.cu", "src/repro/kernels/quantize_sr.py:98",
-              unfused["launches"]["quantize_sr_tensor"]),
+              unfused["launches"]["quantize_sr_tensor"]
+              + dist["quantize_sr_tensor"]),
         entry("fused_qlhs_packed_matmul", "fused_qlhs_packed_matmul",
               csrc + "fused_qlhs_packed.cu",
               "src/repro/kernels/fused_fqt.py:328",
@@ -1686,6 +1704,148 @@ def _profile_decode(torch, eng, what="dense", share=None):
                     share)
 
 
+def _wall_ms(torch, step):
+    """``step``'s wall time in ms: the median of 5 runs after one, and the
+    5."""
+    import numpy as np
+    step()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(walls)), walls
+
+
+# the names torch.profiler leaves out of its tables
+_UNLISTED_EVENTS = frozenset((
+    "[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+    "profiler::_record_function_enter_new", "profiler::_record_function_exit",
+    "aten::is_leaf", "aten::output_nr", "aten::_version"))
+
+
+def _event_averages(torch, prof) -> list:
+    """The rows of ``prof.key_averages()`` (key, count, device type,
+    user annotation, and in µs the self CPU, self device and device
+    totals), computed from the profile's raw events: each kernel goes to
+    the op whose correlation id it carries, a runtime call such as
+    ``cudaLaunchKernel`` to that op's thread, ops nest by their intervals
+    on each thread, and an op that is the only child of an op of its name
+    merges into it, as in torch's own tree.  ``key_averages`` builds a
+    Python object per event and spent up to 43 s on one profile of the
+    MoE phases; this walk, with the cyclic collector paused, a small share
+    of that."""
+    import gc
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+    cpu, cuda = DeviceType.CPU, DeviceType.CUDA
+    demangled = {}
+    gc_was = gc.isenabled()
+    gc.disable()
+    try:
+        ev = []          # [name, device, annotation, sync, thread, t0, t1]
+        ops, linked = {}, []
+        for e in prof.profiler.kineto_results.events():
+            n = e.name()
+            if n in _UNLISTED_EVENTS or e.is_hidden_event():
+                continue
+            d = demangled.get(n)
+            if d is None:
+                d = demangled[n] = (torch._C._demangle(n) if len(n) > 1
+                                    else n)
+            dev = e.device_type()
+            tid = e.start_thread_id()
+            sync = not e.is_async() and tid == e.end_thread_id()
+            i = len(ev)
+            ev.append([d, dev, e.is_user_annotation(), sync, tid,
+                       e.start_ns(), e.end_ns()])
+            link = e.linked_correlation_id()
+            if link > 0:
+                linked.append((i, link))
+            elif dev == cpu and sync:
+                ops.setdefault(e.correlation_id(), []).append(i)
+        own = {}         # op -> its own kernels' µs
+        for i, link in linked:
+            for j in ops.get(link, ()):
+                r = ev[i]
+                if r[1] == cuda:
+                    own[j] = own.get(j, 0.0) + (r[6] - r[5]) / 1e3
+                elif r[1] == cpu:
+                    r[4] = ev[j][4]
+        tree = sorted((i for i, r in enumerate(ev) if r[1] == cpu and r[3]),
+                      key=lambda i: (ev[i][4], ev[i][5], -ev[i][6]))
+        parent, children, stack = {}, {}, []
+        for i in tree:
+            r = ev[i]
+            if stack and ev[stack[-1]][4] != r[4]:
+                stack = []
+            while stack:
+                p = stack[-1]
+                if r[5] >= ev[p][6] or r[6] > ev[p][6]:
+                    stack.pop()
+                else:
+                    children.setdefault(p, []).append(i)
+                    parent[i] = p
+                    break
+            stack.append(i)
+        gone = set()
+        while True:
+            merged = []
+            for i in sorted(parent):
+                if i in gone:
+                    continue
+                p = parent[i]
+                if ev[p][0] == ev[i][0] and len(children.get(p, ())) == 1:
+                    kids = children.get(i, [])
+                    children[p] = kids
+                    if i in own:
+                        own[p] = own[i]
+                    else:
+                        own.pop(p, None)
+                    for c in kids:
+                        parent[c] = p
+                    merged.append(i)
+            if not merged:
+                break
+            gone.update(merged)
+        dev_total = dict(own)
+        for i in reversed(tree):
+            p = parent.get(i)
+            if p is not None and i not in gone and i in dev_total:
+                dev_total[p] = dev_total.get(p, 0.0) + dev_total[i]
+        rows = {}
+        for i, (name, dev, note, sync, _, t0, t1) in enumerate(ev):
+            if i in gone:
+                continue
+            dur = (t1 - t0) / 1e3
+            if dev != cpu:
+                self_cpu, self_dev, total = 0.0, dur, dur
+            elif sync:
+                self_cpu = dur - sum((ev[c][6] - ev[c][5]) / 1e3
+                                     for c in children.get(i, ()))
+                self_dev, total = own.get(i, 0.0), dev_total.get(i, 0.0)
+            else:
+                self_cpu = self_dev = total = 0.0
+            r = rows.get((name, dev, note))
+            if r is None:
+                r = rows[(name, dev, note)] = [0, 0.0, 0.0, 0.0]
+            r[0] += 1
+            r[1] += self_cpu
+            r[2] += self_dev
+            r[3] += total
+    finally:
+        if gc_was:
+            gc.enable()
+    return [SimpleNamespace(key=k, device_type=d, is_user_annotation=u,
+                            count=r[0], self_cpu_time_total=r[1],
+                            self_device_time_total=r[2],
+                            device_time_total=r[3])
+            for (k, d, u), r in rows.items()]
+
+
 def _profile(torch, step, label, share=None, ranges=()):
     """``step``'s wall time (median of 5 runs without the profiler), and
     from one profiled run (torch.profiler) the device's busy time (the sum
@@ -1696,25 +1856,20 @@ def _profile(torch, step, label, share=None, ranges=()):
     an ``aten::`` name), by fragment and in all; with ``ranges`` (marker
     names such as ``fp[rwkv.wkv]``, ``core/exempt.py``), the device time
     of the kernels launched inside each range on the host (a backward's
-    kernels run outside them)."""
-    import numpy as np
+    kernels run outside them); and the ops that took the most host time
+    of their own (the profiler's self CPU time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    step()
-    torch.cuda.synchronize()
-    walls = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    wall = float(np.median(walls))
+    wall, walls = _wall_ms(torch, step)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    avg = _event_averages(torch, prof)
+    aggregate_s = time.perf_counter() - t0
     kernels, ops = [], []
-    for e in prof.key_averages():
+    for e in avg:
         dev_ms = e.self_device_time_total / 1e3
         if dev_ms <= 0 or e.is_user_annotation:
             continue
@@ -1723,14 +1878,15 @@ def _profile(torch, step, label, share=None, ranges=()):
     kernels.sort(reverse=True)
     ops.sort(reverse=True)
     inside = {}
-    for e in prof.key_averages():
+    for e in avg:
         if e.key in ranges and e.device_type != DeviceType.CUDA:
             inside[e.key] = dict(ms=e.device_time_total / 1e3,
                                  count=e.count)
     busy = sum(r[0] for r in kernels)
     log(f"[profile] {label}: wall {wall:.2f} ms (median of 5, no profiler), "
         f"device busy {busy:.2f} ms, idle share {1 - busy / wall:.3f}, "
-        f"{sum(r[1] for r in kernels)} device kernels")
+        f"{sum(r[1] for r in kernels)} device kernels (aggregated in "
+        f"{aggregate_s:.2f}s)")
     for ms, n, name in ops[:12]:
         log(f"[profile]   op     {ms:9.3f} ms {n:6d}x {name[:80]}")
     for ms, n, name in kernels[:10]:
@@ -1739,6 +1895,12 @@ def _profile(torch, step, label, share=None, ranges=()):
         log(f"[profile]   inside {key}: {r['ms']:.3f} ms of {busy:.2f} ms "
             f"busy ({r['count']} ranges)")
     res = {"ranges": inside} if ranges else {}
+    cpu = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key)
+                  for e in avg
+                  if e.device_type != DeviceType.CUDA
+                  and not e.is_user_annotation), reverse=True)
+    for ms, n, name in cpu[:12]:
+        log(f"[profile]   host   {ms:9.3f} ms {n:6d}x {name[:80]}")
     if share:
         keys = (share,) if isinstance(share, str) else tuple(share)
         by = {}
@@ -1753,11 +1915,14 @@ def _profile(torch, step, label, share=None, ranges=()):
                    share_ms=sum(v["ms"] for v in by.values()),
                    share_launches=sum(v["launches"] for v in by.values()))
     return dict(res, wall_ms=wall, walls_ms=walls, device_busy_ms=busy,
+                aggregate_s=aggregate_s,
                 device_kernels=sum(r[1] for r in kernels),
                 ops=[dict(ms=ms, count=n, name=name) for ms, n, name
                      in ops[:25]],
                 kernels=[dict(ms=ms, count=n, name=name) for ms, n, name
-                         in kernels[:25]])
+                         in kernels[:25]],
+                host_ops=[dict(ms=ms, count=n, name=name) for ms, n, name
+                          in cpu[:25]])
 
 
 def serve_granite(torch, seed, report):
@@ -3290,7 +3455,10 @@ def _theorem1_on_card(torch, seed, fqt_gradient_stats) -> dict:
 # ---------------------------------------------------------------------------
 
 MOE_ARCH = "granite-moe-1b-a400m"
-MOE_NEW_TOKENS = 16
+# tokens a request: 8 give two waves of 7 decode steps an engine at about
+# 1 s a step (16 gave 15 each), so that the run fits its limit on a slow
+# host; every check of the phase stays
+MOE_NEW_TOKENS = 8
 # the MoE serving phase's depth (full width; the config has 24 layers):
 # cut so that the whole run, the VLM, hybrid and RWKV6 phases included,
 # fits its limit
@@ -3642,7 +3810,7 @@ FAMILY_SHARE = "qlhs"
 ONLY_PHASES = {"vlm": "vlm_phase", "hybrid": "hybrid_phase",
                "rwkv": "rwkv_phase", "audio": "audio_phase",
                "moe_serve": "serve_moe",
-               "moe_train": "train_moe"}
+               "moe_train": "train_moe", "dist": "dist_phase"}
 
 
 def family_config(arch, layers=None):
@@ -3985,6 +4153,320 @@ def ops_phase(torch, seed, report) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# distribution: a one-rank NCCL mesh against the flat step
+# ---------------------------------------------------------------------------
+
+DIST_STEPS = 3
+DIST_UNFUSED_STEPS = 2
+DIST_WALL_PAIRS = 6
+DIST_COMPRESS_STEPS = 2
+# the compressed exchange's quantize shapes: at one rank each leaf is one
+# row (lm_head's 512 x 10,240 and a 512 x 512 projection); at 4 ranks
+# lm_head's phase-1 matrix is (4, size / 4)
+DIST_SR_SHAPES = [(1, 512 * 10240), (4, 512 * 10240 // 4), (1, 512 * 512)]
+
+
+def _alternating_walls_ms(torch, steps, n: int) -> list:
+    """Each of ``steps``' wall times in ms, ``n`` rounds of one call of
+    each in turn after one warm-up round."""
+    walls = [[] for _ in steps]
+    for r in range(n + 1):
+        for w, step in zip(walls, steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            if r:
+                w.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def _recording(eng):
+    """Wrap ``eng``'s step so it keeps each step's (loss, grad norm);
+    returns the list it fills."""
+    rec, inner = [], eng.step_fn
+
+    def step(state, batch):
+        state, m = inner(state, batch)
+        rec.append((m["loss"].clone(), m["grad_norm"].clone()))
+        return state, m
+    eng.step_fn = step
+    return rec
+
+
+def _full_params(state) -> dict:
+    """``{path: full tensor}`` of a state's parameters and AdamW moments
+    (``DTensor`` shards gathered)."""
+    out = {}
+    for name, tree in (("params", state.params),
+                       ("m", state.opt_state["m"]),
+                       ("v", state.opt_state["v"])):
+        for path, p in _named_leaves(tree):
+            full = p.full_tensor() if hasattr(p, "full_tensor") else p
+            out[f"{name}/{path}"] = full.clone()
+    return out
+
+
+def _stepwise(eng, steps: int):
+    """``eng.run`` one step at a time: each step's (loss, grad norm) and
+    the parameters and moments after it."""
+    rec, snaps = _recording(eng), []
+    for s in range(1, steps + 1):
+        eng.run(steps=s)
+        snaps.append(_full_params(eng.state))
+    return rec, snaps
+
+
+def _dist_engine(cfg, quant, bits, seed, steps, mesh=None, **kw):
+    """``_train_engine``'s engine (statquant-tx, 8 x 64 tokens, AdamW) on
+    ``mesh`` (None: flat)."""
+    from repro_torch.engine import Engine
+    fused = kw.pop("fused", None)
+    return Engine(cfg, _train_policy(quant, bits, "kernel", fused),
+                  steps=steps, batch_size=8, seq_len=64, seed=seed,
+                  device="cuda", log_every=100, log_fn=None, mesh=mesh,
+                  **kw)
+
+
+def _mesh_vs_flat(torch, cfg, quant, bits, seed, steps, mesh, want, tag,
+                  fused=None):
+    """``steps`` steps of the mesh engine (launches counted) and of the
+    flat engine: losses, grad norms, parameters and moments after each step
+    bit-identical."""
+    t_all = time.perf_counter()
+    meshed = _dist_engine(cfg, quant, bits, seed, steps, mesh, fused=fused)
+    flat = _dist_engine(cfg, quant, bits, seed, steps, fused=fused)
+    built = time.perf_counter() - t_all
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec_m, snaps_m = _stepwise(meshed, steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    _check_counts(counts, want, tag)
+    t0 = time.perf_counter()
+    rec_f, snaps_f = _stepwise(flat, steps)
+    torch.cuda.synchronize()
+    wall_flat = time.perf_counter() - t0
+    metrics_same = all(torch.equal(a, b) for ra, rb in zip(rec_m, rec_f)
+                       for a, b in zip(ra, rb))
+    differ = [f"step {s}: {k}" for s, (a, b) in enumerate(zip(snaps_m,
+                                                             snaps_f))
+              for k in a if not torch.equal(a[k], b[k])]
+    log(f"[{tag}] mesh (1, 1) on NCCL vs flat, {steps} steps: (loss, grad "
+        f"norm) {[(float(l), float(g)) for l, g in rec_m]} vs "
+        f"{[(float(l), float(g)) for l, g in rec_f]}; bit-identical "
+        f"{metrics_same}, parameters and moments after each step "
+        f"{len(snaps_m[0]) * steps - len(differ)} of "
+        f"{len(snaps_m[0]) * steps} leaves bit-identical; launches {counts} "
+        f"(engines built in {built:.2f}s, mesh {wall:.2f}s, flat "
+        f"{wall_flat:.2f}s, in all {time.perf_counter() - t_all:.2f}s)")
+    check(len(rec_m) == len(rec_f) == steps and metrics_same,
+          f"{tag}: mesh and flat losses or grad norms differ")
+    check(not differ, f"{tag}: mesh and flat states differ: {differ[:5]}")
+    return meshed, flat, dict(wall_s=wall, flat_wall_s=wall_flat,
+                              build_s=built, launches=counts,
+                              expected_launches=want,
+                              loss_grad_norm=[(float(l), float(g))
+                                              for l, g in rec_m])
+
+
+def dist_phase(torch, seed, report) -> dict:
+    """[dist]: a world-size-1 NCCL process group (a ``file://`` store in a
+    temporary directory) and a (1, 1) ``("data", "model")`` mesh on
+    cuda:0; statquant-tx at full width and depth, 8 x 64 tokens, AdamW, the
+    ``kernel`` backend.  Under ``fqt(psq,8)`` and ``fqt(bhq,5)``: 3
+    mesh-engine steps (every range all-reduced, the parameters and moments
+    ``DTensor`` shards) against 3 flat steps from the same seed, losses,
+    grad norms, parameters and moments after each step bit-identical;
+    the same for 2 unfused ``fqt(ptq,8)`` steps (``quantize_sr_tensor``
+    handed the group's range).  Under ``compress_axis="data"`` (psq8): 2
+    steps with exactly 2 ``quantize_sr_rows`` launches a gradient leaf,
+    the exchange bit-identical to the same exchange (through NCCL's int8
+    all-to-all and all-gather) with the plain quantize.
+    ``quantize_sr_tensor`` given the tensor's range bit-identical to its
+    in-kernel range at the step's shapes, and given a wider one to its
+    plain version.  Times ``quantize_sr_rows`` at the compressed
+    exchange's shapes, profiles one mesh step and times it against the
+    flat step, the two alternating."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import quantize_sr as q
+    from repro_torch.launch.mesh import init_distributed, make_test_mesh
+    from repro_torch.optim import tree_leaves
+    cfg = get_config("statquant-tx")
+    n = _gemms_per_forward(cfg)
+    res, total = {}, {}
+    tmp = tempfile.mkdtemp(prefix="dist_store_")
+    t0 = time.perf_counter()
+    device = init_distributed("cuda", f"file://{tmp}/store", 0, 1)
+    try:
+        mesh = make_test_mesh(1, 1, device=device)
+        log(f"[dist] process group and mesh {time.perf_counter() - t0:.2f}s")
+        for quant, bits in (("psq", 8), ("bhq", 5)):
+            tag = f"dist {quant}{bits}"
+            want = {"fused_qlhs_matmul": n * DIST_STEPS,
+                    "fused_qboth_tn_matmul": n * DIST_STEPS,
+                    ("fused_qlhs_matmul_dx" if quant == "psq"
+                     else "q8_matmul"): n * DIST_STEPS}
+            meshed, flat, res[quant] = _mesh_vs_flat(
+                torch, cfg, quant, bits, seed, DIST_STEPS, mesh, want, tag)
+            for k, v in res[quant]["launches"].items():
+                total[k] = total.get(k, 0) + v
+            if quant == "psq":
+                # the flat step's profile is [train psq8]'s (the same
+                # engine); here its wall beside the mesh step's, the two
+                # alternating so that both meet the same host
+                t0 = time.perf_counter()
+                res["profile_mesh"] = _profile(
+                    torch, _one_step(meshed), "one (1, 1) mesh step, psq8")
+                walls = _alternating_walls_ms(
+                    torch, (_one_step(meshed), _one_step(flat)),
+                    DIST_WALL_PAIRS)
+                med = [float(np.median(w)) for w in walls]
+                res["mesh_vs_flat_wall_ms"] = dict(
+                    mesh=med[0], flat=med[1], mesh_walls=walls[0],
+                    flat_walls=walls[1])
+                log(f"[dist] one step, psq8, mesh and flat alternating "
+                    f"{DIST_WALL_PAIRS} times: wall {med[0]:.2f} ms against "
+                    f"{med[1]:.2f} (medians; mesh {min(walls[0]):.2f}-"
+                    f"{max(walls[0]):.2f}, flat {min(walls[1]):.2f}-"
+                    f"{max(walls[1]):.2f}); the profile and walls took "
+                    f"{time.perf_counter() - t0:.2f}s")
+            del meshed, flat
+        want = {"q8_matmul": 3 * n * DIST_UNFUSED_STEPS,
+                "quantize_sr_tensor": 2 * n * DIST_UNFUSED_STEPS}
+        _, _, res["ptq_unfused"] = _mesh_vs_flat(
+            torch, cfg, "ptq", 8, seed, DIST_UNFUSED_STEPS, mesh, want,
+            "dist ptq8 unfused", fused=False)
+        for k, v in res["ptq_unfused"]["launches"].items():
+            total[k] = total.get(k, 0) + v
+
+        # the compressed exchange: every call recorded, then replayed with
+        # the plain quantize
+        import repro_torch.core.compression as comp
+        calls, wire = [], []
+        inner = comp.compressed_grad_allreduce
+
+        def spy(grads, *a, **kw):
+            out = inner(grads, *a, **kw)
+            calls.append((grads, a, kw, out))
+            return out
+        send = (dist.all_to_all_single,
+                getattr(dist, "all_gather_single", None)
+                or dist.all_gather_into_tensor)
+
+        def wired(fn):
+            def call(out, x, *a, **kw):
+                wire.append(str(x.dtype))
+                return fn(out, x, *a, **kw)
+            return call
+        t_c = time.perf_counter()
+        eng = _dist_engine(cfg, "psq", 8, seed, DIST_COMPRESS_STEPS, mesh,
+                           compress_axis="data")
+        leaves = len(tree_leaves(eng.init_state().params))
+        _reset_counts()
+        with _swapped("compressed_grad_allreduce", spy,
+                      "repro_torch.engine.step"), \
+                _swapped("all_to_all_single", wired(send[0]),
+                         "torch.distributed"), \
+                _swapped(send[1].__name__, wired(send[1]),
+                         "torch.distributed"):
+            t0 = time.perf_counter()
+            history = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = _read_counts()
+        want = {"fused_qlhs_matmul": n * DIST_COMPRESS_STEPS,
+                "fused_qboth_tn_matmul": n * DIST_COMPRESS_STEPS,
+                "fused_qlhs_matmul_dx": n * DIST_COMPRESS_STEPS,
+                "quantize_sr_rows": 2 * leaves * DIST_COMPRESS_STEPS}
+        _check_counts(counts, want, "dist compressed")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        err = 0.0
+        with _swapped("quantize_sr_rows", q.quantize_sr_rows_plain,
+                      "repro_torch.core.compression"):
+            for grads, a, kw, out in calls:
+                plain = inner(grads, *a, **kw)
+                for x, y in zip(tree_leaves(out), tree_leaves(plain)):
+                    check(torch.equal(x, y), "dist compressed: the exchange "
+                          "through quantize_sr_rows differs from the plain "
+                          "quantize")
+                    err = max(err, float((x - y).abs().max()))
+        int8 = sum(d == "torch.int8" for d in wire)
+        log(f"[dist compressed] {DIST_COMPRESS_STEPS} steps with "
+            f"compress_axis='data': losses {[l for _, l in history]}, "
+            f"{leaves} gradient leaves, launches {counts}; the exchange "
+            f"through the kernel vs the plain quantize bit-identical on "
+            f"{len(calls)} steps; {int8} of {len(wire)} wire tensors int8 "
+            f"({wall:.2f}s; in all {time.perf_counter() - t_c:.2f}s)")
+        check(len(calls) == DIST_COMPRESS_STEPS and all(
+            np.isfinite(l) for _, l in history), "dist compressed: steps")
+        check(int8 == 2 * leaves * DIST_COMPRESS_STEPS,
+              f"dist compressed: {int8} int8 wire tensors, not 2 a leaf")
+        res["compressed"] = dict(wall_s=wall, launches=counts,
+                                 expected_launches=want, leaves=leaves,
+                                 losses=[l for _, l in history],
+                                 wire_dtypes=sorted(set(wire)))
+        res["max_abs_err"] = err
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # quantize_sr_tensor with a given range; the exchange's quantize times
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 24)
+    for (M, N) in ((512, 512), (512, 1024), (512, 10240)):
+        x, rb = sr_operands(torch, gen, M, N)
+        own = torch.stack(list(torch.aminmax(x)))
+        wide = own + torch.tensor([-0.5, 0.25], device="cuda")
+        a, b = q.quantize_sr_tensor(x, rb, 8), q.quantize_sr_tensor(
+            x, rb, 8, own)
+        c = q.quantize_sr_tensor(x, rb, 8, wide)
+        d = q.quantize_sr_tensor_plain(x, rb, 8, wide)
+        same = (all(torch.equal(u, v) for u, v in zip(a, b))
+                and all(torch.equal(u, v) for u, v in zip(c, d)))
+        log(f"[dist] quantize_sr_tensor {(M, N)}: given its own range vs "
+            f"the in-kernel range, and given a wider one vs the plain "
+            f"version, bit-identical {same}")
+        check(same, f"dist: quantize_sr_tensor's given range at {(M, N)}")
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    rows = []
+    for (M, N) in DIST_SR_SHAPES:
+        x, rb = sr_operands(torch, gen, M, N)
+        ms = _time_ms(torch, lambda: q.quantize_sr_rows(x, rb, 8), flush, 20)
+        plain = _time_ms(torch, lambda: q.quantize_sr_rows_plain(x, rb, 8),
+                         flush, 5)
+        bound, by = _bound(13 * M * N + 8 * M, 6 * M * N, FP32_OPS_PER_S)
+        plan = q.rows_plan(M, N, q.on_card())
+        rows.append(dict(kernel="quantize_sr_rows", shape=[M, N], ms=ms,
+                         plain_ms=plain, bound_ms=bound, bound_by=by,
+                         plan=str(plan)))
+        log(f"[time] quantize_sr_rows {(M, N)} (the compressed exchange): "
+            f"kernel {ms:.4f} ms ({plan}), plain {plain:.4f} ms, bound "
+            f"{bound:.5f} ms ({by}), {bound / ms:.2f} of it")
+    x, rb = sr_operands(torch, gen, 512, 10240)
+    own = torch.stack(list(torch.aminmax(x)))
+    for label, extra in (("own range", ()), ("given range", (own,))):
+        ms = _time_ms(torch, lambda: q.quantize_sr_tensor(x, rb, 8, *extra),
+                      flush, 20)
+        rows.append(dict(kernel=f"quantize_sr_tensor ({label})",
+                         shape=[512, 10240], ms=ms))
+        log(f"[time] quantize_sr_tensor (512, 10240), {label}: {ms:.4f} ms")
+    del flush
+    torch.cuda.empty_cache()
+    log(f"[dist] the quantize checks and times {time.perf_counter() - t0:.2f}s")
+    res.update(timings=rows, launches=total)
+    report["dist"] = res
+    return res
+
+
+# ---------------------------------------------------------------------------
 # timings
 # ---------------------------------------------------------------------------
 
@@ -4216,7 +4698,7 @@ def _kernels_per_call(torch, fn) -> float:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        n = sum(e.count for e in prof.key_averages()
+        n = sum(e.count for e in _event_averages(torch, prof)
                 if e.device_type == DeviceType.CUDA
                 and e.self_device_time_total > 0)
         per_call = n / calls

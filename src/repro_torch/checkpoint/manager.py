@@ -23,7 +23,14 @@ optimizer updates parameters and moments in place; with
 ``asynchronous=True`` steps 1-3 then run on a worker thread.  ``restore``
 places each leaf as its target leaf is: a tensor target gives a tensor on
 ``device`` (default: the target's own device), any other target a numpy
-array.  The reference's ``shardings`` argument has no meaning on one card.
+array.
+
+On a mesh the parameters and moments are ``DTensor`` shards.  ``save``
+gathers each to its full tensor on every rank (every rank must call it),
+and only the rank that writes (``write=True``, rank 0) writes the
+reference's layout, byte for byte as a flat run.  ``restore(...,
+shardings=)`` has each rank read the full arrays and keep its shard, so
+a checkpoint restores onto any mesh, or none, whatever wrote it.
 """
 
 from __future__ import annotations
@@ -69,7 +76,10 @@ def _shape(leaf) -> tuple:
 
 
 def _host_copy(leaf) -> np.ndarray:
-    """A host copy of one leaf that nothing else aliases."""
+    """A host copy of one leaf that nothing else aliases (a ``DTensor``
+    gathered to its full tensor first)."""
+    if hasattr(leaf, "full_tensor"):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.array(leaf)
@@ -123,10 +133,12 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------
     def save(self, step: int, tree: Any, extra: Optional[dict] = None,
-             asynchronous: bool = False):
-        """Checkpoint a tree of tensors, numpy arrays and numbers.  With
-        ``asynchronous=True`` the host snapshot is taken here and the
-        write runs on a worker thread (training continues)."""
+             asynchronous: bool = False, write: bool = True):
+        """Checkpoint a tree of tensors (``DTensor`` shards included),
+        numpy arrays and numbers.  With ``asynchronous=True`` the host
+        snapshot is taken here and the write runs on a worker thread
+        (training continues).  ``write=False``: only the snapshot (a
+        mesh rank other than the writer, taking part in the gather)."""
         if self._error:
             raise self._error
         if asynchronous:
@@ -134,6 +146,8 @@ class CheckpointManager:
         t0 = time.perf_counter()
         flat = {k: _host_copy(v) for k, v in _walk(tree)}
         self.stats["snapshot_s"].append(time.perf_counter() - t0)
+        if not write:
+            return
         if not asynchronous:
             self._write(step, flat, extra or {})
             return
@@ -174,19 +188,25 @@ class CheckpointManager:
         return sum(os.path.getsize(os.path.join(path, n))
                    for n in os.listdir(path))
 
-    def restore(self, step: int, target: Any, device=None) -> Any:
+    def restore(self, step: int, target: Any, device=None,
+                shardings=None) -> Any:
         """Restore into the structure of ``target``, whose leaves give the
         paths and shapes (tensors, meta-device tensors included, or numpy
         arrays).  Raises ``KeyError`` for a leaf the checkpoint lacks and
         ``ValueError`` for a shape that differs.  A tensor target leaf
         becomes a tensor on ``device`` (default: that leaf's device), any
-        other one a numpy array; the checkpoint's dtype is kept."""
+        other one a numpy array; the checkpoint's dtype is kept.
+        ``shardings``: a tree of ``target``'s structure whose leaves
+        (``sharding.NamedSharding``) place each tensor leaf as a
+        ``DTensor`` holding this rank's shard of the full array."""
         t0 = time.perf_counter()
         path = os.path.join(self.dir, f"step_{step}", "arrays.npz")
+        places = ([s for _, s in _walk(shardings)] if shardings is not None
+                  else None)
         out = []
         with np.load(path) as z:
             stored = set(z.files)
-            for key, tleaf in _walk(target):
+            for i, (key, tleaf) in enumerate(_walk(target)):
                 if key not in stored:
                     raise KeyError(f"checkpoint missing leaf {key!r}")
                 arr = z[key]
@@ -197,6 +217,8 @@ class CheckpointManager:
                 if isinstance(tleaf, torch.Tensor):
                     arr = torch.from_numpy(arr).to(
                         device if device is not None else tleaf.device)
+                    if places is not None:
+                        arr = places[i].place(arr)
                 out.append(arr)
         self.stats["restore_s"].append(time.perf_counter() - t0)
         return _rebuild(target, iter(out))

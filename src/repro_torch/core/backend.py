@@ -40,7 +40,12 @@ GEMMs (Eq. 6).  Backends:
 
 SR bits are ``prng.bits(key, shape)`` drawn on the operand's device, the
 same draw the unfused quantizers make for that key, so the fused and
-unfused paths and the reference give bit-identical codes.
+unfused paths and the reference give bit-identical codes.  Inside a
+data-parallel step (``sharding/data.py``) the bits of a batch-spanning
+operand start at the rank's global flat index and the per-tensor ranges
+are the whole batch's
+(``tensor_min_max``), so each rank quantizes its rows as the flat step
+does.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from typing import Union
 import torch
 
 from .. import prng
+from ..sharding import data
 from ..kernels.fused_fqt import (fused_qboth_tn_matmul, fused_qlhs_matmul,
                                  fused_qlhs_packed_matmul)
 from ..kernels.pack import PackedTensor
@@ -274,21 +280,34 @@ def qt_gemm_nt(aq: Union[QTensor, BHQTensor],
 # Unfused backward quantizers (the quantize_sr kernels -> canonical QTensor)
 # ---------------------------------------------------------------------------
 
+def _sr_bits(key, g2: torch.Tensor) -> torch.Tensor:
+    """The SR bits of ``g2``: ``prng.bits`` over its shape, from the
+    rank's global flat index when ``g2`` spans the batch in a data group
+    (``sharding.data``)."""
+    return prng.bits(key, g2.shape, g2.device, data.sr_offset(g2.numel()))
+
+
 def quantize_sr_rows_qt(x2d: torch.Tensor, key, bits: int) -> QTensor:
     """PSQ stochastic quantize through the ``quantize_sr_rows`` kernel.
 
     Bit-identical to ``quantize_psq_stoch(x2d, key, bits)``: both draw the
     SR uniforms as ``prng.bits(key, shape) * 2^-32``."""
-    rbits = prng.bits(key, x2d.shape, x2d.device)
+    rbits = _sr_bits(key, x2d)
     c8, scale, zero = quantize_sr_rows(x2d.contiguous(), rbits, bits)
     return QTensor.from_int8(c8, scale, zero, bits, x2d.shape)
 
 
 def quantize_sr_tensor_qt(x2d: torch.Tensor, key, bits: int) -> QTensor:
     """PTQ stochastic quantize through the ``quantize_sr_tensor`` kernel;
-    bit-identical to ``quantize_ptq_stoch(x2d, key, bits)``."""
-    rbits = prng.bits(key, x2d.shape, x2d.device)
-    c8, scale, zero = quantize_sr_tensor(x2d.contiguous(), rbits, bits)
+    bit-identical to ``quantize_ptq_stoch(x2d, key, bits)``.  Inside a
+    data group the kernel takes the group's range (``lo_hi``) instead of
+    reducing its own."""
+    rbits = _sr_bits(key, x2d)
+    lo_hi = None
+    if data.current() is not None:
+        lo_hi = torch.stack(tensor_min_max(x2d))
+    c8, scale, zero = quantize_sr_tensor(x2d.contiguous(), rbits, bits,
+                                         lo_hi)
     return QTensor.from_int8(c8, scale, zero, bits, x2d.shape)
 
 
@@ -361,7 +380,7 @@ def fused_fqt_dx(g2: torch.Tensor, key, spec, wq: QTensor, *, backend: str,
     B = float((1 << bits) - 1)
     M, N = g2.shape
     if rbits is None:
-        rbits = prng.bits(key, g2.shape, g2.device)
+        rbits = _sr_bits(key, g2)
     if spec.name == "psq":
         zg = torch.amin(g2, dim=-1, keepdim=True)
         sg = range_scale(B, torch.amax(g2, dim=-1, keepdim=True) - zg)
@@ -408,7 +427,7 @@ def fused_fqt_dw(x2: torch.Tensor, scale_x, zero_x, bits_act: int,
     _check_backend(backend, "the fused weight grad")
     bits_wgrad = int(bits_wgrad)
     if rbits is None:
-        rbits = prng.bits(key, g2.shape, g2.device)
+        rbits = _sr_bits(key, g2)
     ops = dw_operands(x2.contiguous(), scale_x, zero_x, bits_act,
                       g2.contiguous(), rbits, bits_wgrad)
     return fused_qboth_tn_matmul(*ops, bits_a=bits_act, bits_b=bits_wgrad)

@@ -32,6 +32,7 @@ import math
 import torch
 
 from .. import prng
+from ..sharding import data
 from .quantizers import num_bins, row_dynamic_range, sr_uniform
 
 __all__ = ["BHQTensor", "quantize_bhq_stoch", "bhq_variance_bound",
@@ -275,13 +276,17 @@ def quantize_bhq_stoch(x: torch.Tensor, key: torch.Tensor, bits: int = 8,
                        block_rows: int = 1024,
                        g_search: str = "refined") -> BHQTensor:
     """BHQ over row blocks. x: (..., D) -> rows = prod(leading dims).
-    Block ``b`` rounds with ``split(key, n_blocks)[b]``'s SR bits."""
-    gb, valid, _ = _blocked_rows(x, block_rows)
+    Block ``b`` rounds with ``split(key, n_blocks)[b]``'s SR bits.  For a
+    batch-spanning ``x`` in a data group (``sharding.data``), ``b`` and
+    ``n_blocks`` are the global block index and the batch's block count;
+    each rank's rows must be whole blocks."""
+    gb, valid, n = _blocked_rows(x, block_rows)
+    nb, blk, d = gb.shape
+    first, total = data.bhq_blocks(n, block_rows, nb)
     y, zero, rs, nv, cf, seg, perm = _bhq_transform(gb, valid, bits,
                                                     g_search)
-    nb, blk, d = gb.shape
     u = torch.stack([sr_uniform(k, (blk, d), x.device)
-                     for k in prng.split(key, nb)])
+                     for k in prng.split(key, total)[first:first + nb]])
     codes = torch.clamp(torch.floor((y - zero) + u), 0.0,
                         float(num_bins(bits))).to(torch.uint8)
     return BHQTensor(codes=codes, zero=zero, row_scale=rs, n_vec=nv,

@@ -46,6 +46,7 @@ import torch
 
 from .. import prng
 from ..kernels.pack import PackedTensor
+from ..sharding import data
 from .backend import (fused_fqt_dw, fused_fqt_dx, fused_fqt_fwd, qt_gemm,
                       qt_gemm_nt, qt_gemm_tn, requantize_det)
 from .exempt import key_scope, quant_scope
@@ -112,7 +113,14 @@ def _fqt_fwd(cfg: GemmQuantConfig, path: str, x: torch.Tensor,
 
 
 def _fqt_bwd(cfg: GemmQuantConfig, path: str, res, key, g: torch.Tensor):
-    """(dx, dw) of the backward GEMMs."""
+    """(dx, dw) of the backward GEMMs.  dY's rows are the batch's, so its
+    quantizers run as on a batch-spanning operand (``sharding.data``)."""
+    with data.batch_operand():
+        return _fqt_bwd_grads(cfg, path, res, key, g)
+
+
+def _fqt_bwd_grads(cfg: GemmQuantConfig, path: str, res, key,
+                   g: torch.Tensor):
     xres, wq, lead = res
     dtype = g.dtype                  # cotangent dtype == stream dtype
     g2 = g.reshape(-1, g.shape[-1]).to(torch.float32)

@@ -36,7 +36,8 @@ from .registry import (BACKENDS, EXACT_NAME, ROLES, GemmQuantConfig,
 __all__ = ["QuantPolicy", "RoleOverride", "BACKENDS", "EXACT", "QAT",
            "FQT8_BHQ", "overrides_to_json", "overrides_from_json"]
 
-_BIT_FIELDS = ("act_bits", "weight_bits", "wgrad_bits", "grad_bits")
+_BIT_FIELDS = ("act_bits", "weight_bits", "wgrad_bits", "grad_bits",
+               "dp_grad_bits")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,6 +151,9 @@ class QuantPolicy:
     overrides: tuple = ()          # ((path_regex, RoleOverride), ...) in order
     backend: str = "simulate"      # "simulate" | "native" | "kernel"
     fused: Optional[bool] = None   # fused kernels: None => auto (kernel on)
+    # beyond-paper: the bits of the int8 compressed data-parallel gradient
+    # exchange (core/compression.py; the step's compress_axis turns it on)
+    dp_grad_bits: int = 8
 
     def __post_init__(self):
         get_quantizer(self.grad_quantizer)   # ValueError if unregistered

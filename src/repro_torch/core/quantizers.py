@@ -8,7 +8,10 @@ Port of ``repro.core.quantizers``: the per-tensor deterministic quantizer
 
 Stochastic rounding draws its uniforms as ``prng.bits(key, shape) *
 2^-32``, the JAX package's one SR convention, so for the same key the port
-and the reference emit bit-identical codes.
+and the reference emit bit-identical codes.  Inside a data-parallel step
+(``sharding/data.py``) per-tensor ranges are the whole batch's and the SR
+bits of a batch-spanning operand are drawn at the rank's global flat
+indices, so a mesh step quantizes as the flat step does.
 
 Codes are unsigned in ``[0, 2^b - 1]`` (uint8); the GEMM kernels consume
 them shifted to signed int8, ``c8 = code - 2^(b-1)``, and
@@ -22,6 +25,7 @@ import dataclasses
 import torch
 
 from .. import prng
+from ..sharding import data
 
 __all__ = ["QTensor", "num_bins", "range_scale", "tensor_min_max",
            "dynamic_range", "row_dynamic_range",
@@ -87,9 +91,11 @@ class QTensor:
 
 
 def tensor_min_max(x: torch.Tensor):
-    """(min X, max X) over the whole tensor, as 0-d tensors."""
+    """(min X, max X) over the whole tensor, as 0-d tensors; inside a
+    step's data group, over the group's whole batch (every per-tensor
+    range of the port is taken here)."""
     lo, hi = torch.aminmax(x)
-    return lo, hi
+    return data.global_min_max(lo, hi)
 
 
 def quantize_ptq_det(x: torch.Tensor, bits: int = 8) -> QTensor:
@@ -119,16 +125,21 @@ def row_dynamic_range(x2d: torch.Tensor) -> torch.Tensor:
     return torch.amax(x2d, dim=-1) - torch.amin(x2d, dim=-1)
 
 
-def sr_uniform(key: torch.Tensor, shape, device=None) -> torch.Tensor:
+def sr_uniform(key: torch.Tensor, shape, device=None,
+               offset: int = 0) -> torch.Tensor:
     """U[0,1) uniforms for SR, float32, derived as ``bits * 2^-32``
-    (the integer-to-float conversion rounds to nearest, as XLA's)."""
-    return prng.bits(key, shape, device).to(torch.float32) * \
+    (the integer-to-float conversion rounds to nearest, as XLA's), drawn
+    at flat indices from ``offset``."""
+    return prng.bits(key, shape, device, offset).to(torch.float32) * \
         (1.0 / 4294967296.0)
 
 
 def stochastic_round(x: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
-    """SR(x) = floor(x + u), u ~ U[0,1): unbiased (paper Sec. 3.3)."""
-    return torch.floor(x + sr_uniform(key, x.shape, x.device))
+    """SR(x) = floor(x + u), u ~ U[0,1): unbiased (paper Sec. 3.3).  For
+    a batch-spanning ``x`` in a data group (``sharding.data``) the bits
+    are the rank's slice of the whole batch's draw."""
+    u = sr_uniform(key, x.shape, x.device, data.sr_offset(x.numel()))
+    return torch.floor(x + u)
 
 
 def quantize_ptq_stoch(x: torch.Tensor, key: torch.Tensor,

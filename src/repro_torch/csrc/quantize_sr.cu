@@ -52,7 +52,12 @@
 //     partial (lo, hi) to a workspace, the grid meets at a grid-wide
 //     barrier (cooperative_groups grid sync: the launch is refused, not
 //     hung, if the grid cannot be co-resident), and every block reduces
-//     all partials itself; block 0 writes the 0-d scale and zero.
+//     all partials itself; block 0 writes the 0-d scale and zero.  Given a
+//     range (lo, hi) in device memory, as a data-parallel step gives the
+//     range of the whole batch (repro_torch/sharding/data.py), the blocks
+//     skip the partials and the grid-wide barrier and use it: the Pallas
+//     original takes its range from outside too.  Given the tensor's own
+//     range, the codes, scale and zero are those of the in-kernel range.
 
 #include <cooperative_groups.h>
 
@@ -464,14 +469,17 @@ quantize_sr_rows_reg_kernel(const float* __restrict__ x,
 }
 
 // tensor: one cooperative grid, a chunk a block; REST: a chunk does not fit
-// its stage
+// its stage.  `given` (lo, hi), when not null, is the range to use: the
+// partials and the grid-wide barrier are skipped (every block takes the
+// branch alike).
 template <bool REST>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 quantize_sr_tensor_kernel(const float* __restrict__ x,
                           const long long* __restrict__ rbits,
                           int8_t* __restrict__ codes,
                           float* __restrict__ scale, float* __restrict__ zero,
-                          float2* __restrict__ part, long long n,
+                          float2* __restrict__ part,
+                          const float2* __restrict__ given, long long n,
                           long long chunk, long long stage_elems, float nbins,
                           float off) {
   extern __shared__ __align__(128) float stage[];
@@ -481,15 +489,20 @@ quantize_sr_tensor_kernel(const float* __restrict__ x,
                                 gridDim.x, stage_elems, stage);
   Quad pf[DEPTH];
   float2 m = first_pass<REST>(pt, stage, &bar, pf, s_warp);
-  if (threadIdx.x == 0) part[blockIdx.x] = m;
-  cg::this_grid().sync();
-  float2 t = make_float2(INFINITY, -INFINITY);
-  for (int i = threadIdx.x; i < static_cast<int>(gridDim.x); i += THREADS) {
-    const float2 p = __ldcg(part + i);
-    t.x = fminf(t.x, p.x);
-    t.y = fmaxf(t.y, p.y);
+  if (given != nullptr) {
+    m = __ldg(given);
+  } else {
+    if (threadIdx.x == 0) part[blockIdx.x] = m;
+    cg::this_grid().sync();
+    float2 t = make_float2(INFINITY, -INFINITY);
+    for (int i = threadIdx.x; i < static_cast<int>(gridDim.x);
+         i += THREADS) {
+      const float2 p = __ldcg(part + i);
+      t.x = fminf(t.x, p.x);
+      t.y = fmaxf(t.y, p.y);
+    }
+    m = block_minmax(t, s_warp);  // s_warp's first use ended at the sync
   }
-  m = block_minmax(t, s_warp);   // s_warp's first use ended at the grid sync
   const float s = __fdiv_rn(nbins, fmaxf(__fsub_rn(m.y, m.x), EPS));
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     *scale = s;
@@ -694,17 +707,20 @@ extern "C" int quantize_sr_rows(const float* x, const long long* rbits,
 }
 
 // x: n f32; rbits: n int64; codes: n int8; scale, zero: one f32 each;
-// part: 2 * grid f32 of workspace.  The plan (tensor_plan): `grid` blocks,
-// all co-resident (or the launch is refused), on chunks of `chunk`
-// elements (a multiple of 4, grid * chunk >= n), `stage` of each staged.
+// part: 2 * grid f32 of workspace; range: null (the kernel reduces the
+// tensor's range) or (lo, hi), 2 f32 8-byte aligned, the range to use.
+// The plan (tensor_plan): `grid` blocks, all co-resident (or the launch is
+// refused), on chunks of `chunk` elements (a multiple of 4, grid * chunk >=
+// n), `stage` of each staged.
 extern "C" int quantize_sr_tensor(const float* x, const long long* rbits,
                                   int8_t* codes, float* scale, float* zero,
-                                  float* part, long long n, int bits,
-                                  int grid, long long chunk, long long stage,
-                                  int smem, void* stream) {
+                                  float* part, const float* range,
+                                  long long n, int bits, int grid,
+                                  long long chunk, long long stage, int smem,
+                                  void* stream) {
   if (n == 0) return 0;
   if (grid < 1 || chunk < 4 || chunk % 4 != 0 || grid * chunk < n ||
-      bad_stage(stage, smem))
+      bad_stage(stage, smem) || (reinterpret_cast<uintptr_t>(range) & 7))
     return static_cast<int>(cudaErrorInvalidValue);
   const int err = prepare();
   if (err) return err;
@@ -721,14 +737,15 @@ extern "C" int quantize_sr_tensor(const float* x, const long long* rbits,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   float2* p = reinterpret_cast<float2*>(part);
+  const float2* g = reinterpret_cast<const float2*>(range);
   const cudaError_t e =
       stage < chunk + 4
           ? cudaLaunchKernelEx(&cfg, quantize_sr_tensor_kernel<true>, x,
-                               rbits, codes, scale, zero, p, n, chunk, stage,
-                               nbins, off)
+                               rbits, codes, scale, zero, p, g, n, chunk,
+                               stage, nbins, off)
           : cudaLaunchKernelEx(&cfg, quantize_sr_tensor_kernel<false>, x,
-                               rbits, codes, scale, zero, p, n, chunk, stage,
-                               nbins, off);
+                               rbits, codes, scale, zero, p, g, n, chunk,
+                               stage, nbins, off);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

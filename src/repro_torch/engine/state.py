@@ -14,6 +14,10 @@ Checkpoints hold the dict form (``as_dict``) in the reference's dtypes
 each package restores what the other wrote.  (The reference's restore
 checks shapes, not dtypes: the key's int64 words would load there as
 another key.)
+
+On a mesh, ``state_shardings`` gives each leaf its sharding from the
+plan's parameter rules, and :func:`place_state` stores the parameters and
+moments as ``DTensor``, each rank holding its shard.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ import torch
 
 from .. import prng
 
-__all__ = ["TrainState", "init_train_state", "abstract_train_state"]
+__all__ = ["TrainState", "init_train_state", "abstract_train_state",
+           "state_specs", "state_shardings", "place_state"]
 
 
 @dataclasses.dataclass
@@ -90,3 +95,39 @@ def abstract_train_state(model, opt, seed: int = 0) -> TrainState:
     """The state's skeleton on the meta device (no allocation, no draw):
     the restore target of a checkpoint."""
     return init_train_state(model, opt, seed, device="meta")
+
+
+def state_specs(plan, abstract_state: TrainState) -> TrainState:
+    """Spec tree for a TrainState.  Optimizer moments mirror the param
+    tree path for path, so the plan's substring rules apply verbatim;
+    ``step``, ``rng`` (and AdamW's ``t``) are replicated, ``()``."""
+    return TrainState(params=plan.param_specs(abstract_state.params),
+                      opt_state=plan.param_specs(abstract_state.opt_state),
+                      step=(), rng=())
+
+
+def state_shardings(plan, abstract_state: TrainState) -> TrainState:
+    """:class:`~repro_torch.sharding.NamedSharding` tree for a TrainState
+    (placement and checkpoint restore)."""
+    specs = state_specs(plan, abstract_state)
+    return TrainState(params=plan.shardings(specs.params),
+                      opt_state=plan.shardings(specs.opt_state),
+                      step=plan.shardings(()), rng=plan.shardings(()))
+
+
+def _place(tree, shardings):
+    if isinstance(tree, dict):
+        return {k: _place(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return shardings.place(tree)
+    return tree
+
+
+def place_state(state: TrainState, shardings: TrainState) -> TrainState:
+    """``state`` with its parameters and moments as ``DTensor`` shards per
+    ``shardings`` (every rank holds the full state to start from: the same
+    seed, or the same checkpoint); ``step``, ``rng`` and ``t`` stay host
+    values."""
+    return TrainState(params=_place(state.params, shardings.params),
+                      opt_state=_place(state.opt_state, shardings.opt_state),
+                      step=state.step, rng=state.rng)

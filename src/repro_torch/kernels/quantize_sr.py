@@ -12,10 +12,13 @@ same arithmetic in PyTorch — on the CPU.  With ``B = 2^b - 1``:
 
 ``quantize_sr_rows`` takes ``lo``/``hi`` per row (PSQ), ``quantize_sr_tensor``
 over the whole tensor (PTQ); both kernels reduce the range themselves, in
-one launch.  SR bits are uint32 values held in int64, as ``prng.bits``
-draws them; the kernels read each entry's low 32 bits.  The kernels round
-every operation explicitly, so codes, scales and zeros are bit-identical
-to the plain versions.
+one launch.  ``quantize_sr_tensor`` also takes the range as an operand
+(``lo_hi``, two float32 on the tensor's device): a data-parallel step
+gives it the range of the whole batch (``sharding/data.py``), as the
+Pallas original takes its range from outside.  SR bits are uint32 values
+held in int64, as ``prng.bits`` draws them; the kernels read each
+entry's low 32 bits.  The kernels round every operation explicitly, so
+codes, scales and zeros are bit-identical to the plain versions.
 
 The launch plans are pure functions of the shape and of the card's
 numbers (:class:`Card`), so the CPU tests check them: :func:`rows_plan`
@@ -50,9 +53,9 @@ _U32_TO_UNIT = 1.0 / 4294967296.0
 # stream
 _ROWS_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (
     ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p)
-# x, rbits, codes, scale, zero, part, n, bits, grid, chunk, stage, smem,
-# stream
-_TENSOR_ARGTYPES = (ctypes.c_void_p,) * 6 + (
+# x, rbits, codes, scale, zero, part, range, n, bits, grid, chunk, stage,
+# smem, stream
+_TENSOR_ARGTYPES = (ctypes.c_void_p,) * 7 + (
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
     ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p)
 
@@ -259,13 +262,24 @@ def quantize_sr_rows_plain(x: torch.Tensor, rbits: torch.Tensor,
 
 
 def quantize_sr_tensor_plain(x: torch.Tensor, rbits: torch.Tensor,
-                             bits: int = 8):
+                             bits: int = 8, lo_hi=None):
     """Plain PyTorch version of :func:`quantize_sr_tensor`."""
     check_bits("quantize_sr_tensor_plain", bits)
     _check_2d(x, rbits, "quantize_sr_tensor_plain")
-    lo, hi = torch.aminmax(x)
+    if lo_hi is None:
+        lo, hi = torch.aminmax(x)
+    else:
+        _check_range(lo_hi, x, "quantize_sr_tensor_plain")
+        lo, hi = lo_hi[0], lo_hi[1]
     scale = _range_scale(bits, hi - lo)
     return _sr_codes(x, rbits, scale, lo, bits), scale, lo
+
+
+def _check_range(lo_hi, x, who: str):
+    if (not isinstance(lo_hi, torch.Tensor) or tuple(lo_hi.shape) != (2,)
+            or lo_hi.dtype != torch.float32 or lo_hi.device != x.device):
+        raise ValueError(f"{who}: lo_hi must be a float32 (lo, hi) pair on "
+                         f"{x.device}, got {lo_hi!r}")
 
 
 def _operands(name, x, rbits):
@@ -297,18 +311,23 @@ def _rows_launch(x, rbits, bits: int, plan: RowsPlan):
     return codes, scale, zero
 
 
-def _tensor_launch(x, rbits, bits: int, plan: TensorPlan):
+def _tensor_launch(x, rbits, bits: int, plan: TensorPlan, lo_hi=None):
     """One launch of the C entry ``quantize_sr_tensor`` under ``plan``
     (uncounted, as :func:`_rows_launch`); the blocks' partial ranges go
-    through a workspace of ``2 * plan.grid`` floats."""
+    through a workspace of ``2 * plan.grid`` floats, unless ``lo_hi``
+    gives the range."""
     M, N = x.shape
     codes = _operands("quantize_sr_tensor", x, rbits)
+    if lo_hi is not None:
+        _check_range(lo_hi, x, "quantize_sr_tensor")
+        lo_hi = lo_hi.contiguous()
     scale = torch.empty((), dtype=torch.float32, device=x.device)
     zero = torch.empty((), dtype=torch.float32, device=x.device)
     part = torch.empty(2 * plan.grid, dtype=torch.float32, device=x.device)
     fn = load_function("quantize_sr", "quantize_sr_tensor", _TENSOR_ARGTYPES)
     err = fn(x.data_ptr(), rbits.data_ptr(), codes.data_ptr(),
-             scale.data_ptr(), zero.data_ptr(), part.data_ptr(), M * N, bits,
+             scale.data_ptr(), zero.data_ptr(), part.data_ptr(),
+             None if lo_hi is None else lo_hi.data_ptr(), M * N, bits,
              plan.grid, plan.chunk, plan.stage, plan.smem,
              torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on("quantize_sr_tensor", err, M, N, plan)
@@ -333,20 +352,23 @@ def quantize_sr_rows(x: torch.Tensor, rbits: torch.Tensor, bits: int = 8):
     return out
 
 
-def quantize_sr_tensor(x: torch.Tensor, rbits: torch.Tensor, bits: int = 8):
+def quantize_sr_tensor(x: torch.Tensor, rbits: torch.Tensor, bits: int = 8,
+                       lo_hi=None):
     """Per-tensor (PTQ) stochastic quantize.  x: (M, N) f32; rbits: (M, N)
     uint32 values in int64.  Returns ``(codes (M, N) int8, scale (),
-    zero ())``.
+    zero ())``.  ``lo_hi``: the range to quantize over, a float32 ``(lo,
+    hi)`` pair on x's device; by default x's own.
 
     On a CUDA tensor this launches the kernel once, range and codes in one
     cooperative grid planned by :func:`tensor_plan` (counted in
-    ``quantize_sr_tensor.launches``); on a CPU tensor it runs the plain
-    version."""
+    ``quantize_sr_tensor.launches``); given ``lo_hi`` the grid skips its
+    range reduction.  On a CPU tensor it runs the plain version."""
     check_bits("quantize_sr_tensor", bits)
     M, N = _check_2d(x, rbits, "quantize_sr_tensor")
     if x.device.type == "cpu":
-        return quantize_sr_tensor_plain(x, rbits, bits)
-    out = _tensor_launch(x, rbits, bits, tensor_plan(M * N, on_card()))
+        return quantize_sr_tensor_plain(x, rbits, bits, lo_hi)
+    out = _tensor_launch(x, rbits, bits, tensor_plan(M * N, on_card()),
+                         lo_hi)
     quantize_sr_tensor.launches += 1
     return out
 

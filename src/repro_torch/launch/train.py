@@ -13,8 +13,12 @@ codes) or ``kernel`` (the reference's ``pallas``).  ``--ckpt-dir`` saves
 the whole training state every 100 steps and resumes from the latest
 checkpoint there (either package's); SIGTERM checkpoints and stops.
 ``--override-file`` reads a precision plan (``overrides_to_json``'s
-format) before any ``--override``.  ``--mesh`` belongs to a later slice
-and raises ``NotImplementedError``.
+format) before any ``--override``.  ``--mesh DATAxMODEL`` trains on a
+``(data, model)`` mesh of that many ranks, one process a rank, under
+``torchrun``: NCCL on the cards, gloo with ``--device cpu``::
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 \\
+        -m repro_torch.launch.train --device cpu --mesh 2x2 --steps 3
 
 ``train_loop`` is the reference's compatibility wrapper over
 ``Engine(...).run()``.
@@ -30,7 +34,7 @@ from ..engine import Engine
 from ..models import model_quant_paths
 from ..runtime import PreemptionHandler
 
-__all__ = ["train_loop", "main", "parse_override"]
+__all__ = ["train_loop", "main", "parse_override", "parse_mesh"]
 
 
 def train_loop(cfg, policy: QuantPolicy, *, steps: int, batch_size: int,
@@ -78,6 +82,18 @@ def parse_override(text: str):
     return pattern, value
 
 
+def parse_mesh(text: str):
+    """``--mesh DATAxMODEL`` (e.g. ``2x2``) -> (data, model)."""
+    try:
+        data, model = (int(v) for v in text.lower().split("x"))
+        if data < 1 or model < 1:
+            raise ValueError
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"{text!r}: expected DATAxMODEL, e.g. 2x2") from None
+    return data, model
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="FQT training driver")
     ap.add_argument("--arch", default="statquant-tx")
@@ -101,7 +117,9 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="training device (default: cuda)")
     ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
-                    help="sharded training: not ported yet (raises)")
+                    type=parse_mesh,
+                    help="sharded training on a (data, model) mesh: one "
+                         "process a rank (torchrun), DATA*MODEL ranks")
     ap.add_argument("--accum", type=int, default=1,
                     help="gradient-accumulation microbatches per step")
     ap.add_argument("--ckpt-dir", default=None,
@@ -118,9 +136,6 @@ def main(argv=None):
                          "any --override, so CLI entries win")
     args = ap.parse_args(argv)
 
-    if args.mesh is not None:
-        raise NotImplementedError("--mesh: sharded training comes with the "
-                                  "distribution slice of the port")
     file_overrides = ()
     if args.override_file:
         import json
@@ -150,11 +165,23 @@ def main(argv=None):
         for path, desc in policy.spec_table(model_quant_paths(cfg)):
             print(f"  {path:32s} {desc}")
 
+    mesh, device = None, args.device
+    if args.mesh is not None:
+        import torch.distributed as dist
+
+        from .mesh import init_distributed, make_test_mesh
+        data, model = args.mesh
+        device = init_distributed(args.device)
+        if data * model != dist.get_world_size():
+            ap.error(f"--mesh {data}x{model} needs {data * model} ranks, "
+                     f"the process group has {dist.get_world_size()}")
+        mesh = make_test_mesh(data, model, device=device)
+
     prm = PreemptionHandler(install=True)
     eng = Engine(cfg, policy, steps=args.steps, batch_size=args.batch,
                  seq_len=args.seq, lr=args.lr, opt_name=args.opt,
                  accum_steps=args.accum, ckpt_dir=args.ckpt_dir,
-                 preemption=prm, device=args.device)
+                 preemption=prm, device=device, mesh=mesh)
     return eng.run()
 
 

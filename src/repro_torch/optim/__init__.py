@@ -25,7 +25,8 @@ import numpy as np
 import torch
 
 __all__ = ["Optimizer", "sgd", "adamw", "cosine_schedule",
-           "clip_by_global_norm", "global_norm", "tree_map", "tree_leaves"]
+           "clip_by_global_norm", "global_norm", "tree_map", "tree_leaves",
+           "tree_unflatten"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +48,18 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     return [tree]
+
+
+def tree_unflatten(tree, leaves):
+    """``leaves`` (in :func:`tree_leaves` order) back into ``tree``'s
+    shape."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+    return build(tree)
 
 
 def global_norm(tree) -> torch.Tensor:

@@ -13,7 +13,9 @@ Partitionable mode, which this module implements:
   * ``split(key, n)[i]``  = threefry(key, (0, i))
   * ``fold_in(key, d)``   = threefry(key, (0, d mod 2^32))
   * ``bits(key, shape)``  = ``b1 ^ b2`` of threefry(key, (hi, lo)) over the
-    row-major flat index split into its high and low 32-bit words.
+    row-major flat index split into its high and low 32-bit words; with
+    ``offset`` the indices start there, so a shard's bits are its slice
+    of the whole tensor's draw (what a data-parallel rank draws).
 
 uint32 words are held in int64 so that sums and shifts never leave the
 supported integer types; every step masks back to 32 bits.
@@ -113,16 +115,20 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([y1, y2], dim=-1)
 
 
-def bits(key: torch.Tensor, shape: Sequence[int],
-         device=None) -> torch.Tensor:
+def bits(key: torch.Tensor, shape: Sequence[int], device=None,
+         offset: int = 0) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` as int64 values in
     [0, 2^32).  A key of shape (..., 2) gives (..., *shape).  ``device``
     (default: the key's) is where the bits are drawn; a single key on
-    another device enters as two Python integers."""
+    another device enters as two Python integers.  ``offset`` draws the
+    flat indices ``offset + arange(prod(shape))``: bit-identical to the
+    slice ``[offset, offset + n)`` of a larger draw under the same key."""
     shape = tuple(int(s) for s in shape)
     device = key.device if device is None else torch.device(device)
     n = math.prod(shape)
     idx = torch.arange(n, dtype=torch.int64, device=device)
+    if offset:
+        idx = idx + int(offset)
     lead = key.shape[:-1]
     if key.device != device and not lead:
         k1, k2 = (int(v) for v in key.tolist())

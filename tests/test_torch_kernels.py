@@ -220,7 +220,7 @@ def test_gradients_and_backward_quantizers_now_work():
         assert q.dequant().shape == w.shape
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(monkeypatch):
     from repro_torch import prng
     from repro_torch.core import get_quantizer, QuantizerSpec
     from repro_torch.launch.train import main
@@ -244,7 +244,10 @@ def test_unported_paths_raise():
                                        fused=False))
         y.sum().backward()
         assert bool(torch.isfinite(xr.grad).all())
-    # checkpoints are ported (tests/test_torch_checkpoint.py); meshes not
-    with pytest.raises(NotImplementedError, match="slice of the port"):
+    # checkpoints (tests/test_torch_checkpoint.py) and meshes
+    # (tests/test_torch_dist_*.py) are ported; a mesh needs a process group
+    for k in ("MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(ValueError, match="init_method"):
         main(["--device", "cpu", "--steps", "1", "--mesh", "2x2"])
     assert QuantPolicy.fqt("bhq", 5).resolve("x").agrad.name == "bhq"

@@ -173,11 +173,15 @@ def test_accumulation_and_override_run_on_cpu(capsys):
 
 def test_unported_training_options_raise(monkeypatch):
     # --ckpt-dir and --override-file are ported
-    # (tests/test_torch_checkpoint.py, tests/test_torch_policy_surface.py)
-    with pytest.raises(NotImplementedError, match="slice of the port"):
+    # (tests/test_torch_checkpoint.py, tests/test_torch_policy_surface.py);
+    # --mesh and compress_axis are (tests/test_torch_dist_*.py) but need a
+    # process group and a mesh
+    for k in ("MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(ValueError, match="init_method"):
         main(["--device", "cpu", "--steps", "1", "--mesh", "2x2"])
     cfg = get_config("statquant-tx", smoke=True)
-    with pytest.raises(NotImplementedError, match="distribution slice"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         make_step_fn(build_model(cfg), QuantPolicy.fqt(), None, None,
                      compress_axis="data")
     # the audio family is ported (tests/test_torch_encdec.py): its batch
