@@ -11,8 +11,8 @@ profiles granite's decode step (dense, paged, from packed weights) and
 the unfused training step for the package of each checkout TREE, one
 process each, in the order given (``step_wall_trees``).  The third
 builds the kernels and runs only the named phases (``ONLY_PHASES``: vlm,
-hybrid, rwkv, audio, moe_serve, moe_train, dist), to iterate on them; it
-prints no result line.
+hybrid, rwkv, audio, moe_serve, moe_train, dist, dryrun), to iterate on
+them; it prints no result line.
 
 From the root of a checkout, on a machine with one CUDA card and the CUDA
 toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
@@ -270,13 +270,27 @@ toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
      (1, 1) mesh on the card; statquant-tx at full width trains on the
      mesh engine (every per-tensor range all-reduced, parameters and
      moments as ``DTensor`` shards) against the flat engine from the same
-     seed: 3 steps each under ``fqt(psq,8)`` and ``fqt(bhq,5)`` and 2
-     unfused ``fqt(ptq,8)`` steps, losses, grad norms, parameters and
-     moments after each step bit-identical, launch counts exact; 2 steps
+     seed: 3 steps each under ``fqt(psq,8)`` and ``fqt(bhq,5)``, 2
+     unfused ``fqt(ptq,8)`` steps and 2 ``fqt(psq,8)`` steps with
+     ``loss_chunks=4``, losses, grad norms, parameters and moments after
+     each step bit-identical, launch counts exact; 2 steps
      with ``compress_axis="data"``, 2 ``quantize_sr_rows`` a gradient leaf,
      the exchange bit-identical with the plain quantize; ``quantize_sr_tensor``
      given a range; ``quantize_sr_rows`` timed at the exchange's shapes;
      one mesh step profiled beside the flat step's wall.
+ 19. ``[dryrun]`` (``dryrun_phase``): the dry run (``launch/dryrun.py``)
+     of statquant-tx's training step (the smoke's 8 x 64 tokens, AdamW,
+     ``fqt(psq,8)`` and ``fqt(bhq,5)``, ``remat`` off and on) beside the
+     step on the card: GEMM FLOPs equal, exactly (the kernels' launches
+     recorded, and the attention's ``bmm``); the peak bytes above the
+     resident ones beside ``max_memory_allocated``'s; the roofline bound
+     beside the busy time.
+     The remat step bit-identical to the stored one, launches exact (each
+     layer's forward GEMMs but its last twice), peak lower.
+     granite-3-2b at full width and 4 layers: a bfloat16 prefill and 4
+     decode steps on a bfloat16 cache bit-identical to the plain replay.
+     One production cell through the CLI (granite-3-2b ``decode_32k`` on
+     the 16x16 mesh of a fake process group of 256 ranks).
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -436,6 +450,8 @@ def main(argv=None) -> int:
     errs["quantize_sr_rows"] = max(errs["quantize_sr_rows"],
                                    dist["max_abs_err"])
     dist = dist["launches"]
+    dry = phase(dryrun_phase, seed, report)["launches"]
+    dist = {k: dist.get(k, 0) + dry.get(k, 0) for k in set(dist) | set(dry)}
     timings = phase(time_kernels, report)
     serve["profile_decode_step"] = _profile_decode(torch, granite_engine,
                                                    share=KV_SHARE)
@@ -458,6 +474,7 @@ def main(argv=None) -> int:
     # the MoE phases' launches join each kernel's (serving: dense, paged and
     # 4-bit engines; training: both policies), the VLM, hybrid, RWKV6
     # and audio phases' (serving and training), and [dist]'s mesh steps
+    # with [dryrun]'s steps and granite's bf16 prefill and decode
     kernels = [
         entry("fused_qlhs_matmul", "fused_qlhs_matmul",
               csrc + "fused_qlhs_fwd.cu", "src/repro/kernels/fused_fqt.py:93",
@@ -3810,7 +3827,8 @@ FAMILY_SHARE = "qlhs"
 ONLY_PHASES = {"vlm": "vlm_phase", "hybrid": "hybrid_phase",
                "rwkv": "rwkv_phase", "audio": "audio_phase",
                "moe_serve": "serve_moe",
-               "moe_train": "train_moe", "dist": "dist_phase"}
+               "moe_train": "train_moe", "dist": "dist_phase",
+               "dryrun": "dryrun_phase"}
 
 
 def family_config(arch, layers=None):
@@ -4160,6 +4178,8 @@ DIST_STEPS = 3
 DIST_UNFUSED_STEPS = 2
 DIST_WALL_PAIRS = 6
 DIST_COMPRESS_STEPS = 2
+DIST_CHUNKS = 4
+DIST_CHUNK_STEPS = 2
 # the compressed exchange's quantize shapes: at one rank each leaf is one
 # row (lm_head's 512 x 10,240 and a 512 x 512 projection); at 4 ranks
 # lm_head's phase-1 matrix is (4, size / 4)
@@ -4229,13 +4249,14 @@ def _dist_engine(cfg, quant, bits, seed, steps, mesh=None, **kw):
 
 
 def _mesh_vs_flat(torch, cfg, quant, bits, seed, steps, mesh, want, tag,
-                  fused=None):
+                  fused=None, **kw):
     """``steps`` steps of the mesh engine (launches counted) and of the
-    flat engine: losses, grad norms, parameters and moments after each step
-    bit-identical."""
+    flat engine (both with the engine options ``kw``): losses, grad
+    norms, parameters and moments after each step bit-identical."""
     t_all = time.perf_counter()
-    meshed = _dist_engine(cfg, quant, bits, seed, steps, mesh, fused=fused)
-    flat = _dist_engine(cfg, quant, bits, seed, steps, fused=fused)
+    meshed = _dist_engine(cfg, quant, bits, seed, steps, mesh, fused=fused,
+                          **kw)
+    flat = _dist_engine(cfg, quant, bits, seed, steps, fused=fused, **kw)
     built = time.perf_counter() - t_all
     _reset_counts()
     torch.cuda.synchronize()
@@ -4344,6 +4365,18 @@ def dist_phase(torch, seed, report) -> dict:
             torch, cfg, "ptq", 8, seed, DIST_UNFUSED_STEPS, mesh, want,
             "dist ptq8 unfused", fused=False)
         for k, v in res["ptq_unfused"]["launches"].items():
+            total[k] = total.get(k, 0) + v
+        # the head loss in DIST_CHUNKS chunks of the global rows: at one
+        # rank each chunk is its own, its head GEMM a GEMM of its own
+        h = n + DIST_CHUNKS - 1
+        want = {"fused_qlhs_matmul": h * DIST_CHUNK_STEPS,
+                "fused_qboth_tn_matmul": h * DIST_CHUNK_STEPS,
+                "fused_qlhs_matmul_dx": h * DIST_CHUNK_STEPS}
+        _, _, res["psq8_chunks"] = _mesh_vs_flat(
+            torch, cfg, "psq", 8, seed, DIST_CHUNK_STEPS, mesh, want,
+            f"dist psq8 loss_chunks={DIST_CHUNKS}",
+            loss_kwargs={"loss_chunks": DIST_CHUNKS})
+        for k, v in res["psq8_chunks"]["launches"].items():
             total[k] = total.get(k, 0) + v
 
         # the compressed exchange: every call recorded, then replayed with
@@ -4464,6 +4497,297 @@ def dist_phase(torch, seed, report) -> dict:
     res.update(timings=rows, launches=total)
     report["dist"] = res
     return res
+
+
+# ---------------------------------------------------------------------------
+# the dry run
+# ---------------------------------------------------------------------------
+
+DRYRUN_BATCH, DRYRUN_SEQ = 8, 64       # the smoke's training shape
+DRYRUN_GRANITE_LAYERS = 4
+DRYRUN_PROMPT = (4, 64)                # granite's bf16 prefill (B, T)
+DRYRUN_DECODE_STEPS = 4
+
+
+def _gemm_flops_spied(flops: list):
+    """A context in which ``core/backend.py``'s GEMM kernels add each
+    launch's ``2 M N K`` to ``flops[0]``: the forward and dX
+    (``fused_qlhs_matmul``), dW (``fused_qboth_tn_matmul``, contracting
+    over its storage rows) and ``q8_matmul``."""
+    import repro_torch.core.backend as backend
+    qlhs, qboth, q8 = (backend.fused_qlhs_matmul,
+                       backend.fused_qboth_tn_matmul, backend.q8_matmul)
+
+    def fwd(xf, *a, **kw):
+        y8 = a[3]
+        n = y8.shape[0] if kw.get("trans_b") else y8.shape[1]
+        flops[0] += 2 * xf.shape[0] * xf.shape[1] * n
+        return qlhs(xf, *a, **kw)
+
+    def tn(af, *a, **kw):
+        flops[0] += 2 * af.shape[0] * af.shape[1] * a[2].shape[1]
+        return qboth(af, *a, **kw)
+
+    def mm(x8, y8, *a, **kw):
+        flops[0] += 2 * x8.shape[0] * x8.shape[1] * y8.shape[1]
+        return q8(x8, y8, *a, **kw)
+    return _in_contexts([_swapped("fused_qlhs_matmul", fwd),
+                         _swapped("fused_qboth_tn_matmul", tn),
+                         _swapped("q8_matmul", mm)])
+
+
+def _busy_ms(torch, fn):
+    """``fn()`` and the device's busy time in it: the sum of its kernels'
+    time in one ``torch.profiler`` run, read from the raw events (the sum
+    of ``_event_averages``' device rows, without building its tree)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, sum((e.end_ns() - e.start_ns()) / 1e6
+                    for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == DeviceType.CUDA
+                    and not e.is_user_annotation()
+                    and not e.is_hidden_event()
+                    and e.name() not in _UNLISTED_EVENTS)
+
+
+def _dryrun_train(torch, seed, quant, bits, remat):
+    """One statquant-tx step (full width and depth, the smoke's 8 x 64
+    tokens, AdamW, float32 activations) under ``fqt(quant, bits)`` on the
+    ``kernel`` backend: its dry run on the meta device, and the step on
+    the card from the engine's initial state, its launches counted, its
+    GEMM FLOPs (the kernels' launches and the attention's ``bmm``), peak
+    memory and busy time (one profile) measured.  Returns (record, measured, the parameters and
+    moments after it and its loss and grad norm, on the host)."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.engine import Engine
+    from repro_torch.launch import dryrun
+    from repro_torch.optim import tree_leaves
+    cfg = family_config("statquant-tx")
+    pol = _train_policy(quant, bits, "kernel")
+    eng = Engine(cfg, pol, steps=1, batch_size=DRYRUN_BATCH,
+                 seq_len=DRYRUN_SEQ, seed=seed, device="cuda", remat=remat,
+                 log_every=100, log_fn=None)
+    shape = ShapeSpec("smoke_train", DRYRUN_SEQ, DRYRUN_BATCH, "train")
+    rec = dryrun.run_cell("statquant-tx", shape.name, shape=shape, mesh=None,
+                          policy=pol, remat=remat, loss_chunks=1,
+                          opt=eng.opt, dtype=torch.float32, verbose=False)
+    state, batch = eng.init_state(), eng.loader.get(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    flops, counter = [0], dryrun.Counter(gemms_only=True)
+
+    def step():
+        with _gemm_flops_spied(flops), counter:
+            return eng.step_fn(state, batch)
+    _reset_counts()
+    (state, mets), busy = _busy_ms(torch, step)
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    measured = dict(gemm_flops=flops[0] + counter.gemm_flops,
+                    kernel_gemm_flops=flops[0],
+                    aten_gemm_flops=counter.gemm_flops,
+                    peak_bytes=peak, resident_bytes=base, busy_ms=busy,
+                    launches=counts)
+    # the state and metrics to the host, so the next run meets the card
+    # as empty as this one did
+    after = [t.cpu() for t in tree_leaves(state.params)
+             + tree_leaves(state.opt_state) if isinstance(t, torch.Tensor)]
+    mets = {k: mets[k].cpu() for k in ("loss", "grad_norm")}
+    del eng, state, batch, counter
+    torch.cuda.empty_cache()
+    return rec, measured, after, mets
+
+
+def dryrun_phase(torch, seed, report) -> dict:
+    """[dryrun]: the port's dry run (``launch/dryrun.py``) beside the card.
+
+    statquant-tx at the smoke's training shape under ``fqt(psq,8)`` and
+    ``fqt(bhq,5)``, ``remat`` off and on: the dry run's GEMM FLOPs equal
+    to the step's on the card (its GEMM kernels' launches, recorded, and
+    the attention's ``bmm``s), exactly; its peak of live bytes above the
+    resident state beside ``torch.cuda.max_memory_allocated`` of the step
+    above what was allocated when it began (the ratio printed);
+    its roofline bound (``launch/roofline.py``: the H100's int8 peak, and
+    its HBM rate over the least bytes a step moves) beside the step's
+    busy time on the card (the share printed).  The remat step against the stored one: loss, grad norm and
+    every parameter and moment bit-identical, its launches exact (each
+    layer's forward GEMMs but its last run again) and its peak lower.
+    granite-3-2b at full width and 4 layers: a bfloat16 prefill and 4
+    decode steps on a bfloat16 cache through the int8 forward, logits and
+    cache bit-identical to the plain replay.  One production cell through
+    the CLI (granite-3-2b ``decode_32k``, the 16x16 mesh on a fake
+    process group of 256 ranks), its record read back."""
+    cfg = family_config("statquant-tx")
+    n, L = _gemms_per_forward(cfg), cfg.n_layers
+    mlp = 3 if cfg.act == "swiglu" else 2
+    res, total = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    for quant, bits in (("psq", 8), ("bhq", 5)):
+        runs = {}
+        for remat in (False, True):
+            tag = f"dryrun {quant}{bits} remat {'on' if remat else 'off'}"
+            t0 = time.perf_counter()
+            rec, got, state, mets = _dryrun_train(torch, seed, quant, bits,
+                                                  remat)
+            pd = rec["per_device"]
+            # the backward reads each layer's last GEMM's input, not its
+            # output: the recomputation stops before it
+            fwd = n + (L * (4 + mlp - 1) if remat else 0)
+            want = {"fused_qlhs_matmul": fwd, "fused_qboth_tn_matmul": n,
+                    ("fused_qlhs_matmul_dx" if quant == "psq"
+                     else "q8_matmul"): n}
+            _check_counts(got["launches"], want, tag)
+            add(got["launches"])
+            bound_ms = rec["roofline"]["step_time_lb_s"] * 1e3
+            # what the step adds above what was resident when it began
+            # (on the card, also the engines earlier phases keep)
+            dry_step = pd["peak_bytes"] - pd["resident_bytes"]
+            got["step_bytes"] = got["peak_bytes"] - got["resident_bytes"]
+            log(f"[{tag}] GEMM FLOPs: dry run {pd['flops']}, the step on "
+                f"the card {got['gemm_flops']} (kernels "
+                f"{got['kernel_gemm_flops']}, aten {got['aten_gemm_flops']}"
+                f"); peak bytes above the resident ones: dry run {dry_step} "
+                f"(peak {pd['peak_bytes']}, resident "
+                f"{pd['resident_bytes']}), the card {got['step_bytes']} "
+                f"(max_memory_allocated {got['peak_bytes']}, allocated "
+                f"before the step {got['resident_bytes']}), ratio "
+                f"{dry_step / got['step_bytes']:.3f}; roofline bound "
+                f"{bound_ms:.4f} ms ({rec['roofline']['bottleneck']}; "
+                f"compute {rec['roofline']['compute_s'] * 1e3:.4f} ms, "
+                f"least bytes {pd['bytes_min']} "
+                f"{rec['roofline']['memory_s'] * 1e3:.4f} ms; outside the "
+                f"bound, the unfused bytes {pd['bytes_accessed']} "
+                f"{rec['roofline']['memory_s_unfused'] * 1e3:.4f} ms) "
+                f"beside the "
+                f"step's busy time {got['busy_ms']:.3f} ms: "
+                f"{bound_ms / got['busy_ms']:.4f} of it; launches "
+                f"{got['launches']}; dry run {rec['wall_s']:.2f}s "
+                f"(in all {time.perf_counter() - t0:.2f}s)")
+            check(pd["flops"] == got["gemm_flops"],
+                  f"{tag}: the dry run counts {pd['flops']} GEMM FLOPs, the "
+                  f"card ran {got['gemm_flops']}")
+            runs[remat] = (got, state, mets)
+            res[f"{quant}{bits}_remat_{'on' if remat else 'off'}"] = dict(
+                record=rec, card=got, bound_ms=bound_ms,
+                bound_share=bound_ms / got["busy_ms"],
+                step_bytes_ratio=dry_step / got["step_bytes"])
+        (g0, s0, m0), (g1, s1, m1) = runs[False], runs[True]
+        same = (torch.equal(m0["loss"], m1["loss"])
+                and torch.equal(m0["grad_norm"], m1["grad_norm"]))
+        leaves = list(zip(s0, s1))
+        differ = sum(not torch.equal(a, b) for a, b in leaves)
+        log(f"[dryrun {quant}{bits}] remat vs stored: loss and grad norm "
+            f"bit-identical {same}, {len(leaves) - differ} of {len(leaves)} "
+            f"parameter and moment leaves bit-identical; peak above the "
+            f"resident bytes {g1['step_bytes']} against {g0['step_bytes']}")
+        check(same and not differ, f"dryrun {quant}{bits}: the remat step "
+                                   f"differs from the stored step")
+        check(g1["step_bytes"] < g0["step_bytes"],
+              f"dryrun {quant}{bits}: the remat step's peak above the "
+              f"resident bytes, {g1['step_bytes']}, is not below the stored "
+              f"step's {g0['step_bytes']}")
+        del runs
+    res["granite_bf16"] = _dryrun_granite_bf16(torch, seed, add)
+    res["cli"] = _dryrun_cli(torch)
+    torch.cuda.empty_cache()
+    res["launches"] = total
+    report["dryrun"] = res
+    return res
+
+
+def _dryrun_granite_bf16(torch, seed, add) -> dict:
+    """granite-3-2b, full width, DRYRUN_GRANITE_LAYERS layers: a bfloat16
+    prefill (max_seq = T + DRYRUN_DECODE_STEPS) and DRYRUN_DECODE_STEPS
+    decode steps on its bfloat16 cache under ``qat`` on the ``kernel``
+    backend (launches counted), then the same with the int8 forward
+    swapped for its plain version: logits and the cache bit-identical."""
+    from repro_torch.core import QuantPolicy
+    from repro_torch.kernels import fused_qlhs_matmul_plain
+    from repro_torch.models import build_model
+    cfg = family_config("granite-3-2b", DRYRUN_GRANITE_LAYERS)
+    model = build_model(cfg)
+    params = model.init(seed, device="cuda")
+    pol = QuantPolicy.qat(backend="kernel")
+    B, T = DRYRUN_PROMPT
+    gen = torch.Generator(device="cuda").manual_seed(seed + 25)
+    toks = torch.randint(0, cfg.vocab_size, (B, T + DRYRUN_DECODE_STEPS),
+                         generator=gen, device="cuda")
+
+    def run():
+        logits, cache = model.prefill(params, {"tokens": toks[:, :T]}, pol,
+                                      max_seq=T + DRYRUN_DECODE_STEPS,
+                                      dtype=torch.bfloat16)
+        out = [logits]
+        for s in range(DRYRUN_DECODE_STEPS):
+            logits, cache = model.decode(
+                params, cache, {"tokens": toks[:, T + s:T + s + 1]}, pol)
+            out.append(logits)
+        return out, cache
+    t0 = time.perf_counter()
+    _reset_counts()
+    logits, cache = run()
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    n = _gemms_per_forward(cfg)
+    _check_counts(counts, {"fused_qlhs_matmul":
+                           n * (1 + DRYRUN_DECODE_STEPS)}, "dryrun granite")
+    add(counts)
+    with _swapped("fused_qlhs_matmul", fused_qlhs_matmul_plain):
+        plain, plain_cache = run()
+    same = all(torch.equal(a, b) for a, b in zip(logits, plain))
+    same_cache = all(torch.equal(cache["kv"][s], plain_cache["kv"][s])
+                     for s in ("k", "v"))
+    dtypes = sorted({str(x.dtype) for x in logits}
+                    | {str(cache["kv"][s].dtype) for s in ("k", "v")})
+    log(f"[dryrun granite bf16] {DRYRUN_GRANITE_LAYERS} layers, prompts "
+        f"{DRYRUN_PROMPT}, {DRYRUN_DECODE_STEPS} decode steps on a bfloat16 "
+        f"cache: logits and cache dtypes {dtypes}; launches {counts}; "
+        f"logits and cache bit-identical to the plain replay {same} / "
+        f"{same_cache} ({time.perf_counter() - t0:.2f}s)")
+    check(dtypes == ["torch.bfloat16"], f"dryrun granite: dtypes {dtypes}")
+    check(same and same_cache, "dryrun granite: the bf16 prefill and decode "
+                               "differ from their plain replay")
+    check(all(bool(torch.isfinite(x.float()).all()) for x in logits),
+          "dryrun granite: non-finite logits")
+    return dict(launches=counts, dtypes=dtypes)
+
+
+def _dryrun_cli(torch) -> dict:
+    """``python -m repro_torch.launch.dryrun --arch granite-3-2b --shape
+    decode_32k --mesh single`` (in this process), its record read back;
+    the fake process group it starts is ended after."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    out = ROOT / "build" / "dryrun"
+    t0 = time.perf_counter()
+    try:
+        dryrun.main(["--arch", "granite-3-2b", "--shape", "decode_32k",
+                     "--mesh", "single", "--out", str(out)])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    wall = time.perf_counter() - t0
+    rec = json.loads((out / "granite-3-2b__decode_32k__single.json")
+                     .read_text())
+    pd = rec["per_device"]
+    log(f"[dryrun cli] granite-3-2b decode_32k on {rec['mesh']} "
+        f"({rec['n_chips']} ranks): n_params {rec['n_params']}, per rank "
+        f"GEMM FLOPs {pd['flops']}, bytes {pd['bytes_accessed']}, "
+        f"collectives {pd['collective_counts']} {pd['collective_bytes']} "
+        f"bytes, params {pd['param_bytes']} and cache {pd['state_bytes']} "
+        f"bytes resident, peak {pd['peak_bytes']} (fits 80 GB "
+        f"{pd['fits_80gb']}); roofline {rec['roofline']}; {wall:.2f}s")
+    check(rec["n_chips"] == 256 and pd["flops"] > 0
+          and pd["collective_bytes"] > 0, "dryrun cli: the record")
+    return dict(record=rec, wall_s=wall)
 
 
 # ---------------------------------------------------------------------------
@@ -5023,7 +5347,9 @@ def step_wall(torch, seed) -> dict:
     from packed weights with the KV reads' and the packed forward's shares
     (``decode_profiles``), the training step's wall (statquant-tx full
     width, 8 x 64 tokens, median of 10 steps after 2, no profiler) under
-    the four policies the smoke run profiles, and one unfused step under
+    the four policies the smoke run profiles and of granite-moe-1b-a400m
+    (full width, ``MOE_TRAIN_LAYERS`` layers) under ``fqt(psq,8)``, and
+    one unfused step under
     ``fqt(psq,8)`` and ``fqt(ptq,8)`` profiled (busy, device kernels, the
     SR quantizers' share).  It uses only wrapper signatures and engine
     options that older checkouts of the package share, so two compare in
@@ -5068,12 +5394,14 @@ def step_wall(torch, seed) -> dict:
     sr_us, sr_kernels = sr_times(torch, gen, flush)
     decode = decode_profiles(torch, seed)
     cfg = get_config("statquant-tx")
+    moe = family_config(MOE_ARCH, MOE_TRAIN_LAYERS)
     walls = {}
-    for tag, quant, bits, fused in (("psq8", "psq", 8, None),
-                                    ("bhq5", "bhq", 5, None),
-                                    ("psq8 unfused", "psq", 8, False),
-                                    ("ptq8 unfused", "ptq", 8, False)):
-        step = _one_step(_train_engine(cfg, quant, bits, "kernel", seed,
+    for tag, quant, bits, fused, c in (
+            ("psq8", "psq", 8, None, cfg), ("bhq5", "bhq", 5, None, cfg),
+            ("psq8 unfused", "psq", 8, False, cfg),
+            ("ptq8 unfused", "ptq", 8, False, cfg),
+            ("MoE psq8", "psq", 8, None, moe)):
+        step = _one_step(_train_engine(c, quant, bits, "kernel", seed,
                                        fused=fused))
         ms = []
         for i in range(12):

@@ -339,16 +339,18 @@ def requantize_det(x2: torch.Tensor, scale, zero, bits: int) -> QTensor:
 
 
 def fused_fqt_fwd(x2: torch.Tensor, wq: Union[QTensor, PackedTensor],
-                  bits_act: int, *, backend: str):
+                  bits_act: int, *, backend: str, zero_scale=None):
     """Forward Eq. 3 ``Q_f(x2) @ W-hat`` with Q_f fused into the GEMM; a
     :class:`PackedTensor` weight stays packed (``fused_qlhs_packed_matmul``,
-    ``u`` from its stored column sums).
+    ``u`` from its stored column sums).  ``zero_scale``: ``x2``'s range
+    as :func:`_ptq_range` gives it, when already taken.
 
     Returns (y, scale_x, zero_x) — the scale/zero are the residuals the
     backward rematerializes the activation codes from."""
     _check_backend(backend, "the fused forward")
     M, K = x2.shape
-    zero, scale = _ptq_range(x2, bits_act)
+    zero, scale = (_ptq_range(x2, bits_act) if zero_scale is None
+                   else zero_scale)
     sa = scale.reshape(1, 1).expand(M, 1).contiguous()
     za = zero.reshape(1, 1).expand(M, 1).contiguous()
     if isinstance(wq, PackedTensor):

@@ -31,7 +31,7 @@ import math
 
 import torch
 
-from .. import prng
+from .. import meta, prng
 from ..sharding import data
 from .quantizers import num_bins, row_dynamic_range, sr_uniform
 
@@ -272,6 +272,22 @@ def _blocked_rows(x: torch.Tensor, block_rows: int):
     return rows.reshape(nb, blk, x.shape[-1]), valid, n
 
 
+def _meta_block_uniforms(key, nb: int, blk: int, d: int, device):
+    """The ``(nb, blk, d)`` uniforms of :func:`quantize_bhq_stoch` on the
+    meta device, counted as its loop over blocks is (``meta.py``): one
+    block's draw scaled to ``nb``, the blocks held until stacked, the
+    stack's read and write.  The loop splits the key on the host, one
+    threefry a block of the whole batch, and has no values to draw."""
+    with meta.scaled(nb):
+        one = sr_uniform(key, (blk, d), device)
+    blocks = meta.hold(nb * one.numel() * one.element_size(), device)
+    u = meta.uncounted(torch.empty, (nb, blk, d), dtype=one.dtype,
+                       device=device)
+    meta.add_counts(2 * u.numel() * u.element_size())
+    del blocks
+    return u
+
+
 def quantize_bhq_stoch(x: torch.Tensor, key: torch.Tensor, bits: int = 8,
                        block_rows: int = 1024,
                        g_search: str = "refined") -> BHQTensor:
@@ -285,8 +301,11 @@ def quantize_bhq_stoch(x: torch.Tensor, key: torch.Tensor, bits: int = 8,
     first, total = data.bhq_blocks(n, block_rows, nb)
     y, zero, rs, nv, cf, seg, perm = _bhq_transform(gb, valid, bits,
                                                     g_search)
-    u = torch.stack([sr_uniform(k, (blk, d), x.device)
-                     for k in prng.split(key, total)[first:first + nb]])
+    if meta.is_meta(gb):
+        u = _meta_block_uniforms(key, nb, blk, d, x.device)
+    else:
+        u = torch.stack([sr_uniform(k, (blk, d), x.device)
+                         for k in prng.split(key, total)[first:first + nb]])
     codes = torch.clamp(torch.floor((y - zero) + u), 0.0,
                         float(num_bins(bits))).to(torch.uint8)
     return BHQTensor(codes=codes, zero=zero, row_scale=rs, n_vec=nv,

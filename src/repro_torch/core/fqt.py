@@ -40,20 +40,23 @@ profile and cost nothing outside one.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Union
 
 import torch
+import torch.utils._pytree as pytree
 
 from .. import prng
 from ..kernels.pack import PackedTensor
 from ..sharding import data
-from .backend import (fused_fqt_dw, fused_fqt_dx, fused_fqt_fwd, qt_gemm,
-                      qt_gemm_nt, qt_gemm_tn, requantize_det)
+from .backend import (_ptq_range, fused_fqt_dw, fused_fqt_dx, fused_fqt_fwd,
+                      qt_gemm, qt_gemm_nt, qt_gemm_tn, requantize_det)
 from .exempt import key_scope, quant_scope
 from .policy import QuantPolicy
+from .quantizers import QTensor
 from .registry import GemmQuantConfig, QuantizerSpec, get_quantizer
 
-__all__ = ["fqt_matmul"]
+__all__ = ["fqt_matmul", "recomputed"]
 
 
 def _fused_roles(cfg: GemmQuantConfig):
@@ -91,31 +94,41 @@ def _quantize_role(spec: QuantizerSpec, x2d: torch.Tensor, key,
     return q.quantize(x2d, key, spec, backend=cfg.backend)
 
 
-def _fqt_fwd(cfg: GemmQuantConfig, path: str, x: torch.Tensor,
-             w: torch.Tensor):
-    """(y, residuals) of the forward GEMM."""
+def _fqt_operands(cfg: GemmQuantConfig, x: torch.Tensor, w: torch.Tensor):
+    """The forward GEMM's quantized operands, its residuals: ``(xres, wq,
+    lead)``.  ``xres`` is the activation's ``QTensor``, or on the fused
+    forward ``(x2, scale, zero)``: its range, the GEMM quantizing inside
+    (the backward rematerializes the codes deterministically)."""
     lead = x.shape[:-1]
     # quantizer math in fp32 regardless of activation dtype
     x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
-    with quant_scope(path, "fwd", True):
-        wq = _quantize_role(cfg.fwd_weight, w.to(torch.float32), None, cfg)
-        f_fwd, _, _ = _fused_roles(cfg)
-        if f_fwd:
-            # Q_f inside the GEMM: residuals (x2, scale, zero); the backward
-            # rematerializes the codes deterministically
-            y, sx, zx = fused_fqt_fwd(x2, wq, cfg.fwd_act.bits or 8,
-                                      backend=cfg.backend)
-            xres = (x2, sx, zx)
-        else:
-            xres = _quantize_role(cfg.fwd_act, x2, None, cfg)         # Q_f
-            y = qt_gemm(xres, wq, backend=cfg.backend)
-    return y.reshape(*lead, w.shape[-1]).to(x.dtype), (xres, wq, lead)
+    wq = _quantize_role(cfg.fwd_weight, w.to(torch.float32), None, cfg)
+    if _fused_roles(cfg)[0]:
+        zx, sx = _ptq_range(x2, cfg.fwd_act.bits or 8)
+        xres = (x2, sx, zx)
+    else:
+        xres = _quantize_role(cfg.fwd_act, x2, None, cfg)             # Q_f
+    return xres, wq, tuple(lead)
 
 
-def _fqt_bwd(cfg: GemmQuantConfig, path: str, res, key, g: torch.Tensor):
-    """(dx, dw) of the backward GEMMs.  dY's rows are the batch's, so its
-    quantizers run as on a batch-spanning operand (``sharding.data``)."""
-    with data.batch_operand():
+def _fqt_gemm(cfg: GemmQuantConfig, res, dtype, n: int) -> torch.Tensor:
+    """The forward GEMM ``Q_f(X) @ Q_theta(W)`` on the residuals."""
+    xres, wq, lead = res
+    if isinstance(xres, tuple):             # the fused forward's range
+        x2, sx, zx = xres
+        y, _, _ = fused_fqt_fwd(x2, wq, cfg.fwd_act.bits or 8,
+                                backend=cfg.backend, zero_scale=(zx, sx))
+    else:
+        y = qt_gemm(xres, wq, backend=cfg.backend)
+    return y.reshape(*lead, n).to(dtype)
+
+
+def _fqt_bwd(cfg: GemmQuantConfig, path: str, res, key, g: torch.Tensor,
+             group):
+    """(dx, dw) of the backward GEMMs, in the forward's data group
+    ``group``.  dY's rows are the batch's, so its quantizers run as on a
+    batch-spanning operand (``sharding.data``)."""
+    with data.batch_operand(group):
         return _fqt_bwd_grads(cfg, path, res, key, g)
 
 
@@ -172,19 +185,108 @@ def _fqt_bwd_grads(cfg: GemmQuantConfig, path: str, res, key,
 
 
 class _FQT(torch.autograd.Function):
-    """``x @ w`` quantized by ``cfg``: Eq. 3 forward, Eq. 6 backward."""
+    """``x @ w`` quantized by ``cfg``: Eq. 3 forward, Eq. 6 backward.  The
+    residuals are ``_fqt_operands``' (``res``), or computed here when
+    ``res`` is None and then kept on ``ctx``; given, they come back
+    through ``keep`` (an :class:`_FQTKeep` node's ``saved_tensors``).  The
+    data group of the forward (``sharding.data``) is the backward's too:
+    a loss chunk runs its head GEMM in a group of its own."""
 
     @staticmethod
-    def forward(ctx, x, w, key, cfg, path):
-        y, res = _fqt_fwd(cfg, path, x, w)
-        ctx.cfg, ctx.path, ctx.res, ctx.key = cfg, path, res, key
-        return y
+    def forward(ctx, x, w, res, keep, key, cfg, path):
+        if res is None:
+            res = ctx.res = _fqt_operands(cfg, x, w)
+        ctx.keep, ctx.key, ctx.cfg, ctx.path = keep, key, cfg, path
+        ctx.group = data.current()
+        return _fqt_gemm(cfg, res, x.dtype, w.shape[-1])
 
     @staticmethod
     def backward(ctx, g):
-        dx, dw = _fqt_bwd(ctx.cfg, ctx.path, ctx.res, ctx.key, g)
-        ctx.res = None                    # free the residuals now
-        return dx, dw, None, None, None
+        if ctx.keep is None:
+            res = ctx.res
+        else:
+            res = _FQTKeep.residuals(ctx.keep)
+        dx, dw = _fqt_bwd(ctx.cfg, ctx.path, res, ctx.key, g, ctx.group)
+        ctx.res = ctx.keep = None             # free the residuals now
+        return dx, dw, None, None, None, None, None
+
+
+class _FQTKeep(torch.autograd.Function):
+    """Saves a GEMM's residuals, through ``save_for_backward``, before
+    the GEMM runs; ``x`` and ``w`` pass through.  Inside
+    :func:`recomputed` (a layer under ``torch.utils.checkpoint``) the
+    checkpoint drops them after the forward and recomputes them for the
+    backward, and since they are saved before the GEMM, the recomputation
+    stops once it has them all: a layer's last GEMM, whose output no
+    backward reads, is not run again (as XLA leaves it out of the
+    reference's rematerialized forward)."""
+
+    @staticmethod
+    def forward(ctx, x, w, spec, consts, *tensors):
+        ctx.spec, ctx.consts = spec, consts
+        ctx.save_for_backward(*tensors)
+        return x.view_as(x), w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, gx, gw):
+        return (gx, gw) + (None,) * (len(ctx.needs_input_grad) - 2)
+
+    @staticmethod
+    def residuals(node):
+        """The residuals that ``node`` (this Function's backward node)
+        saved."""
+        tensors = iter(node.saved_tensors)
+        leaves = [next(tensors) if c is None else c for c in node.consts]
+        return pytree.tree_unflatten(leaves, node.spec)
+
+
+# the residuals' dataclasses as pytree nodes, for _FQTKeep to flatten
+for _cls in (QTensor, PackedTensor):
+    pytree.register_dataclass(_cls)
+
+_RECOMPUTED = 0      # depth of recomputed() regions
+
+
+@contextlib.contextmanager
+def recomputed():
+    """The block is recomputed in the backward (``models.lm.remat_call``):
+    its FQT GEMMs save their residuals in an :class:`_FQTKeep` node of
+    their own."""
+    global _RECOMPUTED
+    _RECOMPUTED += 1
+    try:
+        yield
+    finally:
+        _RECOMPUTED -= 1
+
+
+def _fqt(x, w, key, cfg: GemmQuantConfig, path: str) -> torch.Tensor:
+    """The FQT GEMM, differentiable when grad mode is on and an operand
+    needs a gradient."""
+    with quant_scope(path, "fwd", True):
+        if not (torch.is_grad_enabled()
+                and (x.requires_grad or w.requires_grad)):
+            return _fqt_gemm(cfg, _fqt_operands(cfg, x, w), x.dtype,
+                             w.shape[-1])
+        if not _RECOMPUTED:
+            return _FQT.apply(x, w, None, None, key, cfg, path)
+        with torch.no_grad():
+            res = _fqt_operands(cfg, x, w)
+        leaves, spec = pytree.tree_flatten(res)
+        consts = [None if isinstance(v, torch.Tensor) else v for v in leaves]
+        xk, wk = _FQTKeep.apply(x, w, spec, consts,
+                                *(v for v in leaves
+                                  if isinstance(v, torch.Tensor)))
+        return _FQT.apply(xk, wk, res, xk.grad_fn, key, cfg, path)
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype, as ``jnp.matmul`` promotes (a
+    bfloat16 stream against float32 weights gives float32)."""
+    if x.dtype == w.dtype:
+        return x @ w
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
 
 
 def fqt_matmul(x: torch.Tensor, w: torch.Tensor, key,
@@ -207,14 +309,14 @@ def fqt_matmul(x: torch.Tensor, w: torch.Tensor, key,
             # qfp marker: policy-declared full precision (its gradients run
             # outside the scope, in autograd's own backward)
             with quant_scope(path, "fwd", False):
-                return x @ w
+                return _matmul(x, w)
         cfg = policy.resolve(path)           # validated at resolution
     else:
         cfg = policy.validate()
     if not cfg.quantize_fwd:                 # layer pinned exact
         with quant_scope(path, "fwd", False):
-            return x @ w
-    return _FQT.apply(x, w, key, cfg, path)
+            return _matmul(x, w)
+    return _fqt(x, w, key, cfg, path)
 
 
 def _packed_fwd(x: torch.Tensor, pt: PackedTensor,

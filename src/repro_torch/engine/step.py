@@ -116,17 +116,13 @@ def make_step_fn(model, policy, opt, lr_fn, *, clip_norm: float = 1.0,
     kw = dict(loss_kwargs or {})
     group = None
     if mesh is not None and not replicated_batch:
-        group = DataGroup(*make_plan(mesh).data_group())
+        plan = make_plan(mesh)
+        group = DataGroup(*plan.data_group(), runs=plan.data_runs)
         if group.size > 1 and model.cfg.moe_experts:
             raise NotImplementedError(
                 f"{model.cfg.name}: MoE routing is token-global (capacity, "
                 f"positions, the load-balance loss); data parallelism over "
                 f"{group.size} ranks is not ported ({MESH_ITEM})")
-        if group.size > 1 and kw.get("loss_chunks", 1) > 1:
-            raise NotImplementedError(
-                f"loss_chunks={kw['loss_chunks']} chunks the global tokens; "
-                f"under {group.size} data ranks it is not ported "
-                f"({MESH_ITEM})")
 
     def loss_and_grads(params, batch, key, weight=None):
         with torch.enable_grad():

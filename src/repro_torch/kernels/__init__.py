@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels (``csrc/``) with their plain PyTorch versions.
 
 Each wrapper launches its kernel on a CUDA tensor and counts the launch in
-its ``launches`` attribute; on a CPU tensor it runs the plain version.
+its ``launches`` attribute; on a CPU tensor it runs the plain version,
+and on a meta tensor (the dry run, ``launch/dryrun.py``) too.
 """
 
 from .fused_fqt import (fused_qboth_tn_matmul, fused_qboth_tn_matmul_plain,

@@ -6,7 +6,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["check_bits", "check_tensor"]
+__all__ = ["as_float32", "check_bits", "check_tensor"]
 
 
 def check_bits(kernel: str, bits, lo: int = 2) -> int:
@@ -37,3 +37,9 @@ def check_tensor(kernel: str, name: str, t: torch.Tensor,
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def as_float32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32 (a bfloat16 operand converts exactly); a float32
+    one as it is."""
+    return t if t.dtype == torch.float32 else t.to(torch.float32)

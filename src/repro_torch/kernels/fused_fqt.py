@@ -50,7 +50,7 @@ import torch
 
 from . import splitk
 from .build import load_function
-from .checks import check_bits, check_tensor
+from .checks import as_float32, check_bits, check_tensor
 from .pack import codes_per_byte, max_safe_k_packed, unpack_tile
 
 __all__ = ["fused_qlhs_matmul", "fused_qlhs_matmul_plain", "qlhs_codes",
@@ -154,8 +154,9 @@ def fused_qlhs_matmul(xf: torch.Tensor, scale_a: torch.Tensor,
     mode, whatever the tile and split of K (``kernels/splitk.py``).  On a
     CPU tensor it runs the plain version."""
     check_bits("fused_qlhs_matmul", bits)
+    xf = as_float32(xf)
     N, K = _shape_nk(xf, y8, trans_b, "fused_qlhs_matmul")
-    if xf.device.type == "cpu":
+    if xf.device.type in ("cpu", "meta"):
         return fused_qlhs_matmul_plain(xf, scale_a, zero_a, rbits, y8,
                                        alpha_b, beta_b, u_vec, bits=bits,
                                        trans_b=trans_b)
@@ -253,8 +254,9 @@ def fused_qlhs_packed_matmul(xf: torch.Tensor, scale_a: torch.Tensor,
     tile and split of K (``kernels/splitk.py``).  On a CPU tensor it runs
     the plain version."""
     name = "fused_qlhs_packed_matmul"
+    xf = as_float32(xf)
     _check_qlhs_packed(name, xf, packed, bits, wbits)
-    if xf.device.type == "cpu":
+    if xf.device.type in ("cpu", "meta"):
         return fused_qlhs_packed_matmul_plain(xf, scale_a, zero_a, packed,
                                               alpha_b, beta_b, u_vec,
                                               bits=bits, wbits=wbits)
@@ -365,8 +367,9 @@ def fused_qboth_tn_matmul(af: torch.Tensor, scale_a, zero_a,
     version."""
     check_bits("fused_qboth_tn_matmul", bits_a)
     check_bits("fused_qboth_tn_matmul", bits_b)
+    af, bf = as_float32(af), as_float32(bf)
     K, M, N = _qboth_shapes(af, bf, "fused_qboth_tn_matmul")
-    if af.device.type == "cpu":
+    if af.device.type in ("cpu", "meta"):
         return fused_qboth_tn_matmul_plain(af, scale_a, zero_a, bf, scale_b,
                                            zero_b, rbits, a_vec,
                                            bits_a=bits_a, bits_b=bits_b)

@@ -90,7 +90,7 @@ def kv_dequant_rows(codes8: torch.Tensor, scale: torch.Tensor,
     name = "kv_dequant_rows"
     check_bits(name, bits)
     M, N = _rows(name, codes8)
-    if codes8.device.type == "cpu":
+    if codes8.device.type in ("cpu", "meta"):
         return kv_dequant_rows_plain(codes8, scale, zero, bits)
     _check_side(name, (codes8, scale, zero), "", M, N, codes8.device)
     out = _launch(name, [(codes8, scale, zero)], M, N, bits, clamp=0)
@@ -113,7 +113,7 @@ def kv_dequant_rows_kv(k, v, bits: int = 8):
     if tuple(v[0].shape) != (M, N):
         raise ValueError(f"{name}: K and V codes must have equal shapes, got "
                          f"{(M, N)} and {tuple(v[0].shape)}")
-    if k[0].device.type == "cpu":
+    if k[0].device.type in ("cpu", "meta"):
         return kv_dequant_rows_kv_plain(k, v, bits)
     dev = k[0].device
     _check_side(name, k, "k ", M, N, dev)

@@ -115,7 +115,7 @@ def kv_gather_pages(codes: torch.Tensor, scale: torch.Tensor,
     version."""
     check_bits("kv_gather_pages", bits)
     _shapes(codes, table, "kv_gather_pages")
-    if codes.device.type == "cpu":
+    if codes.device.type in ("cpu", "meta"):
         return kv_gather_pages_plain(codes, scale, zero, table, bits)
     out = _launch("kv_gather_pages", [(codes, scale, zero)], table, bits)
     kv_gather_pages.launches += 1
@@ -138,7 +138,7 @@ def kv_gather_pages_kv(k, v, table: torch.Tensor, bits: int = 8):
     if tuple(v[0].shape) != tuple(k[0].shape):
         raise ValueError(f"{name}: K and V pools must have equal shapes, got "
                          f"{tuple(k[0].shape)} and {tuple(v[0].shape)}")
-    if k[0].device.type == "cpu":
+    if k[0].device.type in ("cpu", "meta"):
         return kv_gather_pages_kv_plain(k, v, table, bits)
     out = _launch(name, [tuple(k), tuple(v)], table, bits)
     kv_gather_pages_kv.launches += 1

@@ -83,7 +83,7 @@ def packed_matmul(x8: torch.Tensor, packed: torch.Tensor, rs: torch.Tensor,
     split of K (``kernels/splitk.py``).  On a CPU tensor it runs the plain
     version."""
     _check_packed_gemm("packed_matmul", x8, packed, wbits, kdim)
-    if x8.device.type == "cpu":
+    if x8.device.type in ("cpu", "meta"):
         return packed_matmul_plain(x8, packed, rs, cs, r2, u, a, b,
                                    wbits=wbits, kdim=kdim)
     M, N = x8.shape[0], packed.shape[1]

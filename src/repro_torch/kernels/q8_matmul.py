@@ -71,7 +71,7 @@ def q8_matmul(x8: torch.Tensor, y8: torch.Tensor, rs: torch.Tensor,
     ``q8_matmul.launches``): one device launch, whatever the split of K
     (``kernels/splitk.py``).  On a CPU tensor it runs the plain version."""
     M, K, N = _shape_mkn(x8, y8, "q8_matmul")
-    if x8.device.type == "cpu":
+    if x8.device.type in ("cpu", "meta"):
         return q8_matmul_plain(x8, y8, rs, cs, r2, u, a, b)
     dev = x8.device
     name = "q8_matmul"

@@ -39,7 +39,7 @@ import functools
 import torch
 
 from .build import load_function
-from .checks import check_bits, check_tensor
+from .checks import as_float32, check_bits, check_tensor
 
 __all__ = ["Card", "H100", "RowsPlan", "TensorPlan", "on_card", "rows_plan",
            "stage_bytes", "tensor_plan", "quantize_sr_rows",
@@ -344,8 +344,9 @@ def quantize_sr_rows(x: torch.Tensor, rbits: torch.Tensor, bits: int = 8):
     :func:`rows_plan` (counted in ``quantize_sr_rows.launches``); on a CPU
     tensor it runs the plain version."""
     check_bits("quantize_sr_rows", bits)
+    x = as_float32(x)
     M, N = _check_2d(x, rbits, "quantize_sr_rows")
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return quantize_sr_rows_plain(x, rbits, bits)
     out = _rows_launch(x, rbits, bits, rows_plan(M, N, on_card()))
     quantize_sr_rows.launches += 1
@@ -364,8 +365,9 @@ def quantize_sr_tensor(x: torch.Tensor, rbits: torch.Tensor, bits: int = 8,
     ``quantize_sr_tensor.launches``); given ``lo_hi`` the grid skips its
     range reduction.  On a CPU tensor it runs the plain version."""
     check_bits("quantize_sr_tensor", bits)
+    x = as_float32(x)
     M, N = _check_2d(x, rbits, "quantize_sr_tensor")
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return quantize_sr_tensor_plain(x, rbits, bits, lo_hi)
     out = _tensor_launch(x, rbits, bits, tensor_plan(M * N, on_card()),
                          lo_hi)

@@ -141,12 +141,13 @@ def cross_attention_kv(p: dict, enc_out: torch.Tensor, key,
     return k, v
 
 
-def init_kv_cache(cfg: ArchConfig, batch: int, max_seq: int, lead=(),
-                  device=None) -> dict:
-    """fp32 KV cache: (*lead, batch, max_seq, n_kv*head_dim) per side."""
+def init_kv_cache(cfg: ArchConfig, batch: int, max_seq: int,
+                  dtype=torch.float32, lead=(), device=None) -> dict:
+    """Float KV cache in ``dtype``: (*lead, batch, max_seq,
+    n_kv*head_dim) per side."""
     shape = (*lead, batch, max_seq, cfg.n_kv_heads * cfg.hd)
-    return {"k": torch.zeros(shape, device=device),
-            "v": torch.zeros(shape, device=device)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def init_kv_cache_quant(cfg: ArchConfig, batch: int, max_seq: int,

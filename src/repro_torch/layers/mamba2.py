@@ -76,16 +76,18 @@ def init_mamba2_layer(gen: torch.Generator, cfg: ArchConfig,
     }
 
 
-def init_mamba2_state(cfg: ArchConfig, batch: int, lead=(),
-                      device=None) -> dict:
+def init_mamba2_state(cfg: ArchConfig, batch: int, dtype=torch.float32,
+                      lead=(), device=None) -> dict:
+    """Zero state: ``h`` in float32 (the SSM state accumulates there),
+    the conv tails in the stream ``dtype``."""
     d_inner, H = _dims(cfg)
     k = cfg.ssm_conv
     return {"h": torch.zeros((*lead, batch, H, cfg.ssm_headdim,
                               cfg.ssm_state), device=device),
             "conv_x": torch.zeros((*lead, batch, k - 1, d_inner),
-                                  device=device),
+                                  dtype=dtype, device=device),
             "conv_bc": torch.zeros((*lead, batch, k - 1, 2 * cfg.ssm_state),
-                                   device=device)}
+                                   dtype=dtype, device=device)}
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -180,7 +182,7 @@ def mamba2_layer(p, h, key, policy: QuantPolicy, cfg: ArchConfig,
     x = rmsnorm(p["norm"], h)
     z, xs, bc, dt_raw = _project(p, x, key, policy, tag, path)
     if state is None:
-        state = init_mamba2_state(cfg, B, device=h.device)
+        state = init_mamba2_state(cfg, B, h.dtype, device=h.device)
     xs, conv_x_tail = _causal_conv(p["conv_x_w"], p["conv_x_b"], xs,
                                    state["conv_x"])
     bc, conv_bc_tail = _causal_conv(p["conv_bc_w"], p["conv_bc_b"], bc,

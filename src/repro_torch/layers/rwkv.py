@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import meta
 from ..configs.base import ArchConfig
 from ..core import QuantPolicy
 from ..core.exempt import fp_exempt
@@ -71,12 +72,16 @@ def init_rwkv_layer(gen: torch.Generator, cfg: ArchConfig, lead=()) -> dict:
     }
 
 
-def init_rwkv_state(cfg: ArchConfig, batch: int, lead=(),
-                    device=None) -> dict:
+def init_rwkv_state(cfg: ArchConfig, batch: int, dtype=torch.float32,
+                    lead=(), device=None) -> dict:
+    """Zero state: the WKV state ``s`` in float32 whatever the stream
+    dtype, the token-shift rows in ``dtype``."""
     d, hd = cfg.d_model, cfg.ssm_headdim
     return {"s": torch.zeros((*lead, batch, d // hd, hd, hd), device=device),
-            "x_tm": torch.zeros((*lead, batch, d), device=device),
-            "x_cm": torch.zeros((*lead, batch, d), device=device)}
+            "x_tm": torch.zeros((*lead, batch, d), dtype=dtype,
+                                device=device),
+            "x_cm": torch.zeros((*lead, batch, d), dtype=dtype,
+                                device=device)}
 
 
 def _head_groupnorm(p, y, H):
@@ -108,9 +113,18 @@ def _decay(p, xw):
     with fp_exempt("rwkv.decay",
                    "rank-64 data-dependent decay LoRA feeding exp(-exp(.)); "
                    "precision-critical and tiny next to the R/K/V/G/O GEMMs"):
+        # a bfloat16 stream promotes to the weights' float32, as in jnp
+        xw = xw.to(torch.promote_types(xw.dtype, p["dec_w1"].dtype))
         lora = torch.matmul(torch.tanh(torch.matmul(xw, p["dec_w1"])),
                             p["dec_w2"])
         return torch.exp(-torch.exp(p["w0"] + lora))
+
+
+def _wkv_step(r, k, v, w, u, s, t):
+    """Token ``t`` of the recurrence: (y_t (B, H, hd), S_t)."""
+    kv = torch.einsum("bhk,bhv->bhkv", k[:, t], v[:, t])
+    y = torch.einsum("bhk,bhkv->bhv", r[:, t], s + u[None, :, :, None] * kv)
+    return y, w[:, t, ..., None] * s + kv
 
 
 def _wkv_scan(r, k, v, w, u, s0):
@@ -118,18 +132,73 @@ def _wkv_scan(r, k, v, w, u, s0):
 
     r, k, v, w: (B, T, H, hd); u: (H, hd); s0: (B, H, hd, hd).
     y_t = r_t (S_{t-1} + diag(u) k_t^T v_t);  S_t = diag(w_t) S_{t-1} +
-    k_t^T v_t.  Returns (y (B, T, H, hd), final state)."""
-    s, ys = s0, []
+    k_t^T v_t.  Returns (y (B, T, H, hd), final state).  On the meta
+    device (the dry run) one step stands for all (:class:`_MetaWKV`)."""
     with fp_exempt("rwkv.wkv",
                    "WKV recurrence: elementwise/outer-product state math on "
                    "(hd x hd) blocks, no linear-layer GEMM (DESIGN.md Sec. 5 "
                    "arch-applicability)"):
+        if meta.is_meta(r):
+            return _MetaWKV.apply(r, k, v, w, u, s0)
+        s, ys = s0, []
         for t in range(r.shape[1]):
-            kv = torch.einsum("bhk,bhv->bhkv", k[:, t], v[:, t])
-            ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
-                                   s + u[None, :, :, None] * kv))
-            s = w[:, t, ..., None] * s + kv
-    return torch.stack(ys, dim=1), s
+            y, s = _wkv_step(r, k, v, w, u, s, t)
+            ys.append(y)
+        return torch.stack(ys, dim=1), s
+
+
+class _MetaWKV(torch.autograd.Function):
+    """:func:`_wkv_scan` on the meta device: the loop's result shapes,
+    with the loop's counts (``meta.py``) from one step scaled to its T
+    steps.  The forward holds the bytes the loop keeps for its backward;
+    the backward is one step's, scaled, then the T - 1 sums of each
+    input's per-step gradients the autograd engine makes."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        T = r.shape[1]
+        ins = [x.detach().requires_grad_() for x in (r, k, v, w, u, s0)]
+        inputs = {x.untyped_storage()._cdata for x in ins[:5]}
+        state = ins[5].untyped_storage()._cdata
+        kept, kept_state = [], []
+
+        def pack(x):
+            # what a step keeps beyond its inputs' storages; the state it
+            # keeps is the one before it (an input for the first step only)
+            key = x.untyped_storage()._cdata
+            if key not in inputs:
+                (kept_state if key == state else kept).append(
+                    x.untyped_storage().nbytes())
+            return x
+        with torch.enable_grad(), meta.scaled(T), \
+                torch.autograd.graph.saved_tensors_hooks(pack, lambda x: x):
+            y0, s1 = _wkv_step(*ins, 0)
+        B, _, H, hd = r.shape
+        ctx.step = (ins, (y0, s1))
+        ctx.held = meta.hold(T * sum(kept) + (T - 1) * sum(kept_state),
+                             r.device)
+        ys = meta.hold(T * y0.numel() * y0.element_size(), r.device)
+        y, s = meta.uncounted(lambda: (
+            torch.empty((B, T, H, hd), dtype=y0.dtype, device=r.device),
+            torch.empty_like(s1)))
+        del ys                                 # the per-token outputs
+        meta.add_counts(2 * y.numel() * y.element_size())    # the stack
+        return y, s
+
+    @staticmethod
+    def backward(ctx, gy, gs):
+        ins, outs = ctx.step
+        T = gy.shape[1]
+        with meta.scaled(T):
+            grads = torch.autograd.grad(outs, ins,
+                                        (gy[:, 0], gs), allow_unused=True)
+        meta.track(*grads)
+        for g in grads[:5]:
+            other = meta.uncounted(torch.empty_like, g)
+            with meta.scaled(T - 1):
+                g + other
+        ctx.step = ctx.held = None
+        return grads
 
 
 def _time_mix(p, x, x_prev, s0, key, policy, cfg, tag=0x30, path="rwkv"):

@@ -65,7 +65,7 @@ class Model:
     loss: Callable             # (params, batch, key, policy) -> (loss, metrics)
     prefill: Callable          # (params, batch, policy, max_seq) -> (logits, cache)
     decode: Callable           # (params, cache, batch, policy, [positions]) -> (logits, cache)
-    init_cache: Callable       # (cfg, batch, max_seq, device) -> cache
+    init_cache: Callable       # (cfg, batch, max_seq, dtype, device) -> cache
     # the int8 cache and paged serving (serve/paged.py), None for the
     # recurrent families, which keep no transformer KV cache in every layer:
     # (cfg, batch, max_seq, device) -> int8 cache
@@ -95,7 +95,7 @@ class Model:
         """Abstract inputs for one (arch x shape) cell, as meta-device
         tensors of the reference's shapes and dtypes: train -> kwargs for
         ``loss``; prefill -> kwargs for ``prefill``; decode -> kwargs for
-        ``decode`` (cache included; the port's caches are float32)."""
+        ``decode`` (the cache included, in ``dtype``)."""
         cfg = self.cfg
         B, T = shape.global_batch, shape.seq_len
 
@@ -118,9 +118,7 @@ class Model:
             return {"batch": {"labels": tok(B, T), **inputs(B, T)}}
         if shape.kind == "prefill":
             return {"batch": inputs(B, T)}
-        if dtype != torch.float32:
-            raise ValueError(f"the port's caches are float32, not {dtype}")
-        cache = self.init_cache(cfg, B, T, device="meta")
+        cache = self.init_cache(cfg, B, T, dtype, device="meta")
         batch = inputs(B, 1)
         # decode steps rotate by index; the encoder ran at prefill
         batch.pop("positions", None)

@@ -30,6 +30,7 @@ import torch
 from .. import prng
 from ..configs.base import ArchConfig
 from ..core import QuantPolicy
+from ..core.fqt import recomputed
 from ..layers import (apply_norm, attention, decode_attention, dense, embed,
                       init_attention, init_embedding, init_kv_cache,
                       init_kv_cache_quant, init_lm_head, init_mamba2_layer,
@@ -39,11 +40,13 @@ from ..layers import (apply_norm, attention, decode_attention, dense, embed,
                       moe_block, paged_decode_attention, paged_write_index,
                       rwkv_decode_step, rwkv_layer)
 from ..layers.common import randn
+from ..sharding import data
 
 __all__ = ["init_lm_params", "lm_loss", "lm_prefill", "lm_decode",
            "init_lm_cache", "init_lm_cache_quant", "init_lm_paged_pool",
            "lm_paged_decode", "cross_entropy", "chunked_head_loss",
-           "layer_view", "check_ported", "has_kv_cache"]
+           "layer_view", "check_ported", "has_kv_cache", "remat_call",
+           "cache_dtype"]
 
 
 def check_ported(cfg: ArchConfig) -> None:
@@ -87,6 +90,26 @@ def layer_view(tree, i: int):
     if isinstance(tree, dict):
         return {k: layer_view(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``, recomputed in the backward when ``remat`` (the
+    reference's ``jax.checkpoint`` of a layer body): non-reentrant
+    ``torch.utils.checkpoint``, so only ``args`` stay alive between the
+    forward and the backward.  The forward draws no randomness (its
+    quantizers are deterministic, the SR bits are drawn in the backward
+    from the layer's key), so the recomputation is the forward bit for
+    bit."""
+    if not remat:
+        return fn(*args)
+    from torch.utils.checkpoint import checkpoint
+    return checkpoint(_recomputed, fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _recomputed(fn, *args):
+    with recomputed():
+        return fn(*args)
 
 
 def _tx_params(gen: torch.Generator, cfg: ArchConfig, lead=()) -> dict:
@@ -170,7 +193,7 @@ def _stack(trees: list):
 
 
 def _forward_seq(params, h, key, policy: QuantPolicy, cfg: ArchConfig,
-                 positions, want_cache: bool):
+                 positions, want_cache: bool, remat: bool = False):
     """Run the layer stack over a full sequence.  Returns (h, aux, cache):
     ``aux`` the layers' summed MoE load-balance loss (0.0 but for a MoE
     model); cache, when ``want_cache``, the transformer's ``{"k", "v"}``
@@ -178,40 +201,49 @@ def _forward_seq(params, h, key, policy: QuantPolicy, cfg: ArchConfig,
     hybrid's ``(mamba states (n_outer, period, ...), kv (n_outer, ...))``.
     ``key``: ``None`` (forward only) or the key layer ``i`` splits off as
     ``split(key, n_layers)[i]`` (the hybrid: see :func:`_forward_hybrid`).
+    ``remat``: each layer (the hybrid: each outer block) recomputed in the
+    backward (:func:`remat_call`).
     """
     check_ported(cfg)
     if cfg.family == "hybrid":
         return _forward_hybrid(params, h, key, policy, cfg, positions,
-                               want_cache)
+                               want_cache, remat)
     keys = (None if key is None else prng.split(key, cfg.n_layers))
+
+    def rwkv(lp, h, lk):
+        return rwkv_layer(lp, h, lk, policy, cfg, path="layers.rwkv")
+
+    def tx(lp, h, lk):
+        return _tx_layer(lp, h, lk, policy, cfg, positions, want_cache)
+
     outs, aux = [], 0.0
     for i in range(cfg.n_layers):
         lp, lk = layer_view(params["layers"], i), (
             None if keys is None else keys[i])
         if cfg.ssm_kind == "rwkv6":
-            h, out = rwkv_layer(lp, h, lk, policy, cfg, path="layers.rwkv")
+            h, out = remat_call(remat, rwkv, lp, h, lk)
         else:
-            h, a, out = _tx_layer(lp, h, lk, policy, cfg, positions,
-                                  want_cache)
+            h, a, out = remat_call(remat, tx, lp, h, lk)
             aux = aux + a
         outs.append(out)
     return h, aux, (_stack(outs) if want_cache else None)
 
 
-def _forward_hybrid(params, h, key, policy, cfg, positions, want_cache):
+def _forward_hybrid(params, h, key, policy, cfg, positions, want_cache,
+                    remat=False):
     """Zamba2: ``n_outer`` blocks of ``hybrid_period`` Mamba2 layers, each
     followed by the ONE shared transformer block on ``fuse(concat(h,
     h0))``, ``h0`` the stack's input.  Outer block ``o`` keys its layers
     from ``split(split(key, n_outer)[o], period + 1)``: inner layer ``i``
-    takes entry ``i``, the fuse and the shared block the last."""
+    takes entry ``i``, the fuse and the shared block the last.  ``remat``
+    recomputes each outer block whole, as the reference checkpoints its
+    outer scan body."""
     n_outer, period = _n_outer(cfg), cfg.hybrid_period
     h0 = h
     okeys = None if key is None else prng.split(key, n_outer)
-    msts, kvs = [], []
-    for o in range(n_outer):
-        ikeys = (None if okeys is None
-                 else prng.split(okeys[o], period + 1))
-        outer = layer_view(params["layers"], o)
+
+    def block(outer, fuse, shared, h, h0, okey):
+        ikeys = (None if okey is None else prng.split(okey, period + 1))
         inner = []
         for i in range(period):
             h, st = mamba2_layer(layer_view(outer, i), h,
@@ -219,12 +251,20 @@ def _forward_hybrid(params, h, key, policy, cfg, positions, want_cache):
                                  policy, cfg, path="layers.mamba")
             inner.append(st)
         skey = None if ikeys is None else ikeys[-1]
-        z = dense(layer_view(params["fuse"], o), torch.cat([h, h0], dim=-1),
-                  skey, policy, 0x70, "layers.fuse")
-        z2, _, kv = _tx_layer(params["shared"], z, skey, policy, cfg,
-                              positions, want_cache, path="shared")
-        h = h + z2.to(h.dtype)
-        msts.append(_stack(inner) if want_cache else None)
+        z = dense(fuse, torch.cat([h, h0], dim=-1), skey, policy, 0x70,
+                  "layers.fuse")
+        z2, _, kv = _tx_layer(shared, z, skey, policy, cfg, positions,
+                              want_cache, path="shared")
+        return (h + z2.to(h.dtype),
+                _stack(inner) if want_cache else None, kv)
+
+    msts, kvs = [], []
+    for o in range(n_outer):
+        h, mst, kv = remat_call(
+            remat, block, layer_view(params["layers"], o),
+            layer_view(params["fuse"], o), params["shared"], h, h0,
+            None if okeys is None else okeys[o])
+        msts.append(mst)
         kvs.append(kv)
     if not want_cache:
         return h, 0.0, None
@@ -259,20 +299,28 @@ def chunked_head_loss(params, h, labels, key, policy, cfg,
                       n_chunks: int) -> torch.Tensor:
     """lm_head projection + CE, over ``n_chunks`` token chunks when they
     divide the tokens (each chunk's head GEMM keyed ``fold_in(key, c)``, so
-    its SR draws are independent), else in one piece keyed ``key``."""
+    its SR draws are independent), else in one piece keyed ``key``.
+
+    In a step's data group the chunks are the global batch's
+    (``sharding.data.loss_chunks``): this rank runs its part of each chunk
+    its rows meet, under the chunk's index and in the chunk's group.  The
+    mean is over this rank's rows (the step weights it by its share)."""
     d = h.shape[-1]
     h2 = h.reshape(-1, d)
     y2 = labels.reshape(-1)
     R = h2.shape[0]
-    if n_chunks <= 1 or R % n_chunks != 0:
+    pieces = data.loss_chunks(R, n_chunks)
+    if pieces is None:
         logits = lm_head(params["lm_head"], h, key, policy)
         return cross_entropy(logits, labels, cfg.vocab_size)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
-    for c, (h_c, y_c) in enumerate(zip(h2.chunk(n_chunks), y2.chunk(n_chunks))):
-        logits = lm_head(params["lm_head"], h_c,
-                         None if key is None else prng.fold_in(key, c),
-                         policy)
-        total = total + torch.sum(_token_ll(logits, y_c, cfg.vocab_size))
+    for c, lo, hi, group in pieces:
+        with data.use_data_group(group or data.current()):
+            logits = lm_head(params["lm_head"], h2[lo:hi],
+                             None if key is None else prng.fold_in(key, c),
+                             policy)
+        total = total + torch.sum(_token_ll(logits, y2[lo:hi],
+                                            cfg.vocab_size))
     return -total / R
 
 
@@ -298,16 +346,15 @@ def lm_loss(params, batch, key, policy: QuantPolicy, cfg: ArchConfig,
     """Full-sequence training loss (teacher forcing).  Returns
     ``(loss, {"ce": loss, "aux": aux})``; a MoE model adds ``0.01 * aux /
     n_layers`` to the loss (``aux`` summed over the layers), the other
-    families report ``aux`` 0.0.  ``remat`` is accepted and ignored: the
-    port keeps every activation the backward needs."""
-    del remat
+    families report ``aux`` 0.0.  ``remat``: recompute each layer in the
+    backward (:func:`remat_call`); ``dtype``: the activation stream's."""
     h = _input_embed(params, batch)
     if dtype is not None:
         h = h.to(dtype)
     B, T = h.shape[0], h.shape[1]
     pos = _positions(batch, cfg, B, T, h.device)
     h, aux, _ = _forward_seq(params, h, key, policy, cfg, pos,
-                             want_cache=False)
+                             want_cache=False, remat=remat)
     h = apply_norm(params["final_norm"], h, cfg.norm)
     loss = chunked_head_loss(params, h, batch["labels"], key, policy, cfg,
                              loss_chunks)
@@ -317,28 +364,48 @@ def lm_loss(params, batch, key, policy: QuantPolicy, cfg: ArchConfig,
 
 
 def init_lm_cache(cfg: ArchConfig, batch: int, max_seq: int,
-                  device=None) -> dict:
-    """The decode cache: the transformer's fp32 KV ``(L, B, max_seq,
-    flat)``; RWKV6's ``{"state", "index"}`` (states ``(L, ...)``); the
-    hybrid's ``{"mamba", "kv", "index"}`` (Mamba2 states ``(n_outer,
-    period, ...)``, the shared block's KV ``(n_outer, ...)``)."""
+                  dtype=torch.float32, device=None) -> dict:
+    """The decode cache in ``dtype``: the transformer's KV ``(L, B,
+    max_seq, flat)``; RWKV6's ``{"state", "index"}`` (states ``(L,
+    ...)``); the hybrid's ``{"mamba", "kv", "index"}`` (Mamba2 states
+    ``(n_outer, period, ...)``, the shared block's KV ``(n_outer, ...)``).
+    The recurrent states' accumulators stay float32, as the reference
+    keeps them."""
     check_ported(cfg)
     index = torch.zeros((), dtype=torch.int32, device=device)
     if cfg.family == "hybrid":
         n_outer = _n_outer(cfg)
         return {"mamba": init_mamba2_state(
-                    cfg, batch, lead=(n_outer, cfg.hybrid_period),
+                    cfg, batch, dtype, lead=(n_outer, cfg.hybrid_period),
                     device=device),
-                "kv": init_kv_cache(cfg, batch, max_seq, lead=(n_outer,),
-                                    device=device),
+                "kv": init_kv_cache(cfg, batch, max_seq, dtype,
+                                    lead=(n_outer,), device=device),
                 "index": index}
     if cfg.ssm_kind == "rwkv6":
-        return {"state": init_rwkv_state(cfg, batch, lead=(cfg.n_layers,),
+        return {"state": init_rwkv_state(cfg, batch, dtype,
+                                         lead=(cfg.n_layers,),
                                          device=device),
                 "index": index}
-    return {"kv": init_kv_cache(cfg, batch, max_seq, lead=(cfg.n_layers,),
-                                device=device),
+    return {"kv": init_kv_cache(cfg, batch, max_seq, dtype,
+                                lead=(cfg.n_layers,), device=device),
             "index": index}
+
+
+def cache_dtype(cache: dict) -> torch.dtype:
+    """The dtype a decode step runs in: that of the cache's first float
+    leaf in the reference's flatten order (dict keys sorted), float32 when
+    it has none (``_cache_dtype``).  An RWKV6 cache's first is its
+    float32 WKV state."""
+    def first(tree):
+        for k in sorted(tree):
+            v = tree[k]
+            dt = (first(v) if isinstance(v, dict) else
+                  v.dtype if v.dtype in (torch.bfloat16, torch.float32,
+                                         torch.float16) else None)
+            if dt is not None:
+                return dt
+        return None
+    return first(cache) or torch.float32
 
 
 def init_lm_cache_quant(cfg: ArchConfig, batch: int, max_seq: int,
@@ -363,14 +430,18 @@ def _pad_kv(kv: dict, max_seq: int) -> dict:
 
 
 def lm_prefill(params, batch, policy: QuantPolicy, cfg: ArchConfig,
-               max_seq: Optional[int] = None, last_pos=None):
+               max_seq: Optional[int] = None, dtype=None, last_pos=None):
     """Forward the prompt (``tokens``, or a VLM's ``embeds`` and
     ``positions``); return (last-position logits (B, 1, Vp), cache).
 
-    ``last_pos``: optional ``(B,)`` — take each row's logits there instead
-    of at ``T - 1`` (the serving engine right-pads prompts into buckets).
+    ``dtype``: the activation stream's, and so the cache's (the
+    recurrent states' accumulators stay float32).  ``last_pos``: optional
+    ``(B,)`` — take each row's logits there instead of at ``T - 1`` (the
+    serving engine right-pads prompts into buckets).
     """
     h = _input_embed(params, batch)
+    if dtype is not None:
+        h = h.to(dtype)
     B, T = h.shape[0], h.shape[1]
     max_seq = max_seq or T
     pos = _positions(batch, cfg, B, T, h.device)
@@ -416,12 +487,12 @@ def lm_decode(params, cache, batch, policy: QuantPolicy, cfg: ArchConfig,
     ``embeds`` (B, 1, d).
 
     ``positions``: optional ``(B,)`` per-slot positions overriding the
-    cache's ``index``.  The cache (fp or int8 KV layout, or the recurrent
-    states) is updated in place and returned with ``index + 1``.  Returns
-    (logits (B, 1, Vp), cache).
+    cache's ``index``.  The step runs in :func:`cache_dtype`.  The cache
+    (fp or int8 KV layout, or the recurrent states) is updated in place
+    and returned with ``index + 1``.  Returns (logits (B, 1, Vp), cache).
     """
     check_ported(cfg)
-    h = _input_embed(params, batch).to(torch.float32)
+    h = _input_embed(params, batch).to(cache_dtype(cache))
     index = cache["index"] if positions is None else positions
     if cfg.family == "hybrid":
         h0 = h

@@ -122,9 +122,14 @@ def bits(key: torch.Tensor, shape: Sequence[int], device=None,
     (default: the key's) is where the bits are drawn; a single key on
     another device enters as two Python integers.  ``offset`` draws the
     flat indices ``offset + arange(prod(shape))``: bit-identical to the
-    slice ``[offset, offset + n)`` of a larger draw under the same key."""
+    slice ``[offset, offset + n)`` of a larger draw under the same key.
+    On the meta device: an empty tensor of the draw's shape."""
     shape = tuple(int(s) for s in shape)
     device = key.device if device is None else torch.device(device)
+    if device.type == "meta":
+        # no values to draw: the dry run needs the draw's shape only
+        return torch.empty((*key.shape[:-1], *shape), dtype=torch.int64,
+                           device=device)
     n = math.prod(shape)
     idx = torch.arange(n, dtype=torch.int64, device=device)
     if offset:

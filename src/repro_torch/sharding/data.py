@@ -23,6 +23,12 @@ and the quantizers consult the group at their choke points:
 
 Which operands span the batch is said where they are quantized: the FQT
 backward quantizes its output gradient inside :func:`batch_operand`.
+
+The chunked head loss cuts the global batch's flattened rows into
+contiguous chunks (:func:`loss_chunks`).  A chunk's head GEMM runs in a
+group of its own: the ranks that hold its rows (one rank alone, or a run
+of consecutive ranks, :meth:`DataGroup.split`), so its ranges are the
+chunk's and its SR bits and BHQ blocks sit at the chunk's global indices.
 Anywhere else (a replicated operand, such as a weight) the draws and the
 blocks are the flat step's on every rank.
 
@@ -35,12 +41,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 __all__ = ["DataGroup", "use_data_group", "batch_operand", "current",
-           "global_min_max", "sr_offset", "bhq_blocks"]
+           "global_min_max", "sr_offset", "bhq_blocks", "loss_chunks"]
 
 # where the refused cases stand in ROADMAP.md
 STRADDLE_ITEM = "ROADMAP.md queue 1, item 3 (open: BHQ blocks across ranks)"
@@ -49,10 +55,25 @@ STRADDLE_ITEM = "ROADMAP.md queue 1, item 3 (open: BHQ blocks across ranks)"
 @dataclasses.dataclass(frozen=True)
 class DataGroup:
     """The ranks that split a step's batch rows: the process group, this
-    rank's index in it and its size."""
+    rank's index in it and its size.  ``group`` None is one rank alone
+    (no collective); ``runs(k)``, where given, is ``(group, index)`` of
+    this rank's run of ``k`` consecutive ranks, built collectively."""
     group: object
     rank: int
     size: int
+    runs: Optional[Callable] = dataclasses.field(default=None,
+                                                 compare=False)
+
+    def split(self, k: int) -> "DataGroup":
+        """This rank's run of ``k`` consecutive ranks of the group, as a
+        group of its own."""
+        if k == 1:
+            return DataGroup(None, 0, 1)
+        if self.runs is None or self.size % k:
+            raise ValueError(f"a data group of {self.size} ranks has no "
+                             f"runs of {k}")
+        group, index = self.runs(k)
+        return DataGroup(group, index, k)
 
 
 _CURRENT: Optional[DataGroup] = None
@@ -71,17 +92,24 @@ def use_data_group(group: Optional[DataGroup]):
         _CURRENT = prev
 
 
+_SAME = object()
+
+
 @contextlib.contextmanager
-def batch_operand():
+def batch_operand(group=_SAME):
     """Run the block's quantizers on operands that are row shards of the
     batch: their SR draws and BHQ blocks take the rank's global indices
-    (outside a data group this changes nothing)."""
-    global _BATCH
-    prev, _BATCH = _BATCH, True
+    (outside a data group this changes nothing); in ``group`` when given
+    (as :func:`use_data_group`), else in the current group."""
+    global _BATCH, _CURRENT
+    prev = _BATCH, _CURRENT
+    _BATCH = True
+    if group is not _SAME:
+        _CURRENT = group
     try:
         yield
     finally:
-        _BATCH = prev
+        _BATCH, _CURRENT = prev
 
 
 def current() -> Optional[DataGroup]:
@@ -93,7 +121,7 @@ def global_min_max(lo: torch.Tensor, hi: torch.Tensor):
     all-reduce of ``(-lo, hi)``; negation is exact).  The collective runs
     for a group of one too, so a one-rank mesh exercises it."""
     g = _CURRENT
-    if g is None:
+    if g is None or g.group is None:
         return lo, hi
     import torch.distributed as dist
     t = torch.stack([-lo.reshape(()), hi.reshape(())])
@@ -125,3 +153,32 @@ def bhq_blocks(n_rows: int, block_rows: int, n_blocks: int):
             f"rank is not a whole number of bhq_block={block_rows} blocks, "
             f"so a block would straddle ranks ({STRADDLE_ITEM})")
     return g.rank * n_blocks, g.size * n_blocks
+
+
+def loss_chunks(rows: int, n_chunks: int):
+    """The loss chunks that this rank's ``rows`` flattened rows meet, as
+    ``[(c, lo, hi, group)]``: global chunk ``c`` is the local rows
+    ``[lo, hi)``, and its head GEMM runs in ``group`` (None: the flat
+    step).  The global rows (``rows`` on each of the group's ranks, rank
+    order) are cut into ``n_chunks`` contiguous chunks, as the reference
+    cuts its flattened batch; None when they are not cut (``n_chunks <=
+    1``, or it does not divide them).  A chunk lies on one rank, or spans
+    a run of whole ranks; any other cut raises ``ValueError``."""
+    g = _CURRENT
+    total = rows * (1 if g is None else g.size)
+    if n_chunks <= 1 or total % n_chunks:
+        return None
+    cs = total // n_chunks
+    if g is None:
+        return [(c, c * cs, (c + 1) * cs, None) for c in range(n_chunks)]
+    if rows % cs == 0:
+        first = g.rank * (rows // cs)
+        alone = DataGroup(None, 0, 1)
+        return [(first + j, j * cs, (j + 1) * cs, alone)
+                for j in range(rows // cs)]
+    if cs % rows == 0:
+        k = cs // rows
+        return [(g.rank // k, 0, rows, g.split(k))]
+    raise ValueError(
+        f"loss_chunks={n_chunks}: chunks of {cs} rows neither fit whole "
+        f"in a rank's {rows} rows nor span whole ranks")

@@ -164,6 +164,7 @@ class ShardingPlan:
         self.model_size = self.shape.get(model_axis, 1)
         self.dp_size = math.prod(self.shape[a] for a in self.data_axes)
         self._data_group = None
+        self._runs = {}
 
     # -- parameters ---------------------------------------------------------
     def _trailing_spec(self, trailing, shape) -> tuple:
@@ -267,15 +268,33 @@ class ShardingPlan:
                 axis = self.data_axes[0]
                 group = self.mesh.get_group(axis)
             else:
-                names = list(self.mesh.mesh_dim_names)
-                keep = [names.index(a) for a in self.data_axes]
-                rest = [i for i in range(len(names)) if i not in keep]
-                grid = self.mesh.mesh.permute(*rest, *keep).reshape(
-                    -1, self.dp_size)
-                group, _ = dist.new_subgroups_by_enumeration(grid.tolist())
+                group, _ = dist.new_subgroups_by_enumeration(
+                    self._data_grid())
             self._data_group = (group, dist.get_rank(group),
                                 dist.get_world_size(group))
         return self._data_group
+
+    def _data_grid(self) -> list:
+        """The global ranks of every data group, one list each, in the
+        batch's row order."""
+        names = list(self.mesh.mesh_dim_names)
+        keep = [names.index(a) for a in self.data_axes]
+        rest = [i for i in range(len(names)) if i not in keep]
+        return self.mesh.mesh.permute(*rest, *keep).reshape(
+            -1, self.dp_size).tolist()
+
+    def data_runs(self, k: int):
+        """``(process group, this rank's index in it)`` of this rank's run
+        of ``k`` consecutive ranks of its data group (the ranks that share
+        a loss chunk).  Built once per ``k``, collectively: every rank of
+        the mesh calls it."""
+        if k not in self._runs:
+            import torch.distributed as dist
+            runs = [row[i:i + k] for row in self._data_grid()
+                    for i in range(0, len(row), k)]
+            group, _ = dist.new_subgroups_by_enumeration(runs)
+            self._runs[k] = (group, dist.get_rank(group))
+        return self._runs[k]
 
 
 def make_plan(mesh) -> ShardingPlan:

@@ -499,7 +499,8 @@ def test_training_step_runs_through_training_kernels(cuda, quant, bits):
     cfg = get_config("statquant-tx", smoke=True)
     model = build_model(cfg)
     policy = QuantPolicy.fqt(quant, bits, bhq_block=32, backend="kernel")
-    step = make_step_fn(model, policy, adamw(), cosine_schedule(3e-3, 4, 1))
+    step = make_step_fn(model, policy, adamw(), cosine_schedule(3e-3, 4, 1),
+                        remat=False)
     batch = make_batch_for(cfg, 4, 16, step=0)
     metrics = {}
     for dev in ("cpu", "cuda"):
@@ -728,7 +729,8 @@ def test_unfused_training_step_runs_through_quantize_sr(cuda):
     cfg = get_config("statquant-tx", smoke=True)
     model = build_model(cfg)
     policy = QuantPolicy.fqt("psq", 8, backend="kernel", fused=False)
-    step = make_step_fn(model, policy, adamw(), cosine_schedule(3e-3, 4, 1))
+    step = make_step_fn(model, policy, adamw(), cosine_schedule(3e-3, 4, 1),
+                        remat=False)
     batch = make_batch_for(cfg, 4, 16, step=0)
     metrics = {}
     for dev in ("cpu", "cuda"):
@@ -1367,7 +1369,8 @@ def test_moe_serving_and_training_run_through_the_kernels(cuda):
     for dev in ("cpu", "cuda"):
         step = make_step_fn(model, QuantPolicy.fqt("psq", 8,
                                                    backend="kernel"),
-                            adamw(), cosine_schedule(3e-3, 4, 1))
+                            adamw(), cosine_schedule(3e-3, 4, 1),
+                            remat=False)
         state = init_train_state(model, adamw(), 0, device="cpu")
         state = type(state)(params=_tree_to(state.params, dev),
                             opt_state={k: (v if k == "t" else

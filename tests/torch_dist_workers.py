@@ -136,6 +136,40 @@ def scenario_steps(rank, world, out):
     torch.save(res, Path(out) / f"steps.{rank}.pt")
 
 
+# the head loss in chunks of the global batch's rows: the lm_head GEMM
+# quantized (no override keeps it exact), its BHQ agrad in PyTorch, and
+# every quantizer unfused; (mesh shape, loss_chunks): whole chunks on each
+# rank (2x2 two a rank, 4x1 one) and a chunk over two ranks (4x1, 2)
+CHUNK_CONFIGS = [("bhq5-kernel", "bhq", 5, {}, "kernel", None),
+                 ("psq8-kernel-unfused", "psq", 8, {}, "kernel", False)]
+CHUNK_MESHES = [((2, 2), 4), ((4, 1), 4), ((4, 1), 2)]
+
+
+def scenario_chunks(rank, world, out):
+    """The flat runs of CHUNK_CONFIGS at 4 and 2 loss chunks shared out
+    over the ranks, then each rank every config on each (mesh,
+    loss_chunks) of CHUNK_MESHES."""
+    from repro_torch.configs import get_config
+    from repro_torch.engine import Engine
+    from repro_torch.launch.mesh import make_test_mesh
+    cfg = get_config("statquant-tx", smoke=True)
+    rec = CodeRecorder()
+    res = {}
+    flat = [(name, pol, lc) for name, *pol in CHUNK_CONFIGS
+            for lc in sorted({lc for _, lc in CHUNK_MESHES})]
+    for name, pol, lc in flat[rank::world]:
+        res[(name, lc)] = _run(Engine(
+            cfg, _policy(*pol), loss_kwargs={"loss_chunks": lc},
+            **STEP_KW), rec)
+    for shape, lc in CHUNK_MESHES:
+        mesh = make_test_mesh(*shape, device="cpu")
+        for name, *pol in CHUNK_CONFIGS:
+            res[(shape, lc, name)] = _run(Engine(
+                cfg, _policy(*pol), mesh=mesh,
+                loss_kwargs={"loss_chunks": lc}, **STEP_KW), rec)
+    torch.save(res, Path(out) / f"chunks.{rank}.pt")
+
+
 # the compression scenario's inputs, made the same way on the reference side
 PSUM_SHAPE = (33, 7)           # a rank's leaf: 231 elements, padded to 232
 TREE_SHAPES = {"a": (5, 3), "b": {"c": (17,), "d": (2, 2, 3)}}
@@ -352,7 +386,7 @@ def scenario_engine(rank, world, out):
 
 
 SCENARIOS = {"steps": scenario_steps, "compress": scenario_compress,
-             "engine": scenario_engine}
+             "engine": scenario_engine, "chunks": scenario_chunks}
 
 
 def main(argv):
