@@ -2,17 +2,20 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (Hopper, sm_90a).
 
     python3 chip_smoke.py [--seed N]
-    python3 chip_smoke.py --step-wall TREE [TREE ...]
+    python3 chip_smoke.py --step-wall TREE [TREE ...] [--host-only]
+                          [--rounds N]
     python3 chip_smoke.py --phases PHASE [PHASE ...]
 
 The second form only times the GEMM wrappers' host cost a call, the KV
 reads' and SR quantizers' device time, the training step's wall and
 profiles granite's decode step (dense, paged, from packed weights) and
 the unfused training step for the package of each checkout TREE, one
-process each, in the order given (``step_wall_trees``).  The third
+process each, in the order given (``step_wall_trees``); with
+``--host-only`` only the wrappers' host cost, with ``--rounds N`` N
+passes over the trees.  The third
 builds the kernels and runs only the named phases (``ONLY_PHASES``: vlm,
-hybrid, rwkv, audio, moe_serve, moe_train, dist, dryrun), to iterate on
-them; it prints no result line.
+hybrid, rwkv, audio, moe_serve, moe_train, dist, dryrun, audit,
+autotune), to iterate on them; it prints no result line.
 
 From the root of a checkout, on a machine with one CUDA card and the CUDA
 toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
@@ -168,11 +171,8 @@ toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
      over 3.35 TB/s or int8 operations over 1,979 TOP/s, the H100 SXM
      data-sheet peaks), ``q8_matmul`` with an N-major B too, at the
      unfused step's lm_head forward and dW (512, 512, 10240), the int8
-     forward at the fused step's lm_head (512, 512, 10240), and dX,
-     ``q8_matmul`` and dW at lm_head, ``q8_matmul`` at (512, 512, 512)
-     and the int8 forward and both packed kernels (4 bits) at (8, 2048,
-     8192), the packed ones at decode lm_head too, at every split of K
-     (bit-identical to the planned call); the packed kernels at the
+     forward at the fused step's lm_head (512, 512, 10240); the packed
+     kernels at the
      decode up-projection at 8, 4, 2 and 1 bits (at 8 bits also at every
      other decode GEMM of granite), and at lm_head, (128, 2048, 8192) and
      (512, 512, 10240) at 4 bits, with ``torch._int_mm`` on the unpacked
@@ -292,6 +292,29 @@ toolkit.  It imports nothing of JAX or of the JAX package ``repro``.
      One production cell through the CLI (granite-3-2b ``decode_32k`` on
      the 16x16 mesh of a fake process group of 256 ranks).
 
+ 20. ``[audit]`` (``audit_phase``): the quantization-contract audit
+     (``analysis/audit.py``) on the meta device, CPU time only: the engine
+     step of statquant-tx at full width under ``fqt(psq,8)`` and
+     ``fqt(bhq,5)``, the loss and gradient of granite-3-2b at full width
+     and its 40 layers and of whisper-medium at full width
+     (``AUDIT_WHISPER_LAYERS`` layers a stack), on the ``kernel`` backend:
+     coverage 1.0, no violation; coverage, GEMMs and range findings
+     printed.
+ 21. ``[autotune]`` (``autotune_phase``): the autotuner
+     (``kernels/autotune.py``) into a temporary cache at
+     ``autotune.SWEEP_CASES``, on the operands of ``autotune.case_call``:
+     dX, ``q8_matmul`` (K-major B) and dW at lm_head, ``q8_matmul`` at
+     (512, 512, 512), (2048, 2048, 2048) and (128, 2048, 8192), the int8
+     forward and both packed kernels (8 and 4 bits) at (8, 2048, 8192)
+     and at decode lm_head, every tile each kernel was built
+     with (decode and wide) at every split of K, and both KV reads at
+     every body; each candidate through its wrapper, bit-identical to the
+     planned call, which equals the plain version (``[split]`` lines);
+     the split model's pick beside the card's winner (``[autotune]``);
+     ``tile_smem_bytes`` equal to every library's ``_tile`` report;
+     ``analysis.check_kernels`` clean on the shipped defaults and on the
+     tuned cache.
+
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Any failed phase exits non-zero.
@@ -300,8 +323,10 @@ Prints a ``{"kernels": [...]}`` line, then as its last line
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -315,6 +340,9 @@ FP32_OPS_PER_S = 67e12
 # least device spin per timed call (about 2 ms at the H100's clocks), so
 # the host queues every timed call before the card reaches the first
 SPIN_CYCLES_PER_CALL = 4_000_000
+# passes over the wrappers whose median is a wrapper's host time a call
+# (``step_wall``): the host is shared, one pass can read 2x another
+HOST_REPEATS = 9
 KERNEL_TOL = 1e-6                  # max|kernel - plain| <= TOL * max|plain|
 # the repo's cross-backend tolerance (tests/test_backend.py,
 # tests/test_fqt.py)
@@ -357,6 +385,12 @@ def main(argv=None) -> int:
                     help="only time the training step's wall and the GEMM "
                          "wrappers' host time a call, for the package of "
                          "each checkout TREE in turn (one process each)")
+    ap.add_argument("--host-only", action="store_true",
+                    help="with --step-wall: only the GEMM wrappers' host "
+                         "time a call")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="with --step-wall: pass over the trees this many "
+                         "times (one process a tree and round)")
     ap.add_argument("--step-wall-of", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--phases", nargs="+", metavar="PHASE",
                     choices=sorted(ONLY_PHASES),
@@ -365,7 +399,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     if args.step_wall:
-        return step_wall_trees(args.step_wall, args.seed)
+        return step_wall_trees(args.step_wall, args.seed, args.host_only,
+                               args.rounds)
     tree = args.step_wall_of or ROOT
     if not (tree / "src" / "repro_torch").is_dir():
         print(f"chip_smoke.py: no src/repro_torch in {tree}",
@@ -377,7 +412,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(tree / "src"))
     if args.step_wall_of:
-        print(json.dumps(step_wall(torch, args.seed)))
+        print(json.dumps(step_wall(torch, args.seed, args.host_only)))
         return 0
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -452,6 +487,8 @@ def main(argv=None) -> int:
     dist = dist["launches"]
     dry = phase(dryrun_phase, seed, report)["launches"]
     dist = {k: dist.get(k, 0) + dry.get(k, 0) for k in set(dist) | set(dry)}
+    phase(audit_phase, seed, report)
+    phase(autotune_phase, seed, report)
     timings = phase(time_kernels, report)
     serve["profile_decode_step"] = _profile_decode(torch, granite_engine,
                                                    share=KV_SHARE)
@@ -550,22 +587,17 @@ def int8_mma_build(built) -> dict:
     clusters of 1..8 (the library's ``*_capacity``,
     cudaOccupancyMaxActiveClusters, which the wrappers plan with through
     ``splitk.on_card``) beside the table ``kernels/splitk.py`` keeps as
-    its CPU default."""
-    import ctypes
+    its CPU default.  Each tile's stages and shared memory must equal its
+    table's and ``autotune.tile_smem_bytes``'s."""
     import re
-    from repro_torch.kernels import splitk
+    from repro_torch.kernels import autotune, splitk
     from repro_torch.kernels.build import load_library
     out = {}
-    for tile, modes in (
-            (splitk.Q8_TILE, ("K-major", "N-major")),
-            (splitk.DX_TILE, ("SR", "deterministic")),
-            (splitk.DW_TILE, ("", "")),
-            (splitk.FWD_DECODE_TILE, ("SR", "deterministic")),
-            (splitk.FWD_DECODE_SR_TILE, ("SR", "deterministic")),
-            (splitk.FWD_WIDE_TILE, ("SR", "deterministic")),
-            (splitk.FWD_WIDE_SR_TILE, ("SR", "deterministic")),
-            *((t, ("", "")) for t in splitk.PACKED_TILES.values())):
-        lib = tile.lib
+    for tile in (splitk.Q8_TILE, splitk.DX_TILE, splitk.DW_TILE,
+                 splitk.FWD_DECODE_TILE, splitk.FWD_DECODE_SR_TILE,
+                 splitk.FWD_WIDE_TILE, splitk.FWD_WIDE_SR_TILE,
+                 *splitk.PACKED_TILES.values()):
+        lib, modes = tile.lib, splitk.SMEM_VARIANTS[tile.lib]
         log_text = built.get(lib, {}).get("log", "")
         regs = [int(x) for x in re.findall(r"Used (\d+) registers",
                                            log_text)]
@@ -578,6 +610,13 @@ def int8_mma_build(built) -> dict:
         else:
             getattr(load_library(lib), lib + "_tile")(cfg)
         bm, bn, bk, threads, nacc, stages, dyn0, dyn1 = list(cfg)
+        want = (autotune.tile_smem_bytes(tile, 0),
+                autotune.tile_smem_bytes(tile, 1))
+        check([bm, bn, bk, threads, nacc, stages] == [
+            tile.bm, tile.bn, tile.bk, tile.threads, tile.nacc, tile.stages]
+            and (dyn0, dyn1) == tile.smem == want,
+            f"{tile.name}: {lib}_tile reports {list(cfg)}; the table "
+            f"{tile}, tile_smem_bytes {want}")
         dyn = (f"{modes[0]} {dyn0} B / {modes[1]} {dyn1} B" if modes[0]
                else f"{dyn0} B")
         got = splitk.on_card(tile).capacity
@@ -3828,7 +3867,8 @@ ONLY_PHASES = {"vlm": "vlm_phase", "hybrid": "hybrid_phase",
                "rwkv": "rwkv_phase", "audio": "audio_phase",
                "moe_serve": "serve_moe",
                "moe_train": "train_moe", "dist": "dist_phase",
-               "dryrun": "dryrun_phase"}
+               "dryrun": "dryrun_phase", "autotune": "autotune_phase",
+               "audit": "audit_phase"}
 
 
 def family_config(arch, layers=None):
@@ -4888,7 +4928,6 @@ def time_kernels(torch, report) -> dict:
     rows += time_sr(torch, gen, flush, floor,
                     report["sr_device_kernels_per_call"])
     rows += time_train_kernels(torch, gen, flush)
-    report["split_sweep"] = split_sweep(torch, gen, flush)
     rows += time_packed_kernels(torch, gen, flush)
     report["timings"] = rows
 
@@ -5225,101 +5264,131 @@ def time_train_kernels(torch, gen, flush) -> list:
     return rows
 
 
-def split_sweep(torch, gen, flush) -> list:
-    """The int8 tensor-core kernels at every split of K they take (1..8
-    slices, one cluster a tile), through their C entries with the split
-    forced: dX and ``q8_matmul`` (K-major B) at lm_head (512, 10240, 512),
-    ``q8_matmul`` at the unfused step's (512, 512, 512), dW at lm_head (K
-    512, M 512, N 10240), the int8 forward's decode tile at the decode
-    MLP up-projection (8, 2048, 8192), and both packed GEMMs' decode tile
-    at 4 bits there and at lm_head (8, 2048, 49408).  Each split's time
-    and blocks, and
-    each result bit-identical to the planned call's (the int32 sums do not
-    depend on the split)."""
-    from repro_torch.kernels import (fused_qboth_tn_matmul,
-                                     fused_qlhs_matmul, q8_matmul, splitk)
-    from repro_torch.kernels.build import load_function
-    from repro_torch.kernels.fused_fqt import (_QBOTH_ARGTYPES,
-                                               _QLHS_DX_ARGTYPES,
-                                               _QLHS_FWD_ARGTYPES)
-    from repro_torch.kernels.q8_matmul import _ARGTYPES as _Q8_ARGTYPES
-    stream = torch.cuda.current_stream().cuda_stream
+# whisper-medium's depth in [audit] (full width; at 24 + 24 layers its
+# walk takes about 16 s of CPU on the meta device)
+AUDIT_WHISPER_LAYERS = 6
 
-    def ptrs(ops):
-        return [None if t is None else t.data_ptr() for t in ops]
 
-    M, K, N = 512, 10240, 512
-    dx = dx_operands(torch, gen, M, K, N, 8)
-    q8 = q8_operands(torch, gen, M, K, N)
-    q8s = q8_operands(torch, gen, 512, 512, 512)
-    dw = dw_operands(torch, gen, 512, 512, 10240, 8)
-    fwd = qlhs_operands(torch, gen, 8, 2048, 8192)
-    cases = [
-        ("fused_qlhs_matmul_dx", splitk.DX_TILE, (M, K, N),
-         fused_qlhs_matmul(*dx, bits=8, trans_b=True),
-         lambda out, s, span: load_function(
-             "fused_qlhs_dx", "fused_qlhs_dx", _QLHS_DX_ARGTYPES)(
-             *ptrs(dx), out.data_ptr(), M, N, K, 8, s, span, stream)),
-        ("q8_matmul", splitk.Q8_TILE, (M, K, N), q8_matmul(*q8),
-         lambda out, s, span: load_function(
-             "q8_matmul", "q8_matmul", _Q8_ARGTYPES)(
-             *ptrs(q8), out.data_ptr(), M, N, K, 1, s, span, stream)),
-        ("q8_matmul", splitk.Q8_TILE, (512, 512, 512), q8_matmul(*q8s),
-         lambda out, s, span: load_function(
-             "q8_matmul", "q8_matmul", _Q8_ARGTYPES)(
-             *ptrs(q8s), out.data_ptr(), 512, 512, 512, 1, s, span,
-             stream)),
-        ("fused_qboth_tn_matmul", splitk.DW_TILE, (512, 512, 10240),
-         fused_qboth_tn_matmul(*dw, bits_a=8, bits_b=8),
-         lambda out, s, span: load_function(
-             "fused_qboth_tn", "fused_qboth_tn", _QBOTH_ARGTYPES)(
-             *ptrs(dw), out.data_ptr(), 512, 10240, 512, 8, 8, s, span,
-             stream)),
-        ("fused_qlhs_matmul", splitk.FWD_DECODE_TILE, (8, 2048, 8192),
-         fused_qlhs_matmul(*fwd, bits=8),
-         lambda out, s, span: load_function(
-             "fused_qlhs_fwd", "fused_qlhs_fwd", _QLHS_FWD_ARGTYPES)(
-             *ptrs(fwd), out.data_ptr(), 8, 8192, 2048, 8,
-             splitk.FWD_DECODE_TILE.mode, s, span, stream))]
-    # both packed GEMMs' decode tile at 4 bits, at the decode MLP
-    # up-projection and lm_head
-    # (their own names: the cases above read M, K and N when called)
-    for pk, pn in ((2048, 8192), (2048, 49408)):
-        for name, lib, ref, call in _packed_calls(torch, gen, 8, pk, pn, 4,
-                                                  stream):
-            tile = splitk.packed_tile(lib, 8, 4)
-            fn = load_function(lib, lib, _packed_argtypes(lib))
-            cases.append((name, tile, (8, pk, pn), ref,
-                          lambda out, s, span, fn=fn, call=call, tile=tile:
-                          call(fn, out, tile.mode, s, span)))
+def audit_phase(torch, seed, report) -> list:
+    """``[audit]``: the quantization-contract audit (``analysis/audit.py``)
+    on the meta device, CPU time only: the full engine step of
+    statquant-tx at full width under ``fqt(psq,8)`` and ``fqt(bhq,5)``,
+    and the loss and gradient of granite-3-2b at full width and its 40
+    layers and of whisper-medium at full width (``AUDIT_WHISPER_LAYERS``
+    a stack), every GEMM walked, on the ``kernel`` backend: coverage 1.0,
+    no violation, no range finding that fails."""
+    from repro_torch.analysis import audit_model, audit_step
+    from repro_torch.configs import get_config
+    from repro_torch.core import QuantPolicy
+
+    def pol(q, bits):
+        return QuantPolicy.fqt(q, bits, backend="kernel")
+    runs = [("statquant-tx engine step, fqt(psq,8)", audit_step,
+             get_config("statquant-tx"), pol("psq", 8)),
+            ("statquant-tx engine step, fqt(bhq,5)", audit_step,
+             get_config("statquant-tx"), pol("bhq", 5)),
+            ("granite-3-2b, 40 layers, fqt(psq,8)", audit_model,
+             get_config("granite-3-2b"), pol("psq", 8)),
+            (f"whisper-medium, {AUDIT_WHISPER_LAYERS} + "
+             f"{AUDIT_WHISPER_LAYERS} layers, fqt(psq,8)", audit_model,
+             family_config("whisper-medium", AUDIT_WHISPER_LAYERS),
+             pol("psq", 8))]
     rows = []
-    for name, tile, shape, ref, call in cases:
-        # (M, K, N) of the GEMM; dW's shape is (K, M, N), its grid M x N
-        gm, gk, gn = ((shape[1], shape[0], shape[2])
-                      if name == "fused_qboth_tn_matmul" else shape)
-        p = splitk.plan(splitk.on_card(tile), gm, gn, gk)
-        steps = -(-gk // tile.bk)
-        for s in range(1, 9):
-            per = -(-steps // s)
-            if -(-steps // per) != s:
-                continue
-            out = torch.empty_like(ref)
-            check(call(out, s, per * tile.bk) == 0, f"{tile.name} split "
-                                                   f"{s}: launch failed")
-            torch.cuda.synchronize()
-            same = torch.equal(out, ref)
-            check(same, f"{tile.name} split {s}: differs from the planned "
-                        f"call")
-            ms = _time_ms(torch, lambda: call(out, s, per * tile.bk), flush,
-                          20)
-            blocks = p.tiles * s
-            is_plan = s == p.splits
-            rows.append(dict(kernel=name, tile=tile.name, shape=list(shape),
-                             splits=s, blocks=blocks, ms=ms, planned=is_plan))
-            log(f"[split] {tile.name} {tuple(shape)} {s} slices, {blocks} "
-                f"blocks: {ms:.4f} ms{' (planned)' if is_plan else ''}, "
-                f"bit-identical to the planned call")
+    for title, fn, cfg, policy in runs:
+        t0 = time.perf_counter()
+        r = fn(cfg, policy)
+        s = time.perf_counter() - t0
+        ranges = [str(f) for f in r.range_findings]
+        log(f"[audit] {title}: {len(r.sites)} GEMMs, coverage "
+            f"{100 * r.coverage:.1f}%, {len(r.violations)} violations, "
+            f"exempt {sorted(r.exemptions)}, ranges {ranges}, {s:.1f}s")
+        check(r.ok and r.coverage == 1.0, f"[audit] {title}:\n{r.format()}")
+        rows.append(dict(title=title, gemms=len(r.sites),
+                         coverage=r.coverage, violations=len(r.violations),
+                         role_flops=r.role_flops(), ranges=ranges, seconds=s))
+    report["audit"] = rows
     return rows
+
+
+def autotune_phase(torch, seed, report) -> list:
+    """``[autotune]``: the autotuner (``kernels/autotune.py``) on the card
+    at each case of ``autotune.SWEEP_CASES`` (the int8 tensor-core kernels at
+    every tile they were built with, decode and wide where there are both,
+    and every split of K; both KV reads at each body), into a temporary
+    cache.  Each candidate runs through its wrapper (``autotune.forced``)
+    and is held bit for bit to the planned call, which is held to the
+    plain version; ``[split]`` lines give each one's time and blocks, an
+    ``[autotune]`` line the split model's pick beside the card's winner.
+    Then ``analysis.check_kernels`` clean on the shipped defaults and on
+    the tuned cache (``int8_mma_build`` holds ``tile_smem_bytes`` to each
+    library's ``_tile`` report for every tile)."""
+    import tempfile
+    from repro_torch.analysis import check_kernels
+    from repro_torch.kernels import autotune as at
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    rows = []
+    saved = os.environ.get(at.ENV_CACHE)
+    with tempfile.TemporaryDirectory() as tmp:
+        cache_file = os.path.join(tmp, "tuning.json")
+        os.environ[at.ENV_CACHE] = cache_file
+        at.reset_cache()
+        try:
+            for kernel, shape, dtype in at.SWEEP_CASES:
+                rows.append(_autotune_case(torch, at, kernel, shape, dtype,
+                                           gen, flush))
+            tuned = check_kernels(cache_file)
+            shipped = check_kernels(os.path.join(tmp, "absent.json"))
+        finally:
+            if saved is None:
+                os.environ.pop(at.ENV_CACHE, None)
+            else:
+                os.environ[at.ENV_CACHE] = saved
+            at.reset_cache()
+    for name, rep in (("shipped defaults", shipped), ("tuned cache", tuned)):
+        log(f"[autotune] check_kernels on the {name}: "
+            f"{'OK' if rep.ok else 'ERRORS'}, {rep.n_shipped} shipped, "
+            f"{rep.n_cache} cached entries, {len(rep.findings)} findings")
+        check(rep.ok, f"check_kernels on the {name}:\n{rep.format()}")
+    tiles = report["int8_mma_build"]
+    log(f"[autotune] tile_smem_bytes equals every library's _tile report "
+        f"({len(tiles)} tiles, [build]; largest "
+        f"{max(max(r['dynamic_smem']) for r in tiles.values())} B of "
+        f"{at.SMEM_BUDGET_BYTES})")
+    report["autotune"] = dict(cases=rows)
+    return rows
+
+
+def _autotune_case(torch, at, kernel, shape, dtype, gen, flush):
+    """One ``[autotune]`` case (``autotune.tune_case`` on the operands of
+    ``autotune.case_call``, with the smoke's timer); returns its row."""
+    r = at.tune_case(kernel, shape, dtype, gen,
+                     timer=lambda fn: _time_ms(torch, fn, flush, 20) * 1e3)
+    check(not r["skipped"], f"{kernel} {shape} {dtype}: candidates "
+                            f"{r['skipped']} failed to launch")
+
+    def label(entry):
+        return (f"body {entry['body']}" if "body" in entry
+                else f"{entry['tile']} {entry['splits']} slices")
+    times = {}
+    for key, us in r["us"].items():
+        entry = json.loads(key)
+        times[label(entry)] = us / 1e3
+        blocks = ("" if "body" in entry else
+                  f", {at.resolve(kernel, shape, entry, dtype).blocks} blocks")
+        tags = [t for t in ("model", "planned") if r[t] == entry]
+        log(f"[split] {kernel} {shape} {dtype} {label(entry)}{blocks}: "
+            f"{us / 1e3:.4f} ms{' (' + ', '.join(tags) + ')' if tags else ''}"
+            f", bit-identical to the planned call and the plain version")
+    best, model, planned = r["best"], r["model"], r["planned"]
+    best_ms, model_ms = times[label(best)], times[label(model)]
+    log(f"[autotune] {kernel} {shape} {dtype}: model {label(model)} "
+        f"{model_ms:.4f} ms, planned {label(planned)} "
+        f"{times[label(planned)]:.4f} ms, card's best {label(best)} "
+        f"{best_ms:.4f} ms (model/best {model_ms / best_ms:.3f})")
+    return dict(kernel=kernel, shape=list(shape), dtype=dtype, model=model,
+                planned=planned, best=best, model_ms=model_ms,
+                best_ms=best_ms, times_ms=times)
 
 
 def _host_us(torch, fn, calls: int = 200) -> float:
@@ -5336,10 +5405,12 @@ def _host_us(torch, fn, calls: int = 200) -> float:
     return host / calls * 1e6
 
 
-def step_wall(torch, seed) -> dict:
+def step_wall(torch, seed, host_only=False) -> dict:
     """For the ``repro_torch`` on ``sys.path``: each FQT GEMM wrapper's
-    host time a call (``_host_us``) at the statquant-tx step's (512, 512,
-    512) and the forward at the decode (8, 2048, 8192), both packed GEMMs'
+    host time a call (the median of ``HOST_REPEATS`` passes of
+    ``_host_us`` over the wrappers in turn) at the statquant-tx step's
+    (512, 512, 512) and the forward at the decode (8, 2048, 8192), and
+    with ``host_only`` nothing more; else also both packed GEMMs'
     device time at 4 bits (``_time_ms``) at the decode (8, 2048, 8192),
     (128, 2048, 8192) and (512, 512, 10240), the KV reads' device time
     (``kv_times``), the SR quantizers' device time and device kernels a
@@ -5367,19 +5438,23 @@ def step_wall(torch, seed) -> dict:
     dx = dx_operands(torch, gen, 512, 512, 512, 8)
     dw = dw_operands(torch, gen, 512, 512, 512, 8)
     q8 = q8_operands(torch, gen, 512, 512, 512)
-    host = {
+    calls = {
         "fused_qlhs_matmul (512, 512, 512)":
-            _host_us(torch, lambda: fused_qlhs_matmul(*fwd, bits=8)),
+            lambda: fused_qlhs_matmul(*fwd, bits=8),
         "fused_qlhs_matmul (8, 2048, 8192)":
-            _host_us(torch, lambda: fused_qlhs_matmul(*dec, bits=8)),
+            lambda: fused_qlhs_matmul(*dec, bits=8),
         "fused_qlhs_matmul dX (512, 512, 512)":
-            _host_us(torch, lambda: fused_qlhs_matmul(*dx, bits=8,
-                                                      trans_b=True)),
+            lambda: fused_qlhs_matmul(*dx, bits=8, trans_b=True),
         "fused_qboth_tn_matmul (512, 512, 512)":
-            _host_us(torch, lambda: fused_qboth_tn_matmul(*dw, bits_a=8,
-                                                          bits_b=8)),
-        "q8_matmul (512, 512, 512)": _host_us(torch, lambda: q8_matmul(*q8)),
+            lambda: fused_qboth_tn_matmul(*dw, bits_a=8, bits_b=8),
+        "q8_matmul (512, 512, 512)": lambda: q8_matmul(*q8),
     }
+    passes = [{name: _host_us(torch, fn) for name, fn in calls.items()}
+              for _ in range(HOST_REPEATS)]
+    host = {name: float(np.median([p[name] for p in passes]))
+            for name in calls}
+    if host_only:
+        return dict(host_us_per_call=host)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     packed_us = {}
     for (M, K, N) in ((8, 2048, 8192), (128, 2048, 8192), (512, 512, 10240)):
@@ -5516,25 +5591,42 @@ def decode_profiles(torch, seed) -> dict:
     return res
 
 
-def step_wall_trees(trees, seed) -> int:
+def step_wall_trees(trees, seed, host_only=False, rounds=1) -> int:
     """``step_wall`` for each checkout in ``trees``, in order, one process
-    each (a tree's package builds into its own ``build/``); prints each
-    result and a table, and writes them to chiprun_out/step_wall.json."""
+    each (a tree's package builds into its own ``build/``), ``rounds``
+    passes over them; prints each result and a table, and writes them to
+    chiprun_out/step_wall.json."""
+    import numpy as np
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, check=True).stdout.strip())
     res = []
-    for tree in trees:
+    for tree in list(trees) * rounds:
         r = subprocess.run([sys.executable, str(Path(__file__).resolve()),
                             "--seed", str(seed), "--step-wall-of",
-                            str(tree.resolve())], capture_output=True,
-                           text=True)
+                            str(tree.resolve())]
+                           + ["--host-only"] * host_only,
+                           capture_output=True, text=True)
         if r.returncode != 0:
             print(r.stdout[-4000:], r.stderr[-4000:], file=sys.stderr)
             return r.returncode
         out = json.loads(r.stdout.strip().splitlines()[-1])
         res.append(dict(tree=str(tree), **out))
         log(f"[step wall] {tree}: " + json.dumps(out))
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "step_wall.json").write_text(json.dumps(res, indent=1))
+    for name in res[0]["host_us_per_call"]:
+        spread = {}
+        for r in res:
+            spread.setdefault(r["tree"], []).append(
+                r["host_us_per_call"][name])
+        log(f"[step wall] {name}, host us a call, min-median-max over "
+            f"its processes: " + " | ".join(
+                f"{t} ({len(v)}) {min(v):.2f}-{float(np.median(v)):.2f}-"
+                f"{max(v):.2f}" for t, v in spread.items()))
+    if host_only:
+        return 0
     for name in res[0]["decode"]:
         log(f"[step wall] decode step {name}: " + " | ".join(
             f"{r['tree']} busy {r['decode'][name]['busy_ms']:.2f} ms, "
@@ -5565,9 +5657,6 @@ def step_wall_trees(trees, seed) -> int:
             log(f"[step wall] {name}: "
                 + " | ".join(f"{r['tree']} {v}"
                              for r, v in zip(res, vals)) + unit)
-    out = ROOT / "chiprun_out"
-    out.mkdir(exist_ok=True)
-    (out / "step_wall.json").write_text(json.dumps(res, indent=1))
     return 0
 
 
@@ -5621,7 +5710,7 @@ def _packed_calls(torch, gen, M, K, N, wbits, stream):
     planned result through the wrapper (checked bit for bit against the
     plain version), and ``call(fn, out, mode, splits, k_span)``, which
     runs C entry ``fn`` on the same operands with the split forced (what
-    ``split_sweep`` times)."""
+    ``packed_kernel_vs_plain`` forces)."""
     from repro_torch.kernels import (fused_qlhs_packed_matmul,
                                      fused_qlhs_packed_matmul_plain,
                                      packed_matmul, packed_matmul_plain)

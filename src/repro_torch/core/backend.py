@@ -33,10 +33,9 @@ GEMMs (Eq. 6).  Backends:
                 torch ops; a packed weight is unpacked first, as the
                 reference's ``packed_matmul_xla`` does.  Every role runs
                 unfused (the library product has no quantize to fuse), so
-                ``fused=True`` has no effect there.  On CUDA ``_int_mm``
-                wants M > 16 and K, N multiples of 8: the operands are
-                zero-padded and the product sliced back
-                (``padded_int_mm``).
+                ``fused=True`` has no effect there.  On CUDA the operands
+                of ``_int_mm`` are zero-padded to multiples of 32 and the
+                product sliced back (``padded_int_mm``).
 
 SR bits are ``prng.bits(key, shape)`` drawn on the operand's device, the
 same draw the unfused quantizers make for that key, so the fused and
@@ -56,6 +55,7 @@ import torch
 
 from .. import prng
 from ..sharding import data
+from ..kernels.codes import int_mm, padded_int_mm
 from ..kernels.fused_fqt import (fused_qboth_tn_matmul, fused_qlhs_matmul,
                                  fused_qlhs_packed_matmul)
 from ..kernels.pack import PackedTensor
@@ -137,30 +137,6 @@ def apply_epilogue(acc: torch.Tensor, rs, cs, r2, u, a, b) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Code-level GEMM dispatch
 # ---------------------------------------------------------------------------
-
-def int_mm(a8: torch.Tensor, b8: torch.Tensor) -> torch.Tensor:
-    """The exact int32 product ``a8 @ b8`` of int8 codes through
-    ``torch._int_mm`` (the ``native`` backend); on CUDA through
-    :func:`padded_int_mm`."""
-    if a8.device.type == "cuda":
-        return padded_int_mm(a8, b8)
-    return torch._int_mm(a8, b8)
-
-
-def padded_int_mm(a8: torch.Tensor, b8: torch.Tensor) -> torch.Tensor:
-    """``torch._int_mm`` with the operands zero-padded to what CUDA's
-    wants (M > 16, K and N multiples of 8: here M >= 32) and the result
-    sliced back; zero codes add nothing to the product."""
-    M, K = a8.shape
-    N = b8.shape[1]
-    Mp = max(32, -(-M // 8) * 8)
-    Kp, Np = -(-K // 8) * 8, -(-N // 8) * 8
-    if (Mp, Kp) != (M, K):
-        a8 = torch.nn.functional.pad(a8, (0, Kp - K, 0, Mp - M))
-    if (Kp, Np) != (K, N):
-        b8 = torch.nn.functional.pad(b8, (0, Np - N, 0, Kp - K))
-    return torch._int_mm(a8, b8)[:M, :N]
-
 
 def q8_gemm(a8: torch.Tensor, alpha_a, beta_a, b8: torch.Tensor, alpha_b,
             beta_b, *, backend: str, bias=None) -> torch.Tensor:
@@ -348,6 +324,21 @@ def fused_fqt_fwd(x2: torch.Tensor, wq: Union[QTensor, PackedTensor],
     Returns (y, scale_x, zero_x) — the scale/zero are the residuals the
     backward rematerializes the activation codes from."""
     _check_backend(backend, "the fused forward")
+    args, scale, zero = fwd_operands(x2, wq, bits_act, zero_scale)
+    if isinstance(wq, PackedTensor):
+        y = fused_qlhs_packed_matmul(*args, bits=bits_act, wbits=wq.bits)
+    else:
+        y = fused_qlhs_matmul(*args, bits=bits_act)
+    return y, scale, zero
+
+
+def fwd_operands(x2: torch.Tensor, wq: Union[QTensor, PackedTensor],
+                 bits_act: int, zero_scale=None):
+    """The arguments of the fused forward, ``(x2, scale_a, zero_a, b,
+    alpha_b, beta_b, u)`` with ``b`` the packed weight for a
+    :class:`PackedTensor` (``fused_qlhs_packed_matmul``) or ``None`` and
+    the int8 codes (``fused_qlhs_matmul``'s ``rbits`` and ``b8``), and
+    x2's per-tensor (scale, zero)."""
     M, K = x2.shape
     zero, scale = (_ptq_range(x2, bits_act) if zero_scale is None
                    else zero_scale)
@@ -357,17 +348,14 @@ def fused_fqt_fwd(x2: torch.Tensor, wq: Union[QTensor, PackedTensor],
         alpha_b, beta_b = _packed_scalars(wq)
         colsum = wq.colsum.reshape(-1).to(torch.float32)
         u = alpha_b * colsum + float(K) * beta_b
-        y = fused_qlhs_packed_matmul(
-            x2.contiguous(), sa, za, wq.packed.reshape(-1, wq.shape[-1]),
-            alpha_b, beta_b, u, bits=bits_act, wbits=wq.bits)
-        return y, scale, zero
+        return ((x2.contiguous(), sa, za, wq.packed.reshape(-1, wq.shape[-1]),
+                 alpha_b, beta_b, u), scale, zero)
     w8 = wq.int8_codes.reshape(-1, wq.shape[-1])
     alpha_b, beta_b = affine_factors(wq.scale, wq.zero, wq.bits)
     colsum = w8.to(torch.int32).sum(dim=0).to(torch.float32)
     u = alpha_b * colsum + float(K) * beta_b
-    y = fused_qlhs_matmul(x2.contiguous(), sa, za, None, w8, alpha_b, beta_b,
-                          u, bits=bits_act)
-    return y, scale, zero
+    return ((x2.contiguous(), sa, za, None, w8, alpha_b, beta_b, u), scale,
+            zero)
 
 
 def fused_fqt_dx(g2: torch.Tensor, key, spec, wq: QTensor, *, backend: str,
@@ -378,11 +366,19 @@ def fused_fqt_dx(g2: torch.Tensor, key, spec, wq: QTensor, *, backend: str,
     are stored.  ``rbits`` (default: ``prng.bits(key, g2.shape)``) are the
     SR bits the unfused quantizer would draw for this key."""
     _check_backend(backend, "the fused activation grad")
+    if rbits is None:
+        rbits = _sr_bits(key, g2)
+    return fused_qlhs_matmul(*dx_operands(g2, spec, wq, rbits),
+                             bits=spec.bits or 8, trans_b=True)
+
+
+def dx_operands(g2: torch.Tensor, spec, wq: QTensor, rbits: torch.Tensor):
+    """The arguments of ``fused_qlhs_matmul(trans_b=True)`` for the
+    activation grad: ``(g2, scale_g, zero_g, rbits, w8, alpha_b, beta_b,
+    u)``, g2's range per row (PSQ) or per tensor (PTQ)."""
     bits = spec.bits or 8
     B = float((1 << bits) - 1)
     M, N = g2.shape
-    if rbits is None:
-        rbits = _sr_bits(key, g2)
     if spec.name == "psq":
         zg = torch.amin(g2, dim=-1, keepdim=True)
         sg = range_scale(B, torch.amax(g2, dim=-1, keepdim=True) - zg)
@@ -395,8 +391,7 @@ def fused_fqt_dx(g2: torch.Tensor, key, spec, wq: QTensor, *, backend: str,
     # the B operand is w8.T: its colsum over the contraction is w8's rowsum
     rowsum = w8.to(torch.int32).sum(dim=1).to(torch.float32)
     u = alpha_b * rowsum + float(N) * beta_b              # (Kw,)
-    return fused_qlhs_matmul(g2.contiguous(), sg, zg, rbits, w8, alpha_b,
-                             beta_b, u, bits=bits, trans_b=True)
+    return g2.contiguous(), sg, zg, rbits, w8, alpha_b, beta_b, u
 
 
 def dw_operands(x2: torch.Tensor, scale_x, zero_x, bits_act: int,

@@ -20,9 +20,11 @@ leak.  This module draws the line between the two:
 The reference's markers are ``jax.named_scope`` names (trace-time
 metadata, free at run time).  Here they are ``torch.profiler.
 record_function`` ranges of the same names, opened only while a profiler
-records: outside one a marker costs a flag check, so the host-bound
-training step pays nothing for them.  The registry and the argument
-checks run on every call, as in the reference.
+records; while a GEMM-site walk runs (``analysis/graph.py``), which
+cannot read profiler ranges, a marker pushes its name onto the walk's
+stack instead (:func:`walking`).  Outside both a marker costs two flag
+checks, so the host-bound training step pays nothing for them.  The
+registry and the argument checks run on every call, as in the reference.
 """
 
 from __future__ import annotations
@@ -30,12 +32,13 @@ from __future__ import annotations
 import contextlib
 import re
 import threading
-from typing import Dict, Iterator
+from typing import Dict, Iterator, List, Optional
 
 import torch
 
 __all__ = ["fp_exempt", "quant_scope", "key_scope", "exemption_registry",
-           "clear_exemptions", "MARKER_RE", "KEY_SCOPE_RE", "GEMM_ROLES"]
+           "clear_exemptions", "walking", "walk_stack", "MARKER_RE",
+           "KEY_SCOPE_RE", "GEMM_ROLES"]
 
 # Roles a quant_scope marker may claim.  "fwd" also covers the gradients
 # of an exact-pinned forward GEMM (the whole matmul is full precision).
@@ -67,9 +70,47 @@ def _check_path(path: str) -> None:
         raise ValueError(f"path={path!r} may not contain '[' or ']'")
 
 
+# The marker names open while a GEMM-site walk runs, innermost last; None
+# outside a walk.  One list for every thread: the autograd engine may run
+# a backward on a thread of its own, where the FQT backward's scopes open,
+# and the walk's dispatch reads the stack there.
+_WALK: Optional[List[str]] = None
+
+
+@contextlib.contextmanager
+def walking():
+    """Markers push their names onto a fresh walk stack (not re-entrant:
+    one walk at a time)."""
+    global _WALK
+    if _WALK is not None:
+        raise RuntimeError("a GEMM-site walk is already running")
+    _WALK = []
+    try:
+        yield
+    finally:
+        _WALK = None
+
+
+def walk_stack() -> tuple:
+    """The marker names open now in the running walk, innermost last."""
+    return tuple(_WALK) if _WALK is not None else ()
+
+
+@contextlib.contextmanager
+def _pushed(name: str):
+    stack = _WALK
+    stack.append(name)
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
 def _marker(name: str):
-    """A profiler range named ``name`` while a profiler records, else a
-    no-op context."""
+    """The walk's stack entry ``name`` while a walk runs, a profiler range
+    named ``name`` while a profiler records, else a no-op context."""
+    if _WALK is not None:
+        return _pushed(name)
     if torch.autograd._profiler_enabled():
         return torch.profiler.record_function(name)
     return contextlib.nullcontext()

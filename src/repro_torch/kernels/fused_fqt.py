@@ -36,9 +36,8 @@ outside.  SR bits are uint32 values held in int64, as ``prng.bits`` draws
 them; the kernels take that int64 buffer as it is and read each entry's
 low 32 bits as unsigned (modulo 2^32: values >= 2^31 never saturate), so
 no wrapper converts or copies them.  The plain versions
-evaluate the code GEMM in float64, which is exact for any K the models
-reach (products <= 2^14, sums far below 2^53), so they equal the kernels'
-int32 accumulation.
+take the code GEMM from ``torch._int_mm`` (``kernels/codes.py``), the
+kernels' int32 accumulation, and the code sums in float64 (exact).
 """
 
 from __future__ import annotations
@@ -48,9 +47,10 @@ from typing import Optional
 
 import torch
 
-from . import splitk
+from . import autotune
 from .build import load_function
 from .checks import as_float32, check_bits, check_tensor
+from .codes import int_mm
 from .pack import codes_per_byte, max_safe_k_packed, unpack_tile
 
 __all__ = ["fused_qlhs_matmul", "fused_qlhs_matmul_plain", "qlhs_codes",
@@ -100,11 +100,11 @@ def fused_qlhs_matmul_plain(xf: torch.Tensor, scale_a: torch.Tensor,
     """Plain PyTorch version of :func:`fused_qlhs_matmul`, every mode."""
     check_bits("fused_qlhs_matmul_plain", bits)
     _shape_nk(xf, y8, trans_b, "fused_qlhs_matmul_plain")
-    c = qlhs_codes(xf, scale_a, zero_a, rbits, bits=bits).to(torch.float64)
-    w = y8.to(torch.float64)
-    acc = c @ (w.T if trans_b else w)
-    return qlhs_epilogue(acc, c.sum(dim=1), scale_a, zero_a, alpha_b,
-                         beta_b, u_vec, bits=bits)
+    c = qlhs_codes(xf, scale_a, zero_a, rbits, bits=bits)
+    w = y8.to(torch.int8)
+    acc = int_mm(c.to(torch.int8), w.T if trans_b else w)
+    return qlhs_epilogue(acc, c.to(torch.float64).sum(dim=1), scale_a,
+                         zero_a, alpha_b, beta_b, u_vec, bits=bits)
 
 
 def qlhs_codes(xf: torch.Tensor, scale_a: torch.Tensor, zero_a: torch.Tensor,
@@ -180,13 +180,13 @@ def fused_qlhs_matmul(xf: torch.Tensor, scale_a: torch.Tensor,
             out.data_ptr(), M, N, K, bits)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if trans_b:
-        p = splitk.plan(splitk.on_card(splitk.DX_TILE), M, N, K)
+        p = autotune.lookup_tiles("fused_dx", (M, K, N))
         fn = load_function("fused_qlhs_dx", "fused_qlhs_dx",
                            _QLHS_DX_ARGTYPES)
         err = fn(*args, p.splits, p.k_span, stream)
     else:
-        p = splitk.plan(splitk.on_card(splitk.fwd_tile(M, rbits is not None)),
-                        M, N, K)
+        p = autotune.lookup_tiles("fused_fwd", (M, K, N),
+                                  sr=rbits is not None)
         fn = load_function("fused_qlhs_fwd", "fused_qlhs_fwd",
                            _QLHS_FWD_ARGTYPES)
         err = fn(*args, p.tile.mode, p.splits, p.k_span, stream)
@@ -272,8 +272,8 @@ def fused_qlhs_packed_matmul(xf: torch.Tensor, scale_a: torch.Tensor,
     check_tensor(name, "u_vec", u_vec, torch.float32, (N,), dev)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     lib = "fused_qlhs_packed"
-    p = splitk.plan(splitk.on_card(splitk.packed_tile(lib, M, wbits)), M, N,
-                    K)
+    p = autotune.lookup_tiles("fused_packed", (M, K, N),
+                              autotune.WIDTH_DTYPES[wbits])
     fn = load_function(lib, lib, _QLHS_PACKED_ARGTYPES)
     err = fn(xf.data_ptr(), scale_a.data_ptr(), zero_a.data_ptr(),
              packed.data_ptr(), alpha_b.data_ptr(), beta_b.data_ptr(),
@@ -308,10 +308,10 @@ def fused_qboth_tn_matmul_plain(af: torch.Tensor, scale_a, zero_a,
     K, _, _ = _qboth_shapes(af, bf, "fused_qboth_tn_matmul_plain")
     ca, cb = qboth_codes(af, scale_a, zero_a, bf, scale_b, zero_b, rbits,
                          bits_a=bits_a, bits_b=bits_b)
-    cb64 = cb.to(torch.float64)
-    return qboth_epilogue(ca.to(torch.float64).T @ cb64, cb64.sum(dim=0), K,
-                          scale_a, zero_a, scale_b, zero_b, a_vec,
-                          bits_a=bits_a, bits_b=bits_b)
+    acc = int_mm(ca.to(torch.int8).T, cb.to(torch.int8))
+    return qboth_epilogue(acc, cb.to(torch.float64).sum(dim=0), K, scale_a,
+                          zero_a, scale_b, zero_b, a_vec, bits_a=bits_a,
+                          bits_b=bits_b)
 
 
 def qboth_codes(af: torch.Tensor, scale_a, zero_a, bf: torch.Tensor,
@@ -383,7 +383,7 @@ def fused_qboth_tn_matmul(af: torch.Tensor, scale_a, zero_a,
     check_tensor(name, "rbits", rbits, torch.int64, (K, N), dev)
     check_tensor(name, "a_vec", a_vec, torch.float32, (M,), dev)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
-    p = splitk.plan(splitk.on_card(splitk.DW_TILE), M, N, K)
+    p = autotune.lookup_tiles("fused_dw", (M, K, N))
     fn = load_function("fused_qboth_tn", "fused_qboth_tn", _QBOTH_ARGTYPES)
     err = fn(af.data_ptr(), scale_a.data_ptr(), zero_a.data_ptr(),
              bf.data_ptr(), scale_b.data_ptr(), zero_b.data_ptr(),

@@ -18,6 +18,7 @@ import ctypes
 
 import torch
 
+from . import autotune
 from .build import load_function
 from .checks import check_bits, check_tensor
 
@@ -47,11 +48,14 @@ def kv_dequant_rows_kv_plain(k, v, bits: int = 8):
                  for c, s, z in (k, v))
 
 
-def _launch(name, sides, M, N, bits, clamp, body=0):
+def _launch(name, sides, M, N, bits, clamp, body=None):
     """One launch of the C entry ``kv_dequant`` over ``sides`` (each
     ``(codes8, scale, zero)``, already checked); returns (sides, M, N).
-    ``body``: the kernel body (0 the default; ``csrc/kv_dequant.cu``),
-    which chip_smoke.py times one against another."""
+    ``body``: the kernel body (``csrc/kv_dequant.cu``: 0 the entry's own
+    choice, 1 bulk, 2 element), by default the one ``kernels/autotune.py``
+    resolves for (M, N)."""
+    if body is None:
+        body = autotune.lookup_tiles("kv_dequant", (M, N))
     dev = sides[0][0].device
     out = torch.empty((len(sides), M, N), dtype=torch.float32, device=dev)
     k, v = sides[0], sides[-1]

@@ -25,6 +25,7 @@ import ctypes
 
 import torch
 
+from . import autotune
 from .build import load_function
 from .checks import check_bits, check_tensor
 
@@ -70,13 +71,16 @@ def kv_gather_pages_kv_plain(k, v, table: torch.Tensor, bits: int = 8):
     return tuple(kv_gather_pages_plain(*side, table, bits) for side in (k, v))
 
 
-def _launch(name, sides, table, bits, body=0):
+def _launch(name, sides, table, bits, body=None):
     """One launch of the C entry ``kv_gather`` over ``sides`` (each
     ``(codes, scale, zero)``) through ``table``, every operand checked
-    here; returns (sides, B, nb*P, D) f32.  ``body``: the kernel body (0
-    the default; ``csrc/kv_gather.cu``), which chip_smoke.py times one
-    against another."""
+    here; returns (sides, B, nb*P, D) f32.  ``body``: the kernel body
+    (``csrc/kv_gather.cu``: 0 the entry's own choice, 1 bulk, 2 element),
+    by default the one ``kernels/autotune.py`` resolves for (B, nb, P,
+    D)."""
     n_pages, P, D, B, nb = _shapes(sides[0][0], table, name)
+    if body is None:
+        body = autotune.lookup_tiles("kv_gather", (B, nb, P, D))
     dev = sides[0][0].device
     for i, (codes, scale, zero) in enumerate(sides):
         tag = ("k ", "v ")[i] if len(sides) == 2 else ""

@@ -59,8 +59,8 @@ def fused_qlinear(x: torch.Tensor, w: torch.Tensor, key, act_bits: int = 8,
     ax, bx = affine_factors(sx, zx, act_bits)           # per-row (M, 1)
     aw, bw = affine_factors(sw, wq.zero, weight_bits)   # per-tensor scalars
     coeffs = epilogue_coeffs(cx, ax, bx, cw, aw, bw)
-    matmul = q8_matmul if use_kernels else q8_matmul_plain
-    y = matmul(cx, cw, *(c.contiguous() for c in coeffs))
+    gemm = q8_matmul if use_kernels else q8_matmul_plain
+    y = gemm(cx, cw, *(c.contiguous() for c in coeffs))
     return y, {"cx": cx, "cw": cw, "sx": sx, "sw": sw}
 
 

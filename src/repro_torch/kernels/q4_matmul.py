@@ -16,8 +16,8 @@ with ``acc`` the exact integer GEMM of the shifted codes (``u``'s column sum
 runs over the *unpacked* codes; ``PackedTensor.colsum`` holds it).  Packing
 pads K to a multiple of ``ppb`` with code 0, which is not the shifted zero:
 kernel and plain version both mask ``row >= kdim``.  The plain version
-unpacks with shifts and masks and accumulates in float64, exact for any K
-the models reach, so it equals the kernel's int32 sum.
+unpacks with shifts and masks and sums through ``torch._int_mm``
+(``kernels/codes.py``), the kernel's int32 sum.
 """
 
 from __future__ import annotations
@@ -26,9 +26,10 @@ import ctypes
 
 import torch
 
-from . import splitk
+from . import autotune
 from .build import load_function
 from .checks import check_bits, check_tensor
+from .codes import int_mm
 from .pack import codes_per_byte, max_safe_k_packed, unpack_tile
 from .q8_matmul import q8_epilogue
 
@@ -64,8 +65,7 @@ def packed_matmul_plain(x8, packed, rs, cs, r2, u, a, b, *, wbits: int,
     """Plain PyTorch version of :func:`packed_matmul`."""
     _check_packed_gemm("packed_matmul_plain", x8, packed, wbits, kdim)
     w = unpack_tile(packed, wbits)[:kdim] - (1 << (wbits - 1))
-    return q8_epilogue(x8.to(torch.float64) @ w.to(torch.float64), rs, cs,
-                       r2, u, a, b)
+    return q8_epilogue(int_mm(x8, w.to(torch.int8)), rs, cs, r2, u, a, b)
 
 
 def packed_matmul(x8: torch.Tensor, packed: torch.Tensor, rs: torch.Tensor,
@@ -96,8 +96,8 @@ def packed_matmul(x8: torch.Tensor, packed: torch.Tensor, rs: torch.Tensor,
                         ("u", u, N), ("a", a, M), ("b", b, N)):
         check_tensor(name, vname, v, torch.float32, (n,), dev)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
-    p = splitk.plan(splitk.on_card(splitk.packed_tile(name, M, wbits)), M,
-                    N, kdim)
+    p = autotune.lookup_tiles("q4_matmul", (M, kdim, N),
+                              autotune.WIDTH_DTYPES[wbits])
     fn = load_function(name, name, _ARGTYPES)
     err = fn(x8.data_ptr(), packed.data_ptr(), rs.data_ptr(), cs.data_ptr(),
              r2.data_ptr(), u.data_ptr(), a.data_ptr(), b.data_ptr(),

@@ -9,8 +9,8 @@ The epilogue is
     out[i,j] = acc[i,j]*(rs_i*cs_j) + r2_i*u_j + a_i + b_j
 
 with ``acc`` the exact integer code GEMM (``core/backend.py`` derives the
-coefficient vectors).  The plain version evaluates ``acc`` in float64,
-exact for any K the models reach, so it equals the kernel's int32 sum.
+coefficient vectors).  The plain version takes ``acc`` from
+``torch._int_mm`` (``kernels/codes.py``), the kernel's int32 sum.
 
 ``y8`` may be a row-major (K, N) tensor or the transpose of a row-major
 (N, K) one (strides ``(1, K)``): the BHQ activation-grad GEMM passes
@@ -24,9 +24,10 @@ import ctypes
 
 import torch
 
-from . import splitk
+from . import autotune
 from .build import load_function
 from .checks import check_tensor
+from .codes import int_mm
 
 __all__ = ["q8_matmul", "q8_matmul_plain", "q8_epilogue"]
 
@@ -46,8 +47,7 @@ def q8_matmul_plain(x8, y8, rs, cs, r2, u, a, b) -> torch.Tensor:
     """Plain PyTorch version.  x8: (M, K) int8; y8: (K, N) int8;
     rs/r2/a: (M,); cs/u/b: (N,) f32.  Returns (M, N) f32."""
     _shape_mkn(x8, y8, "q8_matmul_plain")
-    acc = x8.to(torch.float64) @ y8.to(torch.float64)
-    return q8_epilogue(acc, rs, cs, r2, u, a, b)
+    return q8_epilogue(int_mm(x8, y8), rs, cs, r2, u, a, b)
 
 
 def q8_epilogue(acc, rs, cs, r2, u, a, b) -> torch.Tensor:
@@ -69,7 +69,8 @@ def q8_matmul(x8: torch.Tensor, y8: torch.Tensor, rs: torch.Tensor,
 
     On a CUDA tensor this launches the kernel (counted in
     ``q8_matmul.launches``): one device launch, whatever the split of K
-    (``kernels/splitk.py``).  On a CPU tensor it runs the plain version."""
+    (``kernels/splitk.py``, as ``kernels/autotune.py`` resolves it).  On a
+    CPU tensor it runs the plain version."""
     M, K, N = _shape_mkn(x8, y8, "q8_matmul")
     if x8.device.type in ("cpu", "meta"):
         return q8_matmul_plain(x8, y8, rs, cs, r2, u, a, b)
@@ -84,7 +85,7 @@ def q8_matmul(x8: torch.Tensor, y8: torch.Tensor, rs: torch.Tensor,
                         ("u", u, N), ("a", a, M), ("b", b, N)):
         check_tensor(name, vname, v, torch.float32, (n,), dev)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
-    p = splitk.plan(splitk.on_card(splitk.Q8_TILE), M, N, K)
+    p = autotune.lookup_tiles("q8_matmul", (M, K, N))
     fn = load_function("q8_matmul", "q8_matmul", _ARGTYPES)
     err = fn(x8.data_ptr(), y8.data_ptr(), rs.data_ptr(), cs.data_ptr(),
              r2.data_ptr(), u.data_ptr(), a.data_ptr(), b.data_ptr(),

@@ -11,7 +11,8 @@ operation as it dispatches (:class:`Counter`):
 
   * GEMM FLOPs: ``2 M N K`` at every ``mm``, ``bmm``, ``addmm``,
     ``baddbmm`` and ``_int_mm`` (``torch.utils.flop_counter`` has no
-    ``_int_mm``): the attention products, the quantized GEMMs (on the
+    ``_int_mm``; the table is ``analysis/graph.py``'s, which the GEMM-site
+    walker reads too): the attention products, the quantized GEMMs (on the
     ``kernel`` backend their plain versions, whose products are the
     kernels'), the recomputation of a ``remat`` step;
   * bytes: the operand and result bytes of every operation that is not a
@@ -67,6 +68,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from .. import meta
+from ..analysis.graph import GEMM_OPS, gemm_flops
 from ..configs import ARCH_NAMES, SHAPES, ShapeSpec, get_config, shape_grid
 from ..core import QuantPolicy
 from ..engine import (abstract_train_state, make_step_fn, place_state,
@@ -90,8 +92,6 @@ BYTES_NOTE = ("bytes_accessed: operand and result bytes of every "
               "optimizer state or cache the call updates or makes written "
               "once, a lower bound (the roofline's memory_s)")
 
-_GEMM = {"mm": (0, 1), "_int_mm": (0, 1), "addmm": (1, 2), "bmm": (0, 1),
-         "baddbmm": (1, 2)}
 # c10d ops take their result (in place) as the first argument; the
 # functional ones return it
 _C10D = {"allreduce_": "all-reduce", "allreduce_coalesced_": "all-reduce",
@@ -125,13 +125,6 @@ def _tensors(x):
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
-
-
-def _gemm_flops(name: str, args) -> int:
-    a, b = (args[i] for i in _GEMM[name])
-    if a.dim() == 2:
-        return 2 * a.shape[0] * a.shape[1] * b.shape[1]
-    return 2 * a.shape[0] * a.shape[1] * a.shape[2] * b.shape[2]
 
 
 class Counter(TorchDispatchMode, meta.Counting):
@@ -198,8 +191,8 @@ class Counter(TorchDispatchMode, meta.Counting):
             self.coll.extend([(table[name], nb)] * self.scale)
         elif ns == "aten" and not func.is_view:
             self.ops += self.scale
-            if name in _GEMM:
-                self.gemm_flops += _gemm_flops(name, args) * self.scale
+            if name in GEMM_OPS:
+                self.gemm_flops += gemm_flops(name, args) * self.scale
                 self.gemm_calls += self.scale
             if self.gemms_only:
                 return out

@@ -120,10 +120,17 @@ def _decay(p, xw):
         return torch.exp(-torch.exp(p["w0"] + lora))
 
 
+_WKV_REASON = ("WKV recurrence: elementwise/outer-product state math on "
+               "(hd x hd) blocks, no linear-layer GEMM (DESIGN.md Sec. 5 "
+               "arch-applicability)")
+
+
 def _wkv_step(r, k, v, w, u, s, t):
     """Token ``t`` of the recurrence: (y_t (B, H, hd), S_t)."""
-    kv = torch.einsum("bhk,bhv->bhkv", k[:, t], v[:, t])
-    y = torch.einsum("bhk,bhkv->bhv", r[:, t], s + u[None, :, :, None] * kv)
+    with fp_exempt("rwkv.wkv", _WKV_REASON):
+        kv = torch.einsum("bhk,bhv->bhkv", k[:, t], v[:, t])
+        y = torch.einsum("bhk,bhkv->bhv", r[:, t],
+                         s + u[None, :, :, None] * kv)
     return y, w[:, t, ..., None] * s + kv
 
 
@@ -134,10 +141,7 @@ def _wkv_scan(r, k, v, w, u, s0):
     y_t = r_t (S_{t-1} + diag(u) k_t^T v_t);  S_t = diag(w_t) S_{t-1} +
     k_t^T v_t.  Returns (y (B, T, H, hd), final state).  On the meta
     device (the dry run) one step stands for all (:class:`_MetaWKV`)."""
-    with fp_exempt("rwkv.wkv",
-                   "WKV recurrence: elementwise/outer-product state math on "
-                   "(hd x hd) blocks, no linear-layer GEMM (DESIGN.md Sec. 5 "
-                   "arch-applicability)"):
+    with fp_exempt("rwkv.wkv", _WKV_REASON):
         if meta.is_meta(r):
             return _MetaWKV.apply(r, k, v, w, u, s0)
         s, ys = s0, []

@@ -37,6 +37,7 @@ from repro_torch.engine import Engine, TrainState  # noqa: E402
 from repro_torch.launch.train import train_loop  # noqa: E402
 from repro_torch.optim import tree_leaves  # noqa: E402
 from repro_torch.runtime import PreemptionHandler  # noqa: E402
+from torch_one_thread import one_intra_op_thread  # noqa: E402,F401
 
 RTOL, ATOL = 1e-3, 5e-3
 

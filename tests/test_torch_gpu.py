@@ -1249,8 +1249,8 @@ def test_from_checkpoint_serves_through_the_kernels(cuda, tmp_path):
 
 
 def test_native_backend_matches_simulate_on_the_card(cuda):
-    """``native`` (``torch._int_mm``, operands padded to its M > 16 and K,
-    N multiples of 8) against ``simulate`` on the card: forward and both
+    """``native`` (``torch._int_mm``, operands zero-padded to multiples of
+    32) against ``simulate`` on the card: forward and both
     backward GEMMs of a ragged 33 x 17 x 9 call to float32 round-off, and a
     reduced statquant-tx step's loss and gradient norm within the repo's
     cross-backend tolerance."""

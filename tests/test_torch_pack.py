@@ -47,6 +47,7 @@ from repro_torch.kernels import (fused_qlhs_packed_matmul,  # noqa: E402
                                  fused_qlhs_packed_matmul_plain,
                                  packed_matmul, packed_matmul_plain)
 from repro_torch.serve.engine import _pack_leaf  # noqa: E402
+from torch_one_thread import one_intra_op_thread  # noqa: E402,F401
 
 BITS = (1, 2, 4, 8)
 SHAPES = [(1, 1), (3, 5), (33, 65), (67, 17), (130, 2)]

@@ -30,6 +30,7 @@ from repro_torch.kernels import PackedTensor  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serve import (ServeEngine, pack_dense_weights,  # noqa: E402
                                weight_nbytes)
+from torch_one_thread import one_intra_op_thread  # noqa: E402,F401
 
 ARCHS = ("statquant-tx", "granite-3-2b")
 _PARAMS = {}

@@ -36,6 +36,7 @@ from repro_torch.kernels import (kv_gather_pages,  # noqa: E402
 from repro_torch.serve import (PagedServeEngine, PagePool,  # noqa: E402
                                PrefixCache, ServeEngine, greedy_accept)
 from repro_torch.serve.paged import GARBAGE_PAGE  # noqa: E402
+from torch_one_thread import one_intra_op_thread  # noqa: E402,F401
 
 JCFG = jax_config("statquant-tx", smoke=True)
 CFG = get_config("statquant-tx", smoke=True)

@@ -28,6 +28,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import QuantPolicy  # noqa: E402
 from repro_torch.engine import Engine  # noqa: E402
 from repro_torch.serve import PagedServeEngine, ServeEngine  # noqa: E402
+from torch_one_thread import one_intra_op_thread  # noqa: E402,F401
 
 ARCH = "statquant-tx"
 

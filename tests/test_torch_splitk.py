@@ -146,7 +146,8 @@ SWEPT = [(splitk.Q8_TILE, (512, 10240, 512), 8),
          (splitk.Q8_TILE, (512, 512, 512), 4),
          (splitk.DX_TILE, (512, 10240, 512), 6),
          (splitk.DW_TILE, (512, 512, 10240), 2),
-         (splitk.FWD_DECODE_TILE, (8, 2048, 8192), 7)]
+         (splitk.FWD_DECODE_TILE, (8, 2048, 8192), 6),
+         (splitk.Q8_TILE, (128, 2048, 8192), 2)]
 
 
 @pytest.mark.parametrize("tile,mkn,splits", SWEPT,
@@ -157,6 +158,66 @@ def test_one_reduction_model_takes_the_swept_split(tile, mkn, splits):
     found fastest (or within 1.5 us of it)."""
     M, K, N = mkn
     assert splitk.plan(tile, M, N, K).splits == splits
+
+
+def test_a_partial_last_wave_is_charged_its_share():
+    """The first wave costs a whole wave however few its blocks; a
+    partial last wave after it, the blocks it puts on the busiest SM over
+    those a full wave puts there (blocks that read little a step)."""
+    def w(blocks, slots):
+        return splitk._waves(blocks, slots, 1.0)
+    assert w(193, 264) == w(32, 396) == w(264, 264) == 1.0
+    # two blocks an SM (the decode tile): a last wave of 122 blocks, one
+    # on each of 122 SMs, is half a wave
+    assert w(386, 264) == 1.5
+    assert w(528, 264) == 2.0
+    # three an SM (q8_matmul): a whole wave of three an SM takes 1.5
+    # waves' time (PACE_BLOCKS), a last one of 232 blocks, two on the
+    # busiest SM, one
+    assert w(1024, 396) == 2 * 1.5 + 1.0
+    assert w(256, 396) == w(132, 396) == 1.0
+    # one an SM (dX, dW): any tail is a whole wave
+    assert w(128, 120) == w(240, 120) == 2.0
+    assert w(160, 132) == 2.0
+
+
+def test_a_wave_that_reads_more_than_a_step_of_memory_stretches():
+    """A wave whose blocks together read more than ``STEP_BYTES`` a K
+    step takes proportionally longer; the partial wave's share is its
+    floor."""
+    step = splitk.STEP_BYTES
+    assert splitk._waves(264, 264, step / 264) == 1.0
+    assert splitk._waves(264, 264, 2 * step / 264) == 2.0
+    # a whole wave at twice the bytes, then 122 blocks at 122 / 264 of
+    # them: above the share of half a wave
+    assert splitk._waves(386, 264, 2 * step / 264) == 2.0 + 2 * 122 / 264
+
+
+@pytest.mark.parametrize("lib", splitk.PACKED_LIBS)
+def test_partial_wave_takes_two_slices_at_decode_lm_head(lib):
+    """At decode lm_head (8, 2048, 49408) w4 the card's split sweep had
+    two slices faster than one: the packed forward 45.3 against 49.7 us,
+    packed_matmul 42.3 against 44.6 (NVIDIA H100 80GB HBM3, 700 W).  One
+    slice is one wave of 193 blocks; two are a whole wave of 264 and a
+    last one of 122, one block an SM, charged half a wave: 1.5 waves of 16
+    steps and a reduction against one of 32.  At 4 bits the 264 blocks
+    read 2.2 MB a step, under ``STEP_BYTES``."""
+    p = splitk.plan(splitk.packed_tile(lib, 8, 4), 8, 49408, 2048)
+    assert (p.tiles, p.splits, p.blocks) == (193, 2, 386)
+
+
+@pytest.mark.parametrize("tile", [splitk.FWD_DECODE_TILE] + [
+    splitk.packed_tile(lib, 8, 8) for lib in splitk.PACKED_LIBS],
+    ids=lambda t: t.name)
+def test_eight_bit_decode_lm_head_takes_one_slice(tile):
+    """At 8 bits two slices at decode lm_head were slower than one on the
+    card: the int8 forward 65.1 against 55.3 us, the packed forward 64.7
+    against 55.8, packed_matmul 63.2 against 55.5 (NVIDIA H100 80GB HBM3,
+    700 W).  Their first wave of 264 blocks reads 4.3 MB a K step, more
+    than ``STEP_BYTES``: it waits on memory, and one slice of 193 blocks
+    (3.2 MB a step) wins."""
+    p = splitk.plan(tile, 8, 49408, 2048)
+    assert (p.tiles, p.splits, p.blocks) == (193, 1, 193)
 
 
 @pytest.mark.parametrize("mkn", [(512, 10240, 512), (256, 1030, 200),

@@ -36,6 +36,7 @@ from repro_torch.data import make_batch_for  # noqa: E402
 from repro_torch.interop import params_from_jax  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.optim import tree_leaves, tree_map  # noqa: E402
+from torch_one_thread import one_intra_op_thread  # noqa: E402,F401
 
 F32 = 1e-5
 RTOL, ATOL = 1e-3, 5e-3

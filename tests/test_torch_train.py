@@ -20,6 +20,7 @@ from repro_torch.data import SyntheticLM, make_batch_for  # noqa: E402
 from repro_torch.engine import Engine, make_step_fn  # noqa: E402
 from repro_torch.launch.train import main  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from torch_one_thread import one_intra_op_thread  # noqa: E402,F401
 
 
 @pytest.mark.parametrize("lo,hi", [(0, 10_000), (0, 509), (-5, 70_000),

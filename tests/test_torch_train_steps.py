@@ -56,6 +56,7 @@ from repro_torch.engine import make_step_fn  # noqa: E402
 from repro_torch.interop import train_state_from_jax  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.optim import adamw, cosine_schedule  # noqa: E402
+from torch_one_thread import one_intra_op_thread  # noqa: E402,F401
 
 RTOL, ATOL = 1e-3, 5e-3
 

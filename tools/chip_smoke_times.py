@@ -28,7 +28,8 @@ PHASES = ["kernel_vs_plain", "train_kernel_vs_plain", "serve_granite",
           "train_packed", "ckpt_train", "ckpt_serve", "native_train",
           "theory_phase", "serve_moe", "train_moe", "vlm_phase",
           "hybrid_phase", "rwkv_phase", "audio_phase", "ops_phase",
-          "dist_phase", "time_kernels"]
+          "dist_phase", "dryrun_phase", "audit_phase", "autotune_phase",
+          "time_kernels"]
 HELPERS = ["_profile", "_wall_ms", "_event_averages", "_replay",
            "_replay_plain", "_step_gemms", "_backward_vs",
            "_gemms_vs_simulate", "_full_width_vs_simulate", "_vs_plain",
@@ -40,7 +41,7 @@ HELPERS = ["_profile", "_wall_ms", "_event_averages", "_replay",
            "_profile_decode", "_profile_paged_decode", "_stepwise",
            "_record_sampling_logits", "_explain_divergence",
            "kv_pairs_vs_plain", "time_sr", "sr_sweep", "time_kv",
-           "time_train_kernels", "split_sweep", "time_packed_kernels",
+           "time_train_kernels", "_autotune_case", "time_packed_kernels",
            "time_floor", "_time_ms", "_host_us"]
 
 SECONDS = collections.defaultdict(float)
